@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of neural waveshaping synthesis (NEWT).
+
+A second package beside the JAX one (``neural_waveshaping_synthesis_tpu``),
+which stays the reference: every module here keeps its counterpart's name
+and is held against it by the ``tests/test_torch_*.py`` parity tests.
+
+The port imports ``torch``, numpy and scipy only — never JAX, and nothing
+of the JAX package. Public functions keep the JAX code's channels-last
+``(B, T, C)`` layout; randomness comes from ``torch.Generator``s.
+
+Entry points run on ``device="cuda"`` unless the caller asks for
+``device="cpu"``, and raise when CUDA is asked for but missing
+(:mod:`.device`). The slice ported so far is offline float32 inference:
+:class:`inference.resynthesis.Synthesizer` renders control signals to
+audio through :class:`models.neural_waveshaping.NeuralWaveshaping`, whose
+FiLM -> shaper -> FiLM block runs the hand-written CUDA kernel in
+:mod:`kernels.newt_fused` on the card.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,262 @@
+"""Core learned modules (counterpart of the JAX ``models/modules.py``).
+
+Parameters keep the JAX package's layouts, so one parameter tree drives
+both sides of a parity test:
+
+  * dense ``w`` is (in, out) and ``b`` (out,): ``y = x @ w + b``;
+  * LayerNorm ``scale``/``bias`` are (C,);
+  * the shaper's layer ``w`` is (C, W_in, W_out) and ``b`` (C, W_out);
+  * the GRU's ``w_ih`` is (in, 3H), ``w_hh`` (H, 3H), gates (r, z, n).
+
+Each module's ``load_params(tree)`` copies a tree of that layout in (see
+``convert/checkpoint.py``). The GRU runs as ``nn.GRU`` (cuDNN on the
+card), so its weights are stored transposed inside and transposed back
+on the way in; the JAX package likewise left its GRU to the compiler.
+Fresh modules are built on the CPU (move them with ``.to(device)``) and
+draw torch's default initialisation, uniform within +-1/sqrt(fan_in),
+from the CPU ``generator`` they are given.
+"""
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.fastmath import fast_sin
+
+Params = Dict
+
+
+def _uniform(shape, bound, generator) -> nn.Parameter:
+    t = torch.empty(shape, dtype=torch.float32)
+    return nn.Parameter(t.uniform_(-bound, bound, generator=generator))
+
+
+@torch.no_grad()
+def _load(dst: torch.Tensor, src) -> None:
+    src = torch.as_tensor(src, dtype=dst.dtype)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {tuple(src.shape)} does not fit {tuple(dst.shape)}")
+    dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# dense, FiLM, LayerNorm
+# ---------------------------------------------------------------------------
+def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """(..., in) -> (..., out): ``x @ w + b``."""
+    return torch.matmul(x, p["w"]) + p["b"]
+
+
+def film(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Feature-wise linear modulation: gamma * x + beta."""
+    return gamma * x + beta
+
+
+def layer_norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, statistics in float32 (population
+    variance, as ``jnp.var``)."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * p["scale"] + p["bias"]).to(x.dtype)
+
+
+class Dense(nn.Module):
+    def __init__(self, in_size: int, out_size: int, generator=None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_size)
+        self.w = _uniform((in_size, out_size), bound, generator)
+        self.b = _uniform((out_size,), bound, generator)
+
+    def load_params(self, p: Params) -> None:
+        _load(self.w, p["w"])
+        _load(self.b, p["b"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_apply({"w": self.w, "b": self.b}, x)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, size: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(size))
+        self.bias = nn.Parameter(torch.zeros(size))
+
+    def load_params(self, p: Params) -> None:
+        _load(self.scale, p["scale"])
+        _load(self.bias, p["bias"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_apply({"scale": self.scale, "bias": self.bias}, x)
+
+
+# ---------------------------------------------------------------------------
+# TimeDistributedMLP
+# ---------------------------------------------------------------------------
+class TimeDistributedMLP(nn.Module):
+    """Per-timestep MLP: ``depth`` dense layers with LayerNorm and
+    LeakyReLU(0.01) between them; depth >= 3 as in the reference."""
+
+    def __init__(
+        self, in_size: int, hidden_size: int, out_size: int, depth: int = 3,
+        generator=None,
+    ):
+        super().__init__()
+        if depth < 3:
+            raise ValueError("Depth must be at least 3")
+        self.dense = nn.ModuleList()
+        self.norms = nn.ModuleList()
+        for i in range(depth):
+            ins = in_size if i == 0 else hidden_size
+            outs = hidden_size if i < depth - 1 else out_size
+            self.dense.append(Dense(ins, outs, generator))
+            if i < depth - 1:
+                self.norms.append(LayerNorm(outs))
+
+    def load_params(self, p: Params) -> None:
+        for i, layer in enumerate(p["layers"]):
+            self.dense[i].load_params(layer["dense"])
+            if i < len(self.norms):
+                self.norms[i].load_params(layer["norm"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, in) -> (B, T, out)."""
+        for i, dense in enumerate(self.dense):
+            x = dense(x)
+            if i < len(self.norms):
+                x = F.leaky_relu(self.norms[i](x), negative_slope=0.01)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# TrainableNonlinearity — the bank of learned scalar waveshapers
+# ---------------------------------------------------------------------------
+_ACTIVATIONS = {"sine": fast_sin, "sine_exact": torch.sin, "relu": torch.relu}
+
+
+def shaper_apply(
+    p: Params,
+    x: torch.Tensor,
+    nonlinearity: str = "sine",
+    final_nonlinearity: str = "sine",
+) -> torch.Tensor:
+    """(B, T, C) -> (B, T, C), each channel through its own scalar MLP:
+    the JAX einsum form, ``h <- act(einsum("btcw,cwv->btcv", h, w) + b)``."""
+    act, final_act = _ACTIVATIONS[nonlinearity], _ACTIVATIONS[final_nonlinearity]
+    h = (x * p["input_scale"])[..., None]  # (B, T, C, 1)
+    layers = p["layers"]
+    for i, layer in enumerate(layers):
+        h = torch.einsum("btcw,cwv->btcv", h, layer["w"]) + layer["b"]
+        h = act(h) if i < len(layers) - 1 else final_act(h)
+    return h[..., 0]
+
+
+class TrainableNonlinearity(nn.Module):
+    """C independent scalar shaping functions, each a width-W MLP
+    1 -> W -> ... -> 1 (``input_scale`` drawn randn*10, as the reference)."""
+
+    def __init__(
+        self, channels: int, width: int, depth: int = 3,
+        nonlinearity: str = "sine", final_nonlinearity: str = "sine",
+        generator=None,
+    ):
+        super().__init__()
+        self.channels, self.width, self.depth = channels, width, depth
+        self.nonlinearity, self.final_nonlinearity = nonlinearity, final_nonlinearity
+        scale = torch.randn(channels, generator=generator) * 10.0
+        self.input_scale = nn.Parameter(scale)
+        self.weights = nn.ParameterList()
+        self.biases = nn.ParameterList()
+        for i in range(depth):
+            w_in = 1 if i == 0 else width
+            w_out = width if i < depth - 1 else 1
+            bound = 1.0 / math.sqrt(w_in)
+            self.weights.append(_uniform((channels, w_in, w_out), bound, generator))
+            self.biases.append(_uniform((channels, w_out), bound, generator))
+
+    def params(self) -> Params:
+        """The parameters as a tree in the JAX layout (views, not copies)."""
+        return {
+            "input_scale": self.input_scale,
+            "layers": [{"w": w, "b": b} for w, b in zip(self.weights, self.biases)],
+        }
+
+    def load_params(self, p: Params) -> None:
+        _load(self.input_scale, p["input_scale"])
+        for i, layer in enumerate(p["layers"]):
+            _load(self.weights[i], layer["w"])
+            _load(self.biases[i], layer["b"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return shaper_apply(self.params(), x, self.nonlinearity, self.final_nonlinearity)
+
+
+# ---------------------------------------------------------------------------
+# GRU + ControlModule
+# ---------------------------------------------------------------------------
+class GRU(nn.Module):
+    """Single-layer batch-first GRU with torch gate order (r, z, n).
+
+    Loads JAX-layout weights (``w_ih`` (in, 3H), ``w_hh`` (H, 3H)) into
+    an ``nn.GRU``, which runs the recurrence (cuDNN on the card)."""
+
+    def __init__(self, input_size: int, hidden_size: int, generator=None):
+        super().__init__()
+        self.rnn = nn.GRU(input_size, hidden_size, batch_first=True)
+        bound = 1.0 / math.sqrt(hidden_size)
+        with torch.no_grad():
+            for w in self.rnn.parameters():
+                w.uniform_(-bound, bound, generator=generator)
+
+    def load_params(self, p: Params) -> None:
+        _load(self.rnn.weight_ih_l0, torch.as_tensor(p["w_ih"]).T)
+        _load(self.rnn.weight_hh_l0, torch.as_tensor(p["w_hh"]).T)
+        _load(self.rnn.bias_ih_l0, p["b_ih"])
+        _load(self.rnn.bias_hh_l0, p["b_hh"])
+
+    def forward(
+        self, x: torch.Tensor, h0: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, in) -> ((B, T, H), final h (B, H))."""
+        ys, h_n = self.rnn(x, None if h0 is None else h0[None])
+        return ys, h_n[0]
+
+
+class ControlModule(nn.Module):
+    """GRU(control_size -> hidden) + dense projection to the embedding."""
+
+    def __init__(
+        self, control_size: int = 2, hidden_size: int = 128, embedding_size: int = 128,
+        generator=None,
+    ):
+        super().__init__()
+        self.gru = GRU(control_size, hidden_size, generator)
+        self.proj = Dense(hidden_size, embedding_size, generator)
+
+    def load_params(self, p: Params) -> None:
+        self.gru.load_params(p["gru"])
+        self.proj.load_params(p["proj"])
+
+    def forward(
+        self, control: torch.Tensor, h0: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, control_size) -> ((B, T, E), final GRU state (B, H))."""
+        ys, h_final = self.gru(control, h0)
+        return self.proj(ys), h_final
+
+
+__all__: List[str] = [
+    "Dense",
+    "LayerNorm",
+    "TimeDistributedMLP",
+    "TrainableNonlinearity",
+    "GRU",
+    "ControlModule",
+    "dense_apply",
+    "film",
+    "layer_norm_apply",
+    "shaper_apply",
+]

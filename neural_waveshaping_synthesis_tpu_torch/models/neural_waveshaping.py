@@ -1,0 +1,89 @@
+"""The full NEWT synthesizer graph (counterpart of the JAX
+``models/neural_waveshaping.py`` ``NeuralWaveshaping.apply``, here
+``forward``):
+
+    f0 (B, Tc) Hz --linear upsample--> f0 (B, Ta)
+        '-> harmonic oscillator (B, Ta, 101) --mixer--> exciter (B, Ta, 64)
+    control (B, Tc, 2) --GRU+proj--> embedding (B, Tc, 128)
+        |-> NEWT: FiLM > shaper bank > FiLM > mix --> (B, Ta, 1)
+        '-> noise MLP > H (B, Tc, 129) > FIR noise --> (B, Ta)
+    sum --> learned reverb --> audio (B, Ta)
+
+float32 throughout (the JAX inference default ``compute_dtype``). The
+exciter-fusing options of the JAX model (``fuse_exciter``,
+``fuse_out_mixer``, both off there by default) are not ported.
+"""
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..ops.oscillator import draw_phase_offset
+from ..ops.upsample import linear_upsample
+from .generators import FIRNoiseSynth, HarmonicOscillator, Reverb
+from .modules import ControlModule, Dense, Params, TimeDistributedMLP
+from .newt import NEWT
+
+
+class NeuralWaveshaping(nn.Module):
+    def __init__(
+        self,
+        n_waveshapers: int = 64,
+        control_hop: int = 128,
+        sample_rate: float = 16000,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.control_hop = control_hop
+        self.sample_rate = sample_rate
+        self.embedding = ControlModule(2, 128, 128, generator)
+        self.osc = HarmonicOscillator(101, sample_rate)
+        self.harmonic_mixer = Dense(101, n_waveshapers, generator)
+        self.newt = NEWT(n_waveshapers, generator=generator)
+        self.h_generator = TimeDistributedMLP(128, 128, 129, 4, generator)
+        self.noise_synth = FIRNoiseSynth(256, control_hop)
+        self.reverb = Reverb(2, int(sample_rate), generator)
+
+    def load_params(self, p: Params) -> None:
+        """Copy in a parameter tree in the JAX layout (``convert/checkpoint.py``)."""
+        self.embedding.load_params(p["embedding"])
+        self.harmonic_mixer.load_params(p["harmonic_mixer"])
+        self.newt.load_params(p["newt"])
+        self.h_generator.load_params(p["h_generator"])
+        self.reverb.load_params(p["reverb"])
+
+    def forward(
+        self,
+        f0: torch.Tensor,
+        control: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        phase_offset: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Synthesize audio.
+
+        Args:
+          f0: (B, Tc) f0 in Hz at the control rate.
+          control: (B, Tc, C>=2) normalised control channels; the first
+            two (f0, loudness) are used.
+          generator: draws the oscillator's phase offsets and the noise
+            excitation that are not given (the default generator when
+            None). A CPU generator gives the same draws on every device.
+          phase_offset: (H,) or (B, H) explicit phase offsets.
+          noise: (hop*Tc - 1,) explicit uniform noise excitation.
+
+        Returns:
+          (B, Tc * control_hop) audio.
+        """
+        t_audio = f0.shape[1] * self.control_hop
+        f0_up = linear_upsample(f0[..., None], t_audio)[..., 0]
+        embedding, _ = self.embedding(control[..., :2])
+        if phase_offset is None:
+            phase_offset = draw_phase_offset(
+                self.osc.n_harmonics, generator, f0.device, f0.dtype
+            )
+        exciter = self.harmonic_mixer(self.osc(f0_up, phase_offset=phase_offset))
+        shaped = self.newt(exciter, embedding)  # (B, Ta, 1)
+        h = self.h_generator(embedding)  # (B, Tc, 129)
+        noise_audio = self.noise_synth(h, generator=generator, noise=noise)
+        return self.reverb(shaped[..., 0] + noise_audio)

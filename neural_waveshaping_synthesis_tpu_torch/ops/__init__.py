@@ -1,0 +1,31 @@
+"""DSP ops on tensors: the port's counterparts of the JAX ``ops`` modules
+that offline synthesis uses."""
+from .fastmath import fast_cos, fast_sin
+from .fir import fft_convolve_circular, fir_noise_filter, windowed_fir_from_magnitude
+from .oscillator import (
+    bank_from_phase,
+    draw_phase_offset,
+    harmonic_oscillator_bank,
+    phase_accumulate,
+)
+from .stft import frame_signal, istft, overlap_add, stft
+from .upsample import linear_upsample
+from .windows import hann_window
+
+__all__ = [
+    "fast_sin",
+    "fast_cos",
+    "fft_convolve_circular",
+    "fir_noise_filter",
+    "windowed_fir_from_magnitude",
+    "bank_from_phase",
+    "draw_phase_offset",
+    "harmonic_oscillator_bank",
+    "phase_accumulate",
+    "frame_signal",
+    "istft",
+    "overlap_add",
+    "stft",
+    "linear_upsample",
+    "hann_window",
+]

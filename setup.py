@@ -7,7 +7,12 @@ setup(
         "TPU-native (JAX/XLA) neural waveshaping synthesis: NEWT "
         "re-designed for TPU hardware"
     ),
-    packages=find_packages(include=["neural_waveshaping_synthesis_tpu*"]),
+    packages=find_packages(
+        include=[
+            "neural_waveshaping_synthesis_tpu*",
+            "neural_waveshaping_synthesis_tpu_torch*",
+        ]
+    ),
     python_requires=">=3.10",
     install_requires=[
         "jax",

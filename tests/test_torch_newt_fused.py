@@ -1,0 +1,183 @@
+"""The control-rate FiLM -> shaper -> FiLM module of the port.
+
+On the CPU: the plain version against the JAX TPU kernel
+``film_shaper_fused_cr`` (run by the JAX package in interpret mode on
+the CPU), the wrapper's CPU dispatch, the Hopper gate, the launch checks
+and NEWT's dispatch. The card's own cases (the CUDA kernel against
+the plain version) are in tests/test_torch_cuda.py, which imports no JAX
+so that it runs on a machine with a card and no JAX.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from neural_waveshaping_synthesis_tpu.kernels import newt_fused as jnf
+from neural_waveshaping_synthesis_tpu.models import NEWT as JNEWT
+from neural_waveshaping_synthesis_tpu_torch.convert import params_from_jax
+from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
+from neural_waveshaping_synthesis_tpu_torch.models import NEWT, TrainableNonlinearity
+
+
+@pytest.fixture(scope="module")
+def jax_newt():
+    newt = JNEWT()
+    return newt, newt.init(jax.random.PRNGKey(2))
+
+
+def _inputs(b, tc, hop, seed=7):
+    rng = np.random.default_rng(seed)
+    exciter = (rng.standard_normal((b, tc * hop, 64)) * 0.5).astype(np.float32)
+    film_c = rng.standard_normal((b, tc, 256)).astype(np.float32)
+    return exciter, film_c
+
+
+def _shaper_params(p):
+    return params_from_jax(p["shaping_fn"])
+
+
+@pytest.mark.parametrize("tc", [4, 6])
+@pytest.mark.parametrize("hop", [8, 16])
+def test_plain_matches_jax_cr_kernel(jax_newt, tc, hop):
+    """film_shaper_cr_plain vs the JAX kernel in interpret mode, at the
+    JAX suite's kernel-vs-chain tolerance rtol=1e-4, atol=1e-5 (the two
+    differ only by where each compiler contracts multiply-adds)."""
+    newt, p = jax_newt
+    exciter, film_c = _inputs(2, tc, hop)
+    ref = jnf.film_shaper_fused_cr(
+        jnp.asarray(exciter), jnp.asarray(film_c), jnf.pack_weights_fl(p["shaping_fn"]), hop
+    )
+    out = nf.film_shaper_cr_plain(
+        torch.from_numpy(exciter), torch.from_numpy(film_c), _shaper_params(p), hop
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
+def test_pack_weights_matches_jax(jax_newt):
+    """The kernel's (170, 64) weight planes are the JAX pack_weights
+    planes stacked in order, bit for bit."""
+    _, p = jax_newt
+    ref = np.concatenate([np.asarray(w) for w in jnf.pack_weights(p["shaping_fn"])], axis=0)
+    out = nf.pack_weights(_shaper_params(p))
+    assert out.shape == (170, 64) and out.is_contiguous()
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_newt_packs_the_shaper_once_per_parameter_change(jax_newt):
+    """NEWT keeps the kernel's packed planes between forwards and packs
+    again after its shaper parameters are loaded anew or written in place."""
+    _, p = jax_newt
+    newt = NEWT()
+    newt.load_params(params_from_jax(p))
+    packed = newt._packed_shaper()
+    assert newt._packed_shaper() is packed
+    assert torch.equal(packed, nf.pack_weights(_shaper_params(p)))
+    with torch.no_grad():
+        newt.shaping_fn.input_scale.mul_(2.0)
+    repacked = newt._packed_shaper()
+    assert repacked is not packed
+    assert torch.equal(repacked[0], 2.0 * packed[0]) and torch.equal(repacked[1:], packed[1:])
+    newt.load_params(params_from_jax(p))
+    assert torch.equal(newt._packed_shaper(), packed)
+
+
+def test_wrapper_dispatches_cpu_tensors_to_plain(jax_newt):
+    _, p = jax_newt
+    exciter, film_c = _inputs(2, 5, 12, seed=3)
+    args = (torch.from_numpy(exciter), torch.from_numpy(film_c), _shaper_params(p), 12)
+    before = nf.film_shaper_cr.launches
+    out = nf.film_shaper_cr(*args)
+    assert nf.film_shaper_cr.launches == before  # no kernel launched
+    assert torch.equal(out, nf.film_shaper_cr_plain(*args))
+
+
+def test_plain_rejects_wrong_hop(jax_newt):
+    _, p = jax_newt
+    exciter, film_c = _inputs(1, 4, 8)
+    with pytest.raises(ValueError):
+        nf.film_shaper_cr_plain(
+            torch.from_numpy(exciter), torch.from_numpy(film_c), _shaper_params(p), 16
+        )
+
+
+def test_hopper_gate():
+    """Shipped architecture + integer hop. Hops the TPU gate refused (not
+    a multiple of 8, above 256) and odd control lengths are accepted."""
+    shaper = TrainableNonlinearity(64, 8, depth=4)
+    assert nf.supports_cr(shaper, 128 * 500, 500)
+    assert nf.supports_cr(shaper, 128 * 37, 37)  # odd Tc
+    assert nf.supports_cr(shaper, 10 * 4, 4)  # hop 10
+    assert nf.supports_cr(shaper, 512 * 8, 8)  # hop 512
+    assert nf.supports_cr(shaper, 7, 7)  # hop 1
+    assert not nf.supports_cr(shaper, 130, 4)  # non-integer hop
+    assert not nf.supports_cr(shaper, 0, 0)
+    assert not nf.supports_cr(TrainableNonlinearity(64, 8, depth=3), 128, 1)
+    assert not nf.supports_cr(TrainableNonlinearity(32, 8, depth=4), 128, 1)
+    relu = TrainableNonlinearity(64, 8, depth=4, nonlinearity="relu")
+    assert not nf.supports_cr(relu, 128, 1)
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["dtype", "channels", "film_width", "batch", "hop", "contiguity", "weights", "device"],
+)
+def test_launch_checks_refuse_what_the_kernel_does_not_take(case):
+    """The checks run before any launch; here on CPU tensors, which is
+    where they can be exercised without a card."""
+    exc = torch.zeros(2, 4 * 8, 64)
+    film_c = torch.zeros(2, 4, 256)
+    w = torch.zeros(170, 64)
+    hop = 8
+    if case == "dtype":
+        exc = exc.double()
+    elif case == "channels":
+        exc = torch.zeros(2, 32, 32)
+    elif case == "film_width":
+        film_c = torch.zeros(2, 4, 128)
+    elif case == "batch":
+        film_c = torch.zeros(1, 4, 256)
+    elif case == "hop":
+        hop = 7
+    elif case == "contiguity":
+        exc = torch.zeros(2, 64, 32).transpose(1, 2)
+    elif case == "weights":
+        w = torch.zeros(169, 64)
+    elif case == "device":
+        film_c = film_c.to("meta")
+    with pytest.raises((ValueError, TypeError)):
+        nf._check(exc, film_c, w, hop)
+
+
+def test_newt_dispatch_on_cpu_matches_jax_chain(jax_newt):
+    """NEWT(fused="cr") on CPU runs the plain chain (JAX's "cr" runs its
+    XLA chain off the TPU): same parameters, same inputs, 1e-4/1e-5."""
+    newt, p = jax_newt
+    rng = np.random.default_rng(11)
+    exciter = (rng.standard_normal((2, 15 * 16, 64)) * 0.5).astype(np.float32)
+    emb = rng.standard_normal((2, 15, 128)).astype(np.float32)
+    ref = np.asarray(newt.apply(p, jnp.asarray(exciter), jnp.asarray(emb), fused="cr"))
+    port = NEWT()
+    port.load_params(params_from_jax(p))
+    with torch.no_grad():
+        out = port(torch.from_numpy(exciter), torch.from_numpy(emb))
+        chain = port(torch.from_numpy(exciter), torch.from_numpy(emb), fused=False)
+    assert torch.equal(out, chain)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("fused", ["full_lane_cr", "full_lane", True])
+def test_newt_unported_options_raise(fused):
+    with pytest.raises(NotImplementedError):
+        NEWT(fused=fused)
+    newt = NEWT()
+    with pytest.raises(NotImplementedError):
+        newt(torch.zeros(1, 16, 64), torch.zeros(1, 2, 128), fused=fused)
+
+
+def test_newt_lookup_table_and_remat_raise():
+    with pytest.raises(NotImplementedError):
+        NEWT(remat_shaper=True)
+    with pytest.raises(NotImplementedError):
+        NEWT()(torch.zeros(1, 16, 64), torch.zeros(1, 2, 128), lookup_table=torch.zeros(8, 64))
