@@ -7,8 +7,10 @@ Phases, each printed as one JSON line; any failure raises, so the run
 exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds the kernel from ``kernels/csrc`` for sm_90a;
-3. kernels: the kernel's wrapper on CUDA tensors against its plain
+2. build: nvcc builds both kernels from ``kernels/csrc`` for sm_90a, the
+   forward (``newt_fused_cr.cu``) and the backward
+   (``newt_fused_cr_bwd.cu``), in parallel;
+3. kernels: the forward kernel's wrapper on CUDA tensors against its plain
    PyTorch version on the same tensors (rtol=1e-4, atol=1e-5), and the
    kernel's FiLM interpolation bit for bit against ``linear_upsample``.
    The inputs are the ones the main path hands the kernel, caught with
@@ -25,28 +27,52 @@ exits non-zero:
    normalised RMS;
 5. timing: CUDA-event medians of 20 runs after warm-up — the kernel and
    its plain version on the batch-8 inputs of phase 3, the model's
-   forward and the whole render at batch 1 and 8 x 4 s.
+   forward and the whole render at batch 1 and 8 x 4 s;
+6. kernel_bwd: the backward kernel against autograd through the plain
+   version (rtol 1e-3, atol 1e-3 * max|plain| per output), on the inputs
+   one ``Trainer`` step at batch 8 x 4 s hands it (exciter, control-rate
+   film and the cotangent dy, caught with hooks), on the same inputs
+   with a cotangent that reads only the first half-hop and the last hop
+   (the clamps), and on two made-up shapes (odd Tc=37, hop 64); two calls
+   on the same inputs must give the same bits;
+7. train_card_vs_cpu: one step's loss and gradients from the same
+   weights, batch (1 x 2 s), phase offsets and noise, on the card (both
+   kernels) and on the CPU (plain): loss within 1e-4 relative, every
+   parameter's gradient nonzero on the card and within 1e-3 normalised;
+8. train: ``Trainer(device="cuda").fit`` for 30 steps at batch 8 x 4 s
+   from a seeded random init on a synthetic shard dataset written here
+   (harmonic tones with their controls); finite losses, one launch of
+   each kernel per step (and one forward launch per validation batch), no
+   plain chain on the card, moved parameters; then the checkpoint it
+   wrote served by ``Synthesizer.from_checkpoint(device="cuda")``;
+9. timing_train: CUDA-event medians of 20 after warm-up at batch 8 x 4 s:
+   the whole training step, the backward kernel and its plain version on
+   phase 6's inputs, and the peak device memory of a step.
 
-Then the kernels line (the numbers of phases 3-5 per kernel, with its
+Then the kernels line (the numbers of phases 3-9 per kernel, with its
 least possible time on an H100 from its bytes and operations) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN (the GRU), so the card computes in float32 like the CPU reference.
 """
+import copy
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from neural_waveshaping_synthesis_tpu_torch.data import GeneralDataModule
 from neural_waveshaping_synthesis_tpu_torch.inference import Synthesizer
 from neural_waveshaping_synthesis_tpu_torch.kernels import _build
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
-from neural_waveshaping_synthesis_tpu_torch.models import NEWT
+from neural_waveshaping_synthesis_tpu_torch.models import NEWT, NeuralWaveshaping
 from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample
+from neural_waveshaping_synthesis_tpu_torch.training import TrainConfig, Trainer, compute_loss
 
 REPO = Path(__file__).resolve().parent
 CKPT = str(REPO / "docs" / "results" / "run120k_cr" / "checkpoint" / "best.ckpt")
@@ -61,6 +87,20 @@ PEAK_F32_FLOP_PER_S = 67e12
 # MLP 1->8->8->8->1 multiply-adds (8 + 64 + 64 + 8) * 2 = 288; 25 sines of
 # (mul, rint, fma, mul, 6 fma, mul) = 18 each = 450; FiLM-out FMA = 2.
 CR_FLOP_PER_ELEMENT = 14 + 3 + 288 + 450 + 2
+# ... and in newt_fused_cr_bwd.cu. Forward recompute: lerp 14, FiLM-in +
+# scale 3, MLP 288, 25 sine-and-cosine pairs sharing one range reduction
+# (mul, rint, fma, mul; sine 6 fma + mul; cosine 7 fma) = 31 each = 775.
+# Chain rule: d gamma_out path 2; layer 4 weight/bias grads 16 + 1, dp3 16;
+# layers 3 and 2 each weight grads 128, input grads 128, bias 8, times the
+# cosine 8; layer 1 bias 8, weight 16, input 16; input scale 2, dx 1,
+# d_exciter 1; FiLM cotangents 2; lerp transpose 4 * (2 mul + 2 add) = 16.
+CR_BWD_FLOP_PER_ELEMENT = (
+    (14 + 3 + 288 + 25 * 31)
+    + (2 + 16 + 1 + 16 + 2 * (128 + 128 + 8 + 8) + 8 + 16 + 16 + 2 + 1 + 1 + 2 + 16)
+)
+BWD_RTOL = 1e-3  # the JAX suite's gradient bar; atol = BWD_RTOL * max|plain| per output
+TRAIN_STEPS = 30
+KERNELS = ["newt_fused_cr", "newt_fused_cr_bwd"]
 
 
 def emit(obj):
@@ -140,6 +180,226 @@ def made_up_kernel_inputs(b, tc, hop, seed, device):
     return torch.from_numpy(exc).to(device), torch.from_numpy(film_c).to(device)
 
 
+def write_tone_dataset(root: Path, splits=(("train", 16), ("val", 4)), seconds=4, seed=0) -> str:
+    """A synthetic dataset in the reference shard layout, made here with
+    numpy: harmonic tones (f0 gliding within 110-880 Hz, amplitude
+    contours) with their controls (f0 in Hz, loudness in dB, confidence 1,
+    16 MFCC channels of 0), z-scored with the train split's statistics."""
+    rng = np.random.default_rng(seed)
+    tc = int(seconds * SR) // HOP
+    clips = {}
+    for split, n in splits:
+        for i in range(n):
+            lo, hi = np.sort(rng.uniform(110.0, 880.0, 2))
+            f0 = np.geomspace(lo, hi, tc) * (1 + 0.01 * np.sin(np.linspace(0, 30, tc)))
+            amp = 0.05 + 0.25 * rng.uniform() * (1 + np.sin(np.linspace(0, rng.uniform(2, 9), tc))) / 2
+            f0_a, amp_a = (np.interp(np.arange(tc * HOP) / HOP, np.arange(tc), v) for v in (f0, amp))
+            phase = 2 * np.pi * np.cumsum(f0_a) / SR
+            n_h = int(min(20, (SR / 2) // hi))
+            audio = amp_a * sum(np.sin(k * phase) / k for k in range(1, n_h + 1))
+            control = np.zeros((19, tc))
+            control[0], control[1], control[2] = f0, 20 * np.log10(amp), 1.0
+            clips[(split, i)] = (audio.astype(np.float32), control)
+    train = np.concatenate([c for (sp, _), (_, c) in clips.items() if sp == "train"], axis=1)
+    mean = train.mean(axis=1, keepdims=True)
+    std = np.maximum(train.std(axis=1, keepdims=True), 1.0)
+    for (split, i), (audio, control) in clips.items():
+        for kind in ("audio", "control"):
+            (root / split / kind).mkdir(parents=True, exist_ok=True)
+        np.save(root / split / "audio" / f"audio_tone{i}.npy", audio)
+        np.save(root / split / "control" / f"control_tone{i}.npy",
+                ((control - mean) / std).astype(np.float32))
+    np.save(root / "data_mean.npy", mean.astype(np.float32))
+    np.save(root / "data_std.npy", std.astype(np.float32))
+    return str(root)
+
+
+def train_step_kernel_inputs(trainer, batch):
+    """The (exciter, control-rate film, cotangent dy) that one training
+    step hands the backward kernel: hooks on NEWT (its exciter), its FiLM
+    MLP (its output) and its output mixer (the kernel's output, whose
+    gradient is dy)."""
+    got = {}
+    newt = trainer.model.newt
+
+    def keep(name, t):
+        got[name] = t.detach().clone(memory_format=torch.contiguous_format)
+
+    def catch_dy(module, args):  # a pre-hook's return value would replace args
+        args[0].register_hook(lambda g: keep("dy", g))
+
+    hooks = [
+        newt.register_forward_pre_hook(lambda m, args: keep("exciter", args[0])),
+        newt.mlp.register_forward_hook(lambda m, args, out: keep("film_c", out)),
+        newt.mixer.register_forward_pre_hook(catch_dy),
+    ]
+    try:
+        trainer.train_step(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    return got["exciter"], got["film_c"], got["dy"]
+
+
+def check_backward(label, exc, film_c, dy, weights, packed, hop):
+    """Backward kernel vs autograd through the plain version; -> max abs error."""
+    out = nf._launch_backward(exc, film_c, packed, dy, hop)
+    ref = nf.film_shaper_cr_grad_plain(exc, film_c, weights, hop, dy)
+    again = nf._launch_backward(exc, film_c, packed, dy, hop)
+    torch.cuda.synchronize()
+    bit_identical = all(torch.equal(a, b) for a, b in zip(out, again))
+    errs = {}
+    for name, o, r in zip(("d_exciter", "d_film_c", "d_planes"), out, ref):
+        o, r = o.cpu().numpy(), r.cpu().numpy()
+        errs[name] = (float(np.max(np.abs(o - r))), float(np.max(np.abs(r))))
+        np.testing.assert_allclose(o, r, rtol=BWD_RTOL, atol=BWD_RTOL * errs[name][1],
+                                   err_msg=f"{label} {name}")
+    b, ta, _ = exc.shape
+    emit({"phase": "kernel_bwd", "name": "_fused_bwd_cr", "case": label, "B": b,
+          "Tc": film_c.shape[1], "hop": hop, "max_abs_err": {k: v[0] for k, v in errs.items()},
+          "max_abs_plain": {k: v[1] for k, v in errs.items()}, "rtol": BWD_RTOL,
+          "bit_identical_repeat": bit_identical})
+    if not bit_identical:
+        raise RuntimeError(f"{label}: two backward calls gave different bits")
+    return max(v[0] for v in errs.values())
+
+
+def leaf_grads(model):
+    return {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+
+
+def relnorm(a, b) -> float:
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def train_phases(dev):
+    """Phases 6-9 (training) -> the backward kernel's numbers."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_tone_dataset(Path(tmp) / "data")
+        dm = GeneralDataModule(root, batch_size=8)
+        batch = dm.dataset("train").batch(np.arange(8))
+
+        # 6. the backward kernel on the inputs a training step hands it
+        trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)),
+                          TrainConfig(), device="cuda")
+        exc, film_c, dy = train_step_kernel_inputs(trainer, batch)
+        newt = trainer.model.newt
+        weights = {"input_scale": newt.shaping_fn.input_scale.detach(),
+                   "layers": [{k: v.detach() for k, v in layer.items()}
+                              for layer in newt.shaping_fn.params()["layers"]]}
+        packed = nf.pack_weights(weights)
+        hop = exc.shape[1] // film_c.shape[1]
+        with torch.no_grad():
+            out = nf.film_shaper_cr(exc, film_c, weights, hop, packed=packed)
+        dy_clamp = torch.zeros_like(dy)
+        dy_clamp[:, : hop // 2] = 2 * out[:, : hop // 2]
+        dy_clamp[:, -hop:] = 2 * out[:, -hop:]
+        max_err = check_backward("train_step_b8_4s", exc, film_c, dy, weights, packed, hop)
+        max_err = max(max_err, check_backward("clamp", exc, film_c, dy_clamp, weights, packed, hop))
+        del out, dy_clamp
+        for label, b, tc, h in (("odd_tc", 1, 37, HOP), ("hop_64", 2, 500, 64)):
+            e, f = made_up_kernel_inputs(b, tc, h, 10 + tc, dev)
+            g = torch.randn(e.shape, generator=torch.Generator().manual_seed(tc)).to(dev)
+            max_err = max(max_err, check_backward(label, e, f, g, weights, packed, h))
+        torch.cuda.empty_cache()
+
+        # 7. one step on the card and on the CPU, same everything
+        clip = dm.dataset("train").batch(np.arange(1))
+        tc2 = min(2 * SR // HOP, clip["f0"].shape[1])  # 2 s of the clip
+        small = {k: torch.from_numpy(np.ascontiguousarray(clip[k][:, : tc2 * HOP if k == "audio" else tc2]))
+                 for k in ("audio", "f0", "control")}
+        rng = np.random.default_rng(11)
+        offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+        noise = torch.from_numpy(rng.uniform(0, 1, tc2 * HOP - 1).astype(np.float32))
+        base = NeuralWaveshaping(generator=torch.Generator().manual_seed(1))
+        results = []
+        for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float32),
+                              (torch.device("cpu"), torch.float64)):
+            model = copy.deepcopy(base).to(device, dtype)
+            loss = compute_loss(model, {k: v.to(device, dtype) for k, v in small.items()},
+                                phase_offset=offset.to(device, dtype), noise=noise.to(device, dtype))
+            loss.backward()
+            results.append((float(loss.detach()), leaf_grads(model)))
+        (card_loss, card), (cpu_loss, cpu), (exact_loss, exact) = results
+        rel = {n: relnorm(card[n], cpu[n]) for n in cpu}
+        # a leaf beyond 1e-3 passes only if the card is no farther from the
+        # float64 gradient than twice the CPU's own float32 gradient is:
+        # the log-magnitude L1 term of the loss divides by each bin's
+        # magnitude, so float32 rounding alone moves some leaves that far
+        witness = {n: {"card_vs_cpu": r, "card_vs_f64": relnorm(card[n], exact[n]),
+                       "cpu_vs_f64": relnorm(cpu[n], exact[n])}
+                   for n, r in rel.items() if r > 1e-3}
+        failed = [n for n, w in witness.items() if w["card_vs_f64"] > 2 * w["cpu_vs_f64"]]
+        zero = [n for n, g in card.items() if not torch.count_nonzero(g)]
+        worst = max(rel, key=rel.get)
+        emit({"phase": "train_card_vs_cpu", "B": 1, "Tc": tc2, "loss_card": card_loss,
+              "loss_cpu": cpu_loss, "loss_cpu_f64": exact_loss,
+              "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss), "leaves": len(rel),
+              "worst_leaf": worst, "worst_rel": rel[worst], "leaves_over_1e-3": witness,
+              "leaves_failed": failed, "zero_grad_leaves": zero})
+        if abs(card_loss - cpu_loss) > 1e-4 * abs(cpu_loss) or zero or failed:
+            raise RuntimeError("one training step on the card differs from the CPU")
+
+        # 8. train through the entry point a user calls, then serve the result
+        cfg = TrainConfig(max_steps=TRAIN_STEPS, val_every_n_steps=TRAIN_STEPS,
+                          log_every_n_steps=10, checkpoint_dir=str(Path(tmp) / "ckpt"))
+        fit_trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)),
+                              cfg, device="cuda")
+        before = [p.detach().clone() for p in fit_trainer.model.parameters()]
+        nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
+        NEWT.cuda_chain_runs = 0
+        t0 = time.perf_counter()
+        history = fit_trainer.fit(dm)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fwd, bwd = nf.film_shaper_cr.launches, nf.film_shaper_cr.bwd_launches
+        val_batches = len(list(dm.val_batches())) * len(history["val"])
+        moved = sum(not torch.equal(a, p) for a, p in zip(before, fit_trainer.model.parameters()))
+        emit({"phase": "train", "steps": len(history["loss"]), "B": dm.batch_size,
+              "clip_s": batch["audio"].shape[1] / SR,
+              "fit_s": fit_s, "loss": history["loss"], "grad_norm": history["grad_norm"],
+              "val": history["val"], "fwd_launches": fwd, "bwd_launches": bwd,
+              "val_batches": val_batches, "chain_runs": NEWT.cuda_chain_runs,
+              "params_moved": moved, "params": len(before)})
+        if not np.all(np.isfinite(history["loss"])) or len(history["loss"]) != TRAIN_STEPS:
+            raise RuntimeError("training losses are not finite")
+        if bwd != TRAIN_STEPS or fwd != TRAIN_STEPS + val_batches:
+            raise RuntimeError(f"launches: forward {fwd}, backward {bwd}, for {TRAIN_STEPS} steps")
+        if NEWT.cuda_chain_runs or moved != len(before):
+            raise RuntimeError("training ran the plain chain on the card or left parameters")
+        served = Synthesizer.from_checkpoint(str(Path(tmp) / "ckpt" / "best.ckpt"), device="cuda")
+        f0 = np.geomspace(220.0, 440.0, 4 * SR // HOP).astype(np.float32)
+        loud = np.full_like(f0, -15.0)  # dB, the unit of the tone dataset's loudness
+        audio = served.render([(f0, loud)], seed=0)[0]
+        rms = float(np.sqrt(np.mean(audio**2)))
+        emit({"phase": "serve_trained", "samples": int(audio.shape[0]), "rms": rms})
+        if audio.shape != (f0.shape[0] * HOP,) or not np.all(np.isfinite(audio)) or rms < 1e-4:
+            raise RuntimeError("the trained checkpoint renders bad audio")
+
+        # 9. timing: the whole step, the backward kernel and its plain version
+        step_ms = cuda_median_ms(lambda: trainer.train_step(batch))
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step(batch)
+        peak = torch.cuda.max_memory_allocated()
+        bwd_ms = cuda_median_ms(lambda: nf._launch_backward(exc, film_c, packed, dy, hop))
+        plain_ms = cuda_median_ms(lambda: nf.film_shaper_cr_grad_plain(exc, film_c, weights, hop, dy))
+        b, ta, _ = exc.shape
+        n_el = b * ta * 64
+        flop = n_el * CR_BWD_FLOP_PER_ELEMENT
+        nbytes = 4 * (3 * n_el + 2 * film_c.numel() + 2 * packed.numel())
+        bound_ms = max(nbytes / PEAK_BYTES_PER_S, flop / PEAK_F32_FLOP_PER_S) * 1e3
+        bound_by = "operations" if flop / PEAK_F32_FLOP_PER_S >= nbytes / PEAK_BYTES_PER_S else "bytes"
+        audio_s = b * ta / SR
+        emit({"phase": "timing_train", "B": b, "Tc": film_c.shape[1], "hop": hop,
+              "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+              "x_realtime": audio_s / (step_ms / 1e3), "peak_mem_bytes": peak,
+              "bwd_kernel_ms": bwd_ms, "bwd_plain_ms": plain_ms, "flop": flop, "bytes": nbytes,
+              "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / bwd_ms})
+    return {"fwd_launches": fwd, "bwd_launches": bwd, "max_abs_err": max_err, "ms": bwd_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -160,11 +420,12 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # 2. build the kernel of the path from the checkout's sources
+    # 2. build the kernels of the paths from the checkout's sources
     t0 = time.perf_counter()
-    _build.load("newt_fused_cr")
-    emit({"phase": "build", "kernel": "newt_fused_cr", "seconds": time.perf_counter() - t0,
-          "ptxas": _build.build_log("newt_fused_cr").strip().splitlines()[-3:]})
+    _build.build(KERNELS)
+    emit({"phase": "build", "kernels": KERNELS, "seconds": time.perf_counter() - t0,
+          "ptxas": {k: [line.strip() for line in _build.build_log(k).splitlines()
+                        if "registers" in line or "spill" in line] for k in KERNELS}})
 
     # 3. kernel vs plain on the card, on the main path's own inputs
     synth = Synthesizer.from_checkpoint(CKPT, device="cuda")
@@ -209,7 +470,7 @@ def main() -> int:
     del cases, out, ref, lerp, expect, film_z
 
     # 4. serve through the entry point a user calls
-    nf.film_shaper_cr.launches = 0
+    nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
     NEWT.cuda_chain_runs = 0
     renders = []
     for requests in (batch, single):
@@ -219,8 +480,8 @@ def main() -> int:
             raise RuntimeError("a render on the card did not launch film_shaper_fused_cr")
         renders.append((requests, audio))
     launches = nf.film_shaper_cr.launches
-    if NEWT.cuda_chain_runs:
-        raise RuntimeError("NEWT ran its plain chain on the card on the main path")
+    if NEWT.cuda_chain_runs or nf.film_shaper_cr.bwd_launches:
+        raise RuntimeError("serving ran the plain chain or a backward on the card")
     for requests, audio in renders:
         for (f0, _), a in zip(requests, audio):
             if a.shape != (f0.shape[0] * HOP,) or not np.all(np.isfinite(a)):
@@ -281,12 +542,22 @@ def main() -> int:
               "forward_x_realtime": audio_s / (forward_ms / 1e3),
               "render_x_realtime": audio_s / (render_ms / 1e3)})
 
+    train = train_phases(dev)
+
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:779",
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "launches": launches + train["fwd_launches"], "max_abs_err": max_err,
+        "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }, {
+        "name": "_fused_bwd_cr", "route": "cuda",
+        "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr_bwd.cu",
+        "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:822",
+        "launches": train["bwd_launches"], "max_abs_err": train["max_abs_err"],
+        "ms": train["ms"], "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
+        "bound_by": train["bound_by"], "library_ms": None,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -10,11 +10,19 @@ of the JAX package. Public functions keep the JAX code's channels-last
 
 Entry points run on ``device="cuda"`` unless the caller asks for
 ``device="cpu"``, and raise when CUDA is asked for but missing
-(:mod:`.device`). The slice ported so far is offline float32 inference:
-:class:`inference.resynthesis.Synthesizer` renders control signals to
-audio through :class:`models.neural_waveshaping.NeuralWaveshaping`, whose
-FiLM -> shaper -> FiLM block runs the hand-written CUDA kernel in
-:mod:`kernels.newt_fused` on the card.
+(:mod:`.device`). The slices ported so far, both float32:
+
+* offline inference: :class:`inference.resynthesis.Synthesizer` renders
+  control signals to audio through
+  :class:`models.neural_waveshaping.NeuralWaveshaping`;
+* training: :class:`training.trainer.Trainer` fits the model on a
+  :class:`data.general.GeneralDataModule` (the reference's ``.npy``
+  shards) with the multi-resolution STFT loss, clip + Adam + StepLR, and
+  writes reference-format checkpoints that ``Synthesizer`` serves.
+
+On the card the model's FiLM -> shaper -> FiLM block runs the
+hand-written CUDA kernels of :mod:`kernels.newt_fused`: the forward, and
+in training its backward.
 """
 from .device import resolve_device
 

@@ -1,4 +1,4 @@
-"""Carry weights into the port.
+"""Carry weights into the port, and out of it.
 
 * :func:`load_checkpoint` reads a reference PyTorch Lightning ``.ckpt``
   (without ``pytorch_lightning`` installed: a stub meta-path finder
@@ -9,8 +9,13 @@
   arrays or anything ``torch.as_tensor`` takes) and returns the same
   tree of float32 CPU tensors.
 
-Both return the port's state: a nested dict of tensors in the JAX
-layouts, which ``NeuralWaveshaping.load_params`` copies in —
+* :func:`save_reference_checkpoint` writes the other direction: a
+  parameter tree (``NeuralWaveshaping.params()``) as a reference-format
+  PL ``.ckpt`` with the 52-tensor state_dict naming, which
+  :func:`load_checkpoint`, the JAX package and the reference all load.
+
+The port's state is a nested dict of tensors in the JAX layouts, which
+``NeuralWaveshaping.load_params`` copies in —
 
   reference (torch) layout             port / JAX layout
   ------------------------------------------------------------------
@@ -20,11 +25,13 @@ layouts, which ``NeuralWaveshaping.load_params`` copies in —
   LayerNorm weight/bias (C,)           scale/bias (C,)        [copy]
   reverb.ir (1, N)                     ir (N,)                [squeeze]
 
-This module keeps its own copy of the JAX package's converter
-(``convert/from_torch.py``): the port imports nothing of that package.
+This module keeps its own copy of the JAX package's converters
+(``convert/from_torch.py``, ``convert/to_torch.py``): the port imports
+nothing of that package.
 """
 import importlib.abc
 import importlib.machinery
+import math
 import os
 import sys
 import types
@@ -40,6 +47,10 @@ class _StubLoader(importlib.abc.Loader):
         mod.__path__ = []
 
         def getattr_(attr, _name=spec.name):
+            # dunder lookups (__file__, __spec__, ...) must fail as on a real
+            # module: inspect walks sys.modules and reads them
+            if attr.startswith("__"):
+                raise AttributeError(attr)
             return type(attr, (dict,), {"__module__": _name})
 
         mod.__getattr__ = getattr_
@@ -63,13 +74,24 @@ def load_lightning_checkpoint(path: str) -> Dict:
     """Load a PL checkpoint file into a plain dict of numpy arrays.
 
     The file is unpickled (``weights_only=False``): load only checkpoints
-    from a source you trust, such as the ones this repository ships."""
+    from a source you trust, such as the ones this repository ships.
+    Without ``pytorch_lightning`` installed, stub modules stand in for it
+    during the unpickling only: left in place, they would answer every
+    later ``import pytorch_lightning`` (torch probes for it) with a module
+    that is not one."""
+    finder = None
     try:
         import pytorch_lightning  # noqa: F401
     except ImportError:
-        if not any(isinstance(f, _StubFinder) for f in sys.meta_path):
-            sys.meta_path.insert(0, _StubFinder())
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        finder = _StubFinder()
+        sys.meta_path.insert(0, finder)
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    finally:
+        if finder is not None:
+            sys.meta_path.remove(finder)
+            for name in [n for n in sys.modules if n.split(".")[0] == "pytorch_lightning"]:
+                del sys.modules[name]
     state = {k: v.detach().numpy() for k, v in ckpt["state_dict"].items()}
     return {
         "state_dict": state,
@@ -167,3 +189,92 @@ def load_checkpoint(
         path = os.path.join(stats_dir, name)
         stats.append(np.load(path) if os.path.exists(path) else None)
     return params, ckpt["hyper_parameters"], stats[0], stats[1]
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _to_conv1d(prefix: str, dense: Dict, out: Dict) -> None:
+    """dense {w: (in, out), b: (out,)} -> torch Conv1d (out, in, 1)."""
+    out[f"{prefix}.weight"] = np.ascontiguousarray(_np(dense["w"]).T)[:, :, None]
+    out[f"{prefix}.bias"] = _np(dense["b"])
+
+
+def _to_td_mlp(prefix: str, mlp: Dict, out: Dict) -> None:
+    depth = len(mlp["layers"])
+    for i, layer in enumerate(mlp["layers"]):
+        _to_conv1d(f"{prefix}.net.{i * 3}", layer["dense"], out)
+        if i < depth - 1:
+            norm = f"{prefix}.net.{i * 3 + 1}.layer_norm"
+            out[f"{norm}.weight"] = _np(layer["norm"]["scale"])
+            out[f"{norm}.bias"] = _np(layer["norm"]["bias"])
+
+
+def _to_grouped_shaper(prefix: str, shaper: Dict, out: Dict) -> None:
+    """(C, W_in, W_out) planes -> grouped Conv1d (C*W_out, W_in, 1)."""
+    out[f"{prefix}.input_scale"] = _np(shaper["input_scale"])[None, :, None]
+    for i, layer in enumerate(shaper["layers"]):
+        w, b = _np(layer["w"]), _np(layer["b"])
+        c, w_in, w_out = w.shape
+        out[f"{prefix}.net.{i * 2}.weight"] = np.ascontiguousarray(
+            w.transpose(0, 2, 1).reshape(c * w_out, w_in)
+        )[:, :, None]
+        out[f"{prefix}.net.{i * 2}.bias"] = b.reshape(c * w_out)
+
+
+def params_to_reference_state_dict(
+    params: Dict, n_harmonics: int = 101, ir_window: int = 256
+) -> Dict[str, np.ndarray]:
+    """Parameter tree (JAX layout; tensors or arrays) -> the reference's
+    state_dict as numpy arrays, with its recomputed non-learnable buffers
+    (harmonic_axis, rand_phase, window, initial_zero)."""
+    sd: Dict[str, np.ndarray] = {}
+    gru = params["embedding"]["gru"]
+    sd["embedding.gru.weight_ih_l0"] = np.ascontiguousarray(_np(gru["w_ih"]).T)
+    sd["embedding.gru.weight_hh_l0"] = np.ascontiguousarray(_np(gru["w_hh"]).T)
+    sd["embedding.gru.bias_ih_l0"] = _np(gru["b_ih"])
+    sd["embedding.gru.bias_hh_l0"] = _np(gru["b_hh"])
+    _to_conv1d("embedding.proj", params["embedding"]["proj"], sd)
+    sd["osc.harmonic_axis"] = np.arange(1, n_harmonics + 1, dtype=np.int64)[None, :, None]
+    sd["osc.rand_phase"] = np.full((1, n_harmonics, 1), math.tau, np.float32)
+    _to_conv1d("harmonic_mixer", params["harmonic_mixer"], sd)
+    _to_td_mlp("newt.mlp", params["newt"]["mlp"], sd)
+    _to_grouped_shaper("newt.shaping_fn", params["newt"]["shaping_fn"], sd)
+    _to_conv1d("newt.mixer.0", params["newt"]["mixer"], sd)
+    _to_td_mlp("h_generator", params["h_generator"], sd)
+    k = np.arange(ir_window)  # torch.hann_window's periodic default
+    sd["noise_synth.window"] = (0.5 - 0.5 * np.cos(2.0 * np.pi * k / ir_window)).astype(np.float32)
+    sd["reverb.ir"] = _np(params["reverb"]["ir"])[None, :]
+    sd["reverb.initial_zero"] = np.zeros((1, 1), np.float32)
+    return sd
+
+
+def save_reference_checkpoint(
+    params: Dict,
+    path: str,
+    hparams: Optional[Dict] = None,
+    step: int = 0,
+    epoch: int = 0,
+) -> None:
+    """Write a reference-format ``.ckpt``: the PL dict format with plain
+    containers only, so no ``pytorch_lightning`` is needed to read it."""
+    sd = params_to_reference_state_dict(params)
+    ckpt = {
+        "state_dict": {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()},
+        "hyper_parameters": hparams
+        or {
+            "n_waveshapers": 64,
+            "control_hop": 128,
+            "sample_rate": 16000,
+            "learning_rate": 0.001,
+            "lr_decay": 0.9,
+            "lr_decay_interval": 10000,
+        },
+        "epoch": epoch,
+        "global_step": step,
+        "pytorch-lightning_version": "1.1.2",
+    }
+    torch.save(ckpt, path)

@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -53,19 +53,36 @@ def build_log(name: str) -> str:
     return library_path(name).with_suffix(".log").read_text()
 
 
+def build(names: Sequence[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` that is not built yet, one nvcc
+    process per source, all started together; raises with the compiler's
+    output if any fails."""
+    jobs = []
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, target, tmp, proc))
+    failed = []
+    for name, target, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+            continue
+        target.with_suffix(".log").write_text(out)
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, compiled first if it is
     not built yet; raises with the compiler's output if nvcc fails."""
     if name not in _LIBS:
-        target = library_path(name)
-        if not target.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-            target.with_suffix(".log").write_text(proc.stdout)
-            os.replace(tmp, target)
-        _LIBS[name] = ctypes.CDLL(str(target))
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]

@@ -11,12 +11,15 @@ sine MLP, and gamma_out/beta_out modulate the result.
 * :func:`film_shaper_cr_plain` is that chain in plain PyTorch. The CPU
   path and the tests use it, and ``chip_smoke.py`` holds the kernel
   against it on the card.
+* :func:`film_shaper_cr_grad_plain` is the plain version of the
+  backward (JAX ``_fused_bwd_cr``): autograd through the plain forward.
 * :func:`film_shaper_cr` is the wrapper: a CPU tensor goes to the plain
   version; a CUDA tensor launches ``csrc/newt_fused_cr.cu`` or raises —
-  there is no fallback. ``film_shaper_cr.launches`` counts launches.
-
-Forward only: the backward (``_fused_bwd_cr`` in JAX) is not ported
-yet, so the wrapper refuses inputs that would need a gradient.
+  there is no fallback. When a gradient is needed on CUDA it goes through
+  :class:`_FilmShaperCR`, whose backward launches
+  ``csrc/newt_fused_cr_bwd.cu`` (never the plain backward).
+  ``film_shaper_cr.launches`` and ``film_shaper_cr.bwd_launches`` count
+  the launches of the two kernels.
 """
 import ctypes
 from typing import Dict, Optional
@@ -76,6 +79,24 @@ def pack_weights(p: Dict) -> torch.Tensor:
     return torch.cat(planes, dim=0).to(torch.float32).contiguous()
 
 
+def unpack_weight_grads(planes: torch.Tensor) -> Dict:
+    """(170, C) planes in the :func:`pack_weights` layout -> the shaper
+    tree (JAX layout); the inverse of :func:`pack_weights` and the port of
+    the JAX ``unpack_weight_grads``. Views, so autograd flows through."""
+    dscale, dw1, db1, dw2, db2, dw3, db3, dw4, db4 = torch.split(
+        planes, [1, W, W, W * W, W, W * W, W, W, 1], dim=0
+    )
+    return {
+        "input_scale": dscale[0],
+        "layers": [
+            {"w": dw1.T[:, None, :], "b": db1.T},
+            {"w": dw2.reshape(W, W, C).permute(2, 0, 1), "b": db2.T},
+            {"w": dw3.reshape(W, W, C).permute(2, 0, 1), "b": db3.T},
+            {"w": dw4.T[:, :, None], "b": db4.T},
+        ],
+    }
+
+
 def film_shaper_chain(exciter: torch.Tensor, film_a: torch.Tensor, p: Dict) -> torch.Tensor:
     """FiLM -> shaper -> FiLM with the film already at audio rate:
     (B, Ta, C) exciter, (B, Ta, 4C) film -> (B, Ta, C)."""
@@ -95,11 +116,30 @@ def film_shaper_cr_plain(
     return film_shaper_chain(exciter, linear_upsample(film_c, ta), shaper_params)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("newt_fused_cr")
-    fn = lib.newt_fused_cr_forward
+def film_shaper_cr_grad_plain(
+    exciter: torch.Tensor,
+    film_c: torch.Tensor,
+    shaper_params: Dict,
+    hop: int,
+    dy: torch.Tensor,
+):
+    """The plain version of the backward: ``torch.autograd.grad`` through
+    :func:`film_shaper_cr_plain` with cotangent ``dy`` -> (d_exciter
+    (B, Ta, C), d_film_c (B, Tc, 4C), d_planes (170, C) in the
+    :func:`pack_weights` layout)."""
+    with torch.enable_grad():
+        exc = exciter.detach().requires_grad_()
+        film_c = film_c.detach().requires_grad_()
+        planes = pack_weights(shaper_params).detach().requires_grad_()
+        out = film_shaper_cr_plain(exc, film_c, unpack_weight_grads(planes), hop)
+        return torch.autograd.grad(out, (exc, film_c, planes), dy)
+
+
+def _lib(name: str, symbol: str, n_ptrs: int) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -127,40 +167,12 @@ def _check(exciter: torch.Tensor, film_c: torch.Tensor, weights: torch.Tensor, h
         raise ValueError(f"packed weights must be (170, {C}), got {tuple(weights.shape)}")
 
 
-def film_shaper_cr(
-    exciter: torch.Tensor,
-    film_c: torch.Tensor,
-    shaper_params: Dict,
-    hop: int,
-    packed: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """(B, Ta, 64) exciter + (B, Tc, 256) control-rate film -> (B, Ta, 64).
-
-    CPU tensors take :func:`film_shaper_cr_plain`. CUDA tensors launch
-    the kernel on the current stream, after checking device, dtype
-    (float32), shapes and contiguity; anything the kernel does not take
-    raises. ``packed`` is ``pack_weights(shaper_params)`` when the caller
-    keeps it (NEWT packs once per change of its parameters); packed here
-    otherwise."""
-    if exciter.device.type == "cpu":
-        return film_shaper_cr_plain(exciter, film_c, shaper_params, hop)
-    if exciter.device.type != "cuda":
-        raise ValueError(f"unsupported device {exciter.device}")
-    weights = pack_weights(shaper_params) if packed is None else packed
-    leaves = [shaper_params["input_scale"]]
-    leaves += [t for layer in shaper_params["layers"] for t in layer.values()]
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (exciter, film_c, weights, *leaves)
-    ):
-        raise NotImplementedError(
-            "film_shaper_cr is forward-only: its backward kernel is not ported "
-            "yet (ROADMAP.md); call it under torch.no_grad()/inference_mode()"
-        )
+def _launch_forward(exciter, film_c, weights, hop) -> torch.Tensor:
     _check(exciter, film_c, weights, hop)
     out = torch.empty_like(exciter)
     b, ta, _ = exciter.shape
     with torch.cuda.device(exciter.device):
-        lib = _lib()
+        lib = _lib("newt_fused_cr", "newt_fused_cr_forward", 4)
         stream = torch.cuda.current_stream(exciter.device).cuda_stream
         err = lib.newt_fused_cr_forward(
             exciter.data_ptr(), film_c.data_ptr(), weights.data_ptr(), out.data_ptr(),
@@ -172,4 +184,103 @@ def film_shaper_cr(
     return out
 
 
+def _launch_backward(exciter, film_c, weights, dy, hop):
+    """-> (d_exciter, d_film_c, d_planes) from ``csrc/newt_fused_cr_bwd.cu``.
+    Scratch (per-segment FiLM partials, per-block weight partials) is
+    allocated here; the C function reports how much it needs."""
+    _check(exciter, film_c, weights, hop)
+    if dy.shape != exciter.shape or dy.dtype != torch.float32 or dy.device != exciter.device:
+        raise ValueError(f"dy must be float32 {tuple(exciter.shape)} on {exciter.device}")
+    b, ta, _ = exciter.shape
+    tc = film_c.shape[1]
+    d_exc = torch.empty_like(exciter)
+    d_film = torch.empty_like(film_c)
+    d_planes = torch.empty_like(weights)
+    with torch.cuda.device(exciter.device):
+        lib = _lib("newt_fused_cr_bwd", "newt_fused_cr_backward", 9)
+        count_blocks = lib.newt_fused_cr_backward_blocks
+        if count_blocks.argtypes is None:
+            count_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+            count_blocks.restype = ctypes.c_int
+        blocks = count_blocks(b, tc)
+        if blocks <= 0:
+            raise RuntimeError(f"newt_fused_cr_backward_blocks failed: CUDA error {-blocks}")
+        film_part = torch.empty((b * tc, 3, 4 * C), dtype=torch.float32, device=exciter.device)
+        w_part = torch.empty((blocks, 170, C), dtype=torch.float32, device=exciter.device)
+        stream = torch.cuda.current_stream(exciter.device).cuda_stream
+        err = lib.newt_fused_cr_backward(
+            exciter.data_ptr(), film_c.data_ptr(), weights.data_ptr(), dy.data_ptr(),
+            d_exc.data_ptr(), d_film.data_ptr(), d_planes.data_ptr(),
+            film_part.data_ptr(), w_part.data_ptr(),
+            b, ta, tc, blocks, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"newt_fused_cr_backward did not launch: CUDA error {err}")
+    film_shaper_cr.bwd_launches += 1
+    return d_exc, d_film, d_planes
+
+
+class _FilmShaperCR(torch.autograd.Function):
+    """The kernel pair as one differentiable function of (exciter, film_c,
+    packed planes). Forward saves only its inputs, as JAX's
+    ``_fused_fwd_cr``; backward recomputes the forward in the kernel."""
+
+    @staticmethod
+    def forward(ctx, exciter, film_c, packed, hop):
+        ctx.hop = hop
+        ctx.save_for_backward(exciter, film_c, packed)
+        return _launch_forward(exciter, film_c, packed, hop)
+
+    @staticmethod
+    def backward(ctx, dy):
+        exciter, film_c, packed = ctx.saved_tensors
+        d_exc, d_film, d_planes = _launch_backward(
+            exciter, film_c, packed, dy.contiguous(), ctx.hop
+        )
+        return d_exc, d_film, d_planes, None
+
+
+def _shaper_leaves(shaper_params: Dict):
+    yield shaper_params["input_scale"]
+    for layer in shaper_params["layers"]:
+        yield from layer.values()
+
+
+def film_shaper_cr(
+    exciter: torch.Tensor,
+    film_c: torch.Tensor,
+    shaper_params: Dict,
+    hop: int,
+    packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, Ta, 64) exciter + (B, Tc, 256) control-rate film -> (B, Ta, 64).
+
+    CPU tensors take :func:`film_shaper_cr_plain` (autograd differentiates
+    it). CUDA tensors launch the kernels on the current stream, after
+    checking device, dtype (float32), shapes and contiguity; anything the
+    kernels do not take raises. With grad enabled and an input that needs
+    a gradient, the call goes through :class:`_FilmShaperCR`, whose
+    backward is the CUDA backward kernel; otherwise the forward kernel
+    alone runs. ``packed`` is ``pack_weights(shaper_params)`` when the
+    caller keeps it; packed here otherwise. A ``packed`` made without
+    autograd while a shaper leaf needs a gradient raises: the shapers
+    would silently get none."""
+    if exciter.device.type == "cpu":
+        return film_shaper_cr_plain(exciter, film_c, shaper_params, hop)
+    if exciter.device.type != "cuda":
+        raise ValueError(f"unsupported device {exciter.device}")
+    weights = pack_weights(shaper_params) if packed is None else packed
+    if not torch.is_grad_enabled():
+        return _launch_forward(exciter, film_c, weights, hop)
+    if not weights.requires_grad and any(t.requires_grad for t in _shaper_leaves(shaper_params)):
+        raise ValueError(
+            "packed shaper planes were made without autograd but the shaper "
+            "parameters need a gradient; pack them with grad enabled"
+        )
+    if any(t.requires_grad for t in (exciter, film_c, weights)):
+        return _FilmShaperCR.apply(exciter, film_c, weights, hop)
+    return _launch_forward(exciter, film_c, weights, hop)
+
+
 film_shaper_cr.launches = 0
+film_shaper_cr.bwd_launches = 0

@@ -56,6 +56,9 @@ class Reverb(nn.Module):
         n = sr * length_in_seconds - 1
         self.ir = nn.Parameter(torch.randn(n, generator=generator) * 1e-6)
 
+    def params(self) -> Params:
+        return {"ir": self.ir}
+
     def load_params(self, p: Params) -> None:
         _load(self.ir, p["ir"])
 

@@ -9,7 +9,9 @@ both sides of a parity test:
   * the GRU's ``w_ih`` is (in, 3H), ``w_hh`` (H, 3H), gates (r, z, n).
 
 Each module's ``load_params(tree)`` copies a tree of that layout in (see
-``convert/checkpoint.py``). The GRU runs as ``nn.GRU`` (cuDNN on the
+``convert/checkpoint.py``) and its ``params()`` returns one, made of the
+module's own parameters (views, so autograd and in-place updates reach
+them). The GRU runs as ``nn.GRU`` (cuDNN on the
 card), so its weights are stored transposed inside and transposed back
 on the way in; the JAX package likewise left its GRU to the compiler.
 Fresh modules are built on the CPU (move them with ``.to(device)``) and
@@ -71,6 +73,9 @@ class Dense(nn.Module):
         self.w = _uniform((in_size, out_size), bound, generator)
         self.b = _uniform((out_size,), bound, generator)
 
+    def params(self) -> Params:
+        return {"w": self.w, "b": self.b}
+
     def load_params(self, p: Params) -> None:
         _load(self.w, p["w"])
         _load(self.b, p["b"])
@@ -84,6 +89,9 @@ class LayerNorm(nn.Module):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(size))
         self.bias = nn.Parameter(torch.zeros(size))
+
+    def params(self) -> Params:
+        return {"scale": self.scale, "bias": self.bias}
 
     def load_params(self, p: Params) -> None:
         _load(self.scale, p["scale"])
@@ -115,6 +123,15 @@ class TimeDistributedMLP(nn.Module):
             self.dense.append(Dense(ins, outs, generator))
             if i < depth - 1:
                 self.norms.append(LayerNorm(outs))
+
+    def params(self) -> Params:
+        layers = []
+        for i, dense in enumerate(self.dense):
+            layer = {"dense": dense.params()}
+            if i < len(self.norms):
+                layer["norm"] = self.norms[i].params()
+            layers.append(layer)
+        return {"layers": layers}
 
     def load_params(self, p: Params) -> None:
         for i, layer in enumerate(p["layers"]):
@@ -211,6 +228,11 @@ class GRU(nn.Module):
             for w in self.rnn.parameters():
                 w.uniform_(-bound, bound, generator=generator)
 
+    def params(self) -> Params:
+        rnn = self.rnn
+        return {"w_ih": rnn.weight_ih_l0.T, "w_hh": rnn.weight_hh_l0.T,
+                "b_ih": rnn.bias_ih_l0, "b_hh": rnn.bias_hh_l0}
+
     def load_params(self, p: Params) -> None:
         _load(self.rnn.weight_ih_l0, torch.as_tensor(p["w_ih"]).T)
         _load(self.rnn.weight_hh_l0, torch.as_tensor(p["w_hh"]).T)
@@ -235,6 +257,9 @@ class ControlModule(nn.Module):
         super().__init__()
         self.gru = GRU(control_size, hidden_size, generator)
         self.proj = Dense(hidden_size, embedding_size, generator)
+
+    def params(self) -> Params:
+        return {"gru": self.gru.params(), "proj": self.proj.params()}
 
     def load_params(self, p: Params) -> None:
         self.gru.load_params(p["gru"])

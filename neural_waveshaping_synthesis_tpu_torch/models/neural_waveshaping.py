@@ -44,6 +44,18 @@ class NeuralWaveshaping(nn.Module):
         self.noise_synth = FIRNoiseSynth(256, control_hop)
         self.reverb = Reverb(2, int(sample_rate), generator)
 
+    def params(self) -> Params:
+        """The parameters as a tree in the JAX layout (views of the
+        module's own tensors): what ``load_params`` takes, and what
+        ``convert.save_reference_checkpoint`` writes."""
+        return {
+            "embedding": self.embedding.params(),
+            "harmonic_mixer": self.harmonic_mixer.params(),
+            "newt": self.newt.params(),
+            "h_generator": self.h_generator.params(),
+            "reverb": self.reverb.params(),
+        }
+
     def load_params(self, p: Params) -> None:
         """Copy in a parameter tree in the JAX layout (``convert/checkpoint.py``)."""
         self.embedding.load_params(p["embedding"])

@@ -16,9 +16,10 @@ from ..ops.upsample import linear_upsample
 from .modules import Dense, Params, TimeDistributedMLP, TrainableNonlinearity
 
 _NOT_PORTED = (
-    "is not ported yet (ROADMAP.md, queue 2); this slice has fused='cr' "
-    "and the plain chain (fused=False)"
+    "is not ported yet (ROADMAP.md, queue 2); the port has fused='cr' "
+    "(or its training spelling 'full_lane_cr') and the plain chain (fused=False)"
 )
+_CR = ("cr", "full_lane_cr")
 
 
 class NEWT(nn.Module):
@@ -30,11 +31,18 @@ class NEWT(nn.Module):
       (:func:`newt_fused.film_shaper_cr`); otherwise the plain chain, as
       JAX's ``"cr"`` falls back to its XLA chain. On CUDA that fallback
       is ~45x slower than the kernel, so it warns and adds one to
-      ``NEWT.cuda_chain_runs``;
+      ``NEWT.cuda_chain_runs``. With gradients the kernel's backward is
+      the CUDA backward kernel (``newt_fused._FilmShaperCR``);
+    * ``"full_lane_cr"`` (the JAX training recipe's spelling) behaves as
+      ``"cr"``. JAX falls back from it to the audio-rate kernel when its
+      TPU gate refuses the geometry; the Hopper gate accepts every integer
+      hop, so with the shipped shaper that fallback cannot be reached. A
+      shaper the kernel does not take runs the chain and counts
+      ``cuda_chain_runs``, as ``"cr"`` does;
     * ``False`` (or ``None`` at construction): the plain chain everywhere.
 
-    ``"full_lane_cr"``, ``"full_lane"``, ``True``, a FastNEWT
-    ``lookup_table`` and ``remat_shaper`` raise ``NotImplementedError``.
+    ``"full_lane"``, ``True``, a FastNEWT ``lookup_table`` and
+    ``remat_shaper`` raise ``NotImplementedError``.
     """
 
     def __init__(
@@ -67,8 +75,15 @@ class NEWT(nn.Module):
     cuda_chain_runs = 0  # forwards with fused="cr" that ran the chain on CUDA
 
     def _packed_shaper(self) -> torch.Tensor:
-        """The kernel's packed weight planes, packed again only when a
-        shaper parameter has moved or been written in place."""
+        """The kernel's packed weight planes. With grad enabled and a shaper
+        parameter that needs a gradient they are packed anew, with autograd,
+        on every call, so that the kernel's plane gradient flows back to
+        the 9 shaper leaves; otherwise the pack is cached and made again
+        only when a shaper parameter has moved or been written in place."""
+        if torch.is_grad_enabled() and any(
+            t.requires_grad for t in self.shaping_fn.parameters()
+        ):
+            return newt_fused.pack_weights(self.shaping_fn.params())
         key = tuple((t.data_ptr(), t._version) for t in self.shaping_fn.parameters())
         if key != self._packed_key:
             with torch.no_grad():
@@ -78,8 +93,15 @@ class NEWT(nn.Module):
 
     @staticmethod
     def _check_fused(fused) -> None:
-        if fused not in ("cr", None, False):
+        if fused not in (*_CR, None, False):
             raise NotImplementedError(f"NEWT fused={fused!r} {_NOT_PORTED}")
+
+    def params(self) -> Params:
+        return {
+            "mlp": self.mlp.params(),
+            "shaping_fn": self.shaping_fn.params(),
+            "mixer": self.mixer.params(),
+        }
 
     def load_params(self, p: Params) -> None:
         self.mlp.load_params(p["mlp"])
@@ -103,7 +125,7 @@ class NEWT(nn.Module):
         fp = self.mlp(control_embedding)  # (B, Tc, 4C) control-rate FiLM
         ta, tc = exciter.shape[1], fp.shape[1]
         params = self.shaping_fn.params()
-        if fused == "cr" and exciter.is_cuda:
+        if fused in _CR and exciter.is_cuda:
             if newt_fused.supports_cr(self.shaping_fn, ta, tc):
                 x = newt_fused.film_shaper_cr(
                     exciter, fp, params, ta // tc, packed=self._packed_shaper()
@@ -111,7 +133,7 @@ class NEWT(nn.Module):
                 return self.mixer(x)
             NEWT.cuda_chain_runs += 1
             warnings.warn(
-                f"NEWT fused='cr': the kernel does not take this shaper or "
+                f"NEWT fused={fused!r}: the kernel does not take this shaper or "
                 f"geometry (Ta={ta}, Tc={tc}); running the plain chain on CUDA"
             )
         x = newt_fused.film_shaper_chain(exciter, linear_upsample(fp, ta), params)

@@ -1,5 +1,5 @@
 """DSP ops on tensors: the port's counterparts of the JAX ``ops`` modules
-that offline synthesis uses."""
+that synthesis and the training loss use."""
 from .fastmath import fast_cos, fast_sin
 from .fir import fft_convolve_circular, fir_noise_filter, windowed_fir_from_magnitude
 from .oscillator import (
@@ -8,7 +8,7 @@ from .oscillator import (
     harmonic_oscillator_bank,
     phase_accumulate,
 )
-from .stft import frame_signal, istft, overlap_add, stft
+from .stft import frame_signal, istft, overlap_add, spectrogram_magnitude, stft
 from .upsample import linear_upsample
 from .windows import hann_window
 
@@ -25,6 +25,7 @@ __all__ = [
     "frame_signal",
     "istft",
     "overlap_add",
+    "spectrogram_magnitude",
     "stft",
     "linear_upsample",
     "hann_window",

@@ -14,6 +14,10 @@ representation of the argument already carries that much.
 
 float64 inputs take exact ``torch.sin``/``torch.cos``: the polynomial's
 fit error would dominate f64 precision.
+
+Gradients are the JAX package's custom ones: d fast_sin = fast_cos and
+d fast_cos = -fast_sin (``torch.autograd.Function``s that save only the
+input), not autograd through the polynomial.
 """
 import math
 
@@ -55,17 +59,57 @@ def _horner(s: torch.Tensor, coeffs) -> torch.Tensor:
     return p
 
 
-def fast_sin(x: torch.Tensor) -> torch.Tensor:
-    """Polynomial sine for float32 (and narrower); float64 takes ``torch.sin``."""
-    if x.dtype == torch.float64:
-        return torch.sin(x)
+def _sin_poly(x: torch.Tensor) -> torch.Tensor:
     r = _reduce(x)
     return r * _horner(r * r, _SIN_ODD_COEFFS)
 
 
-def fast_cos(x: torch.Tensor) -> torch.Tensor:
-    """Polynomial cosine; float64 takes ``torch.cos`` (see :func:`fast_sin`)."""
-    if x.dtype == torch.float64:
-        return torch.cos(x)
+def _cos_poly(x: torch.Tensor) -> torch.Tensor:
     r = _reduce(x)
     return _horner(r * r, _COS_EVEN_COEFFS)
+
+
+class _FastSin(torch.autograd.Function):
+    """d fast_sin = fast_cos: the JAX ``custom_jvp``. Autograd through the
+    Horner chain would differentiate the polynomial and ``round`` instead
+    (up to ~9e-7 away) and keep every intermediate; this saves ``x`` only."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _sin_poly(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return _FastCos.apply(x) * g
+
+
+class _FastCos(torch.autograd.Function):
+    """d fast_cos = -fast_sin, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _cos_poly(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return -_FastSin.apply(x) * g
+
+
+def fast_sin(x: torch.Tensor) -> torch.Tensor:
+    """Polynomial sine for float32 (and narrower); float64 takes
+    ``torch.sin``. Its gradient is :func:`fast_cos`."""
+    if x.dtype == torch.float64:
+        return torch.sin(x)
+    return _FastSin.apply(x)
+
+
+def fast_cos(x: torch.Tensor) -> torch.Tensor:
+    """Polynomial cosine; float64 takes ``torch.cos`` (see :func:`fast_sin`).
+    Its gradient is ``-fast_sin``."""
+    if x.dtype == torch.float64:
+        return torch.cos(x)
+    return _FastCos.apply(x)

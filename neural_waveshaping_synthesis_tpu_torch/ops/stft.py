@@ -1,10 +1,16 @@
-"""Framed STFT / iSTFT with the JAX ``ops/stft.py`` semantics — only
-what the FIR noise branch needs.
+"""Framed STFT / iSTFT with the JAX ``ops/stft.py`` semantics: what the
+FIR noise branch and the multi-resolution STFT loss need.
 
 Signals are time-last ``(..., T)``; spectrograms ``(..., n_frames,
 n_bins)``, frames before bins as in the JAX code. ``center=True``
-reflect-pads n_fft//2 per side; ``window=None`` is rectangular; ``istft``
-normalises by the overlap-added squared window, guarded at 1e-11.
+reflect-pads n_fft//2 per side; ``window=None`` is rectangular; a window
+(or ``win_length``) shorter than ``n_fft`` is zero-padded to n_fft,
+centered, as ``torch.stft`` does; ``istft`` normalises by the
+overlap-added squared window, guarded at 1e-11.
+
+The JAX loss takes its spectrogram from a polyphase matmul DFT
+(``polyphase_dft_magnitude``), a layout device for the TPU's matrix unit
+with the same values; the port takes the framed ``torch.fft.rfft``.
 """
 from typing import Optional
 
@@ -34,14 +40,25 @@ def overlap_add(frames: torch.Tensor, hop_length: int, out_length: int) -> torch
     return flat[..., :out_length]
 
 
-def _window(
-    window: Optional[torch.Tensor], n_fft: int, device: torch.device
+def _expand_window(
+    window: Optional[torch.Tensor],
+    n_fft: int,
+    win_length: Optional[int],
+    device: torch.device,
 ) -> torch.Tensor:
-    """An (n_fft,) window; None means rectangular ones(n_fft)."""
+    """An (n_fft,) window (the JAX ``_expand_window``): a window shorter
+    than n_fft is zero-padded to n_fft, centered; no window means
+    rectangular, ones(win_length) padded the same way when win_length <
+    n_fft, else ones(n_fft)."""
     if window is None:
-        return torch.ones(n_fft, dtype=torch.float32, device=device)
-    if window.shape != (n_fft,):
-        raise ValueError(f"window must have n_fft={n_fft} samples")
+        length = win_length if win_length is not None and win_length < n_fft else n_fft
+        window = torch.ones(length, dtype=torch.float32, device=device)
+    wl = window.shape[-1]
+    if window.dim() != 1 or wl > n_fft:
+        raise ValueError(f"window must be 1-D with at most n_fft={n_fft} samples")
+    if wl < n_fft:
+        left = (n_fft - wl) // 2
+        window = F.pad(window, (left, n_fft - wl - left))
     return window
 
 
@@ -55,11 +72,12 @@ def stft(
     x: torch.Tensor,
     n_fft: int,
     hop_length: int,
+    win_length: Optional[int] = None,
     window: Optional[torch.Tensor] = None,
     center: bool = True,
 ) -> torch.Tensor:
     """Complex STFT of ``(..., T)`` -> ``(..., n_frames, n_fft//2+1)``."""
-    w = _window(window, n_fft, x.device)
+    w = _expand_window(window, n_fft, win_length, x.device)
     if center:
         x = _reflect_pad(x, n_fft // 2)
     frames = frame_signal(x, n_fft, hop_length)
@@ -70,13 +88,14 @@ def istft(
     spec: torch.Tensor,
     n_fft: int,
     hop_length: int,
+    win_length: Optional[int] = None,
     window: Optional[torch.Tensor] = None,
     center: bool = True,
 ) -> torch.Tensor:
     """Inverse STFT of ``(..., n_frames, n_bins)`` -> ``(..., T)``:
     windowed overlap-add over the overlap-added squared window.
     ``center=False`` keeps the full ``n_fft + hop*(n_frames-1)`` samples."""
-    w = _window(window, n_fft, spec.device)
+    w = _expand_window(window, n_fft, win_length, spec.device)
     n_frames = spec.shape[-2]
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * w
     out_len = n_fft + hop_length * (n_frames - 1)
@@ -86,3 +105,19 @@ def istft(
     if center:
         y = y[..., n_fft // 2 : out_len - n_fft // 2]
     return y
+
+
+def spectrogram_magnitude(
+    x: torch.Tensor,
+    n_fft: int,
+    hop_length: int,
+    win_length: Optional[int] = None,
+    window: Optional[torch.Tensor] = None,
+    center: bool = True,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """|STFT| with the loss's numerical floor: sqrt(max(|X|^2, eps)), as
+    auraloss clamps the power at 1e-8 before the square root."""
+    spec = stft(x, n_fft, hop_length, win_length, window, center)
+    power = spec.real * spec.real + spec.imag * spec.imag
+    return torch.sqrt(torch.clamp(power, min=eps))

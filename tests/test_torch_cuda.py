@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernel against its plain version, and
-the model on the card against the model on the CPU.
+"""The port on the card: the CUDA kernels (forward and backward) against
+their plain versions, and the model and a training step on the card
+against the same on the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it runs where the card is and JAX is not:
@@ -8,6 +9,7 @@ no JAX, so it runs where the card is and JAX is not:
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the parity tests.)
 """
+import copy
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +20,7 @@ from neural_waveshaping_synthesis_tpu_torch.convert import load_checkpoint
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
 from neural_waveshaping_synthesis_tpu_torch.models import NEWT, NeuralWaveshaping
 from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample
+from neural_waveshaping_synthesis_tpu_torch.training import compute_loss
 
 CKPT = str(
     Path(__file__).resolve().parents[1]
@@ -94,8 +97,12 @@ def test_kernel_refuses_what_it_does_not_take(cuda, params):
             nf.film_shaper_cr(strided, film_c, w, 8)
         with pytest.raises(ValueError):
             nf.film_shaper_cr(exc, film_c.cpu(), w, 8)
-    with pytest.raises(NotImplementedError):  # no backward kernel yet
-        nf.film_shaper_cr(exc.requires_grad_(), film_c, w, 8)
+    # planes packed without autograd would give the shapers no gradient
+    leaves = {"input_scale": w["input_scale"].clone().requires_grad_(), "layers": w["layers"]}
+    with torch.no_grad():
+        packed = nf.pack_weights(leaves)
+    with pytest.raises(ValueError):
+        nf.film_shaper_cr(exc, film_c, leaves, 8, packed=packed)
 
 
 def test_newt_on_the_card_launches_the_kernel(cuda, params):
@@ -144,3 +151,128 @@ def test_model_on_the_card_matches_the_cpu(cuda, params):
         outs.append(y.cpu().numpy())
     card, cpu = outs
     assert np.sqrt(np.mean((card - cpu) ** 2)) / np.sqrt(np.mean(cpu**2)) <= 1e-3
+
+
+def _grad_close(out, ref):
+    """The JAX suite's gradient bar, rtol=1e-3, with atol = 1e-3 * max|plain|
+    per tensor: weight grads are sums over every sample, so an absolute
+    bar set for unit-size values does not scale to them."""
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("b,tc,hop", [(2, 6, 16), (1, 37, 128), (2, 5, 10), (1, 3, 1), (3, 1, 64)])
+def test_backward_kernel_matches_plain(cuda, params, b, tc, hop):
+    """d_exciter, d_film_c and the 170 weight-gradient planes of the CUDA
+    backward against autograd through the plain version; one launch."""
+    exc, film_c = (t.to(cuda) for t in _inputs(b, tc, hop, seed=4))
+    dy = torch.randn(exc.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    w = _shaper(params, cuda)
+    before = nf.film_shaper_cr.bwd_launches
+    out = nf._launch_backward(exc, film_c, nf.pack_weights(w), dy, hop)
+    ref = nf.film_shaper_cr_grad_plain(exc, film_c, w, hop, dy)
+    torch.cuda.synchronize()
+    assert nf.film_shaper_cr.bwd_launches == before + 1
+    for o, r in zip(out, ref):
+        _grad_close(o, r)
+
+
+def test_backward_kernel_is_deterministic(cuda, params):
+    """Per-block partials summed in a fixed order, no atomics: two calls
+    on the same inputs give the same bits."""
+    exc, film_c = (t.to(cuda) for t in _inputs(2, 50, 128, seed=6))
+    dy = torch.randn(exc.shape, generator=torch.Generator().manual_seed(7)).to(cuda)
+    packed = nf.pack_weights(_shaper(params, cuda))
+    first = nf._launch_backward(exc, film_c, packed, dy, 128)
+    second = nf._launch_backward(exc, film_c, packed, dy, 128)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_backward_clamp_gradients(cuda, params):
+    """A loss that reads only the first half-hop and the last hop: the
+    FiLM cotangents of the clamped head and tail fold onto frames 0 and
+    Tc-1 (the JAX test_cr_head_and_tail_clamp_gradients case), through
+    the autograd Function."""
+    hop = 16
+    exc, film_c = (t.to(cuda) for t in _inputs(2, 6, hop, seed=8))
+    w = _shaper(params, cuda)
+
+    def film_grad(fn):
+        f = film_c.clone().requires_grad_()
+        out = fn(f)
+        (out[:, : hop // 2].square().sum() + out[:, -hop:].square().sum()).backward()
+        return f.grad
+
+    before = nf.film_shaper_cr.bwd_launches
+    got = film_grad(lambda f: nf.film_shaper_cr(exc, f, w, hop))
+    assert nf.film_shaper_cr.bwd_launches == before + 1
+    ref = film_grad(lambda f: nf.film_shaper_cr_plain(exc, f, w, hop))
+    _grad_close(got, ref)
+
+
+def test_every_newt_leaf_gets_a_gradient_on_the_card(cuda, params):
+    """NEWT with gradients on the card: both kernels launch once, every
+    parameter (the 9 shaper leaves among them) gets a nonzero gradient,
+    within 1e-3 normalised of the same NEWT on the CPU."""
+    rng = np.random.default_rng(9)
+    exc = torch.from_numpy((rng.standard_normal((2, 15 * 128, 64)) * 0.5).astype(np.float32))
+    emb = torch.from_numpy(rng.standard_normal((2, 15, 128)).astype(np.float32))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        newt = NEWT()
+        newt.load_params(params["newt"])
+        newt.to(dev)
+        launches = (nf.film_shaper_cr.launches, nf.film_shaper_cr.bwd_launches)
+        newt(exc.to(dev), emb.to(dev)).square().sum().backward()
+        if dev.type == "cuda":
+            assert (nf.film_shaper_cr.launches, nf.film_shaper_cr.bwd_launches) == (
+                launches[0] + 1, launches[1] + 1)
+        grads.append({n: p.grad.cpu() for n, p in newt.named_parameters()})
+    card, cpu = grads
+    for name, g in card.items():
+        assert torch.count_nonzero(g) > 0, name
+        assert torch.linalg.norm(g - cpu[name]) <= 1e-3 * torch.linalg.norm(cpu[name]), name
+
+
+def test_one_training_step_on_the_card_matches_the_cpu(cuda):
+    """The loss and every parameter's gradient of one step, from the same
+    seeded random weights, batch (a 1-s harmonic tone and its controls),
+    phase offsets and noise: loss within 1e-4 relative, no gradient zero
+    on the card, each within 1e-3 normalised of the CPU's. The
+    log-magnitude L1 term of the loss divides by each bin's magnitude, so
+    float32 rounding alone moves some leaves by ~1e-3 (the CPU's own
+    float32 gradient against its float64 one): a leaf beyond 1e-3 passes
+    when the card is no farther from the float64 gradient than twice the
+    CPU's float32 gradient is."""
+    rng = np.random.default_rng(10)
+    tc = 125
+    f0 = np.geomspace(220.0, 440.0, tc).astype(np.float32)
+    phase = 2 * np.pi * np.cumsum(np.repeat(f0, 128)) / 16000
+    audio = 0.1 * sum(np.sin(k * phase) / k for k in range(1, 11))
+    batch = {
+        "f0": torch.from_numpy(f0[None]),
+        "control": torch.from_numpy(np.stack([(f0 - 330.0) / 60.0, np.zeros(tc)], -1)[None].astype(np.float32)),
+        "audio": torch.from_numpy(audio[None].astype(np.float32)),
+    }
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, tc * 128 - 1).astype(np.float32))
+    base = NeuralWaveshaping(generator=torch.Generator().manual_seed(3))
+    results = []
+    for dev, dtype in ((cuda, torch.float32), (torch.device("cpu"), torch.float32),
+                       (torch.device("cpu"), torch.float64)):
+        model = copy.deepcopy(base).to(dev, dtype)
+        loss = compute_loss(model, {k: v.to(dev, dtype) for k, v in batch.items()},
+                            phase_offset=offset.to(dev, dtype), noise=noise.to(dev, dtype))
+        loss.backward()
+        results.append((float(loss.detach()),
+                        {n: p.grad.cpu().double() for n, p in model.named_parameters()}))
+    (card_loss, card), (cpu_loss, cpu), (_, exact) = results
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    assert abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    for name, g in card.items():
+        assert torch.count_nonzero(g) > 0, name
+        if rel(g, cpu[name]) > 1e-3:
+            assert rel(g, exact[name]) <= 2 * rel(cpu[name], exact[name]), name

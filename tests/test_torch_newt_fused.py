@@ -1,9 +1,10 @@
 """The control-rate FiLM -> shaper -> FiLM module of the port.
 
-On the CPU: the plain version against the JAX TPU kernel
-``film_shaper_fused_cr`` (run by the JAX package in interpret mode on
-the CPU), the wrapper's CPU dispatch, the Hopper gate, the launch checks
-and NEWT's dispatch. The card's own cases (the CUDA kernel against
+On the CPU: the plain version and its backward against the JAX TPU
+kernel ``film_shaper_fused_cr`` and its backward ``_fused_bwd_cr`` (run
+by the JAX package in interpret mode on the CPU), the weight-plane
+packing both ways, the wrapper's CPU dispatch, the Hopper gate, the
+launch checks and NEWT's dispatch and packing. The card's own cases (the CUDA kernel against
 the plain version) are in tests/test_torch_cuda.py, which imports no JAX
 so that it runs on a machine with a card and no JAX.
 """
@@ -65,17 +66,18 @@ def test_pack_weights_matches_jax(jax_newt):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+@torch.no_grad()
 def test_newt_packs_the_shaper_once_per_parameter_change(jax_newt):
-    """NEWT keeps the kernel's packed planes between forwards and packs
-    again after its shaper parameters are loaded anew or written in place."""
+    """Without gradients NEWT keeps the kernel's packed planes between
+    forwards and packs again after its shaper parameters are loaded anew
+    or written in place."""
     _, p = jax_newt
     newt = NEWT()
     newt.load_params(params_from_jax(p))
     packed = newt._packed_shaper()
     assert newt._packed_shaper() is packed
     assert torch.equal(packed, nf.pack_weights(_shaper_params(p)))
-    with torch.no_grad():
-        newt.shaping_fn.input_scale.mul_(2.0)
+    newt.shaping_fn.input_scale.mul_(2.0)
     repacked = newt._packed_shaper()
     assert repacked is not packed
     assert torch.equal(repacked[0], 2.0 * packed[0]) and torch.equal(repacked[1:], packed[1:])
@@ -167,7 +169,7 @@ def test_newt_dispatch_on_cpu_matches_jax_chain(jax_newt):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("fused", ["full_lane_cr", "full_lane", True])
+@pytest.mark.parametrize("fused", ["fl", "full_lane", True])
 def test_newt_unported_options_raise(fused):
     with pytest.raises(NotImplementedError):
         NEWT(fused=fused)
@@ -181,3 +183,111 @@ def test_newt_lookup_table_and_remat_raise():
         NEWT(remat_shaper=True)
     with pytest.raises(NotImplementedError):
         NEWT()(torch.zeros(1, 16, 64), torch.zeros(1, 2, 128), lookup_table=torch.zeros(8, 64))
+
+
+# ---------------------------------------------------------------------------
+# the backward (JAX _fused_bwd_cr) and the packing that carries it
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("tc", [4, 6])
+@pytest.mark.parametrize("hop", [8, 16])
+def test_plain_backward_matches_jax_cr_kernel_grad(jax_newt, tc, hop):
+    """film_shaper_cr_grad_plain (d_exciter, d_film_c, the 170 weight
+    planes unpacked to the shaper tree) against jax.grad through the JAX
+    kernel in interpret mode, whose backward is _fused_bwd_cr, at the JAX
+    suite's gradient bar rtol=1e-3, atol=1e-2 (tests/test_newt_fused.py
+    test_cr_gradients_match_autodiff)."""
+    _, p = jax_newt
+    exciter, film_c = _inputs(2, tc, hop, seed=tc + hop)
+    dy = np.random.default_rng(hop).standard_normal(exciter.shape).astype(np.float32)
+
+    def loss(exc, f, sp):
+        out = jnf.film_shaper_fused_cr(exc, f, jnf.pack_weights_fl(sp), hop)
+        return jnp.sum(out * dy)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(exciter), jnp.asarray(film_c), p["shaping_fn"]
+    )
+    d_exc, d_film, d_planes = nf.film_shaper_cr_grad_plain(
+        torch.from_numpy(exciter), torch.from_numpy(film_c), _shaper_params(p), hop,
+        torch.from_numpy(dy),
+    )
+    ours = [d_exc, d_film] + jax.tree_util.tree_leaves(
+        jax.tree_util.tree_map(lambda t: t.numpy(), nf.unpack_weight_grads(d_planes))
+    )
+    theirs = jax.tree_util.tree_leaves(ref)
+    assert len(ours) == len(theirs) == 11
+    for a, b in zip(ours, theirs):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-2)
+
+
+def test_plain_backward_clamp_gradients_match_jax(jax_newt):
+    """The head and tail clamps' transpose: a loss that reads only the
+    first half-hop and the last hop folds its FiLM cotangents onto frames
+    0 and Tc-1 (tests/test_newt_fused.py test_cr_head_and_tail_clamp_gradients,
+    rtol=1e-4, atol=1e-5)."""
+    _, p = jax_newt
+    hop = 16
+    exciter, film_c = _inputs(2, 6, hop, seed=12)
+
+    def jloss(f):
+        out = jnf.film_shaper_fused_cr(
+            jnp.asarray(exciter), f, jnf.pack_weights_fl(p["shaping_fn"]), hop
+        )
+        return jnp.sum(out[:, : hop // 2] ** 2) + jnp.sum(out[:, -hop:] ** 2)
+
+    ref = np.asarray(jax.grad(jloss)(jnp.asarray(film_c)))
+    f = torch.from_numpy(film_c).requires_grad_()
+    out = nf.film_shaper_cr(torch.from_numpy(exciter), f, _shaper_params(p), hop)
+    (out[:, : hop // 2].square().sum() + out[:, -hop:].square().sum()).backward()
+    np.testing.assert_allclose(f.grad.numpy(), ref, rtol=1e-4, atol=1e-5)
+    assert np.all(ref[:, 2:-2] == 0) and np.any(ref[:, 0] != 0) and np.any(ref[:, -1] != 0)
+
+
+def test_unpack_weight_grads_matches_jax():
+    """(170, 64) planes -> the shaper tree, bit for bit against the JAX
+    unpack_weight_grads, and the inverse of pack_weights."""
+    planes = np.random.default_rng(13).standard_normal((170, 64)).astype(np.float32)
+    splits = np.cumsum([1, 8, 8, 64, 8, 64, 8, 8])
+    ref = jnf.unpack_weight_grads(tuple(jnp.asarray(a) for a in np.split(planes, splits)))
+    ours = nf.unpack_weight_grads(torch.from_numpy(planes))
+    for a, b in zip(jax.tree_util.tree_leaves(jax.tree_util.tree_map(lambda t: t.numpy(), ours)),
+                    jax.tree_util.tree_leaves(ref)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert torch.equal(nf.pack_weights(ours), torch.from_numpy(planes))
+
+
+def test_newt_packs_with_autograd_when_a_gradient_is_needed(jax_newt):
+    """With grad enabled the packed planes are made anew on every call and
+    carry a grad_fn back to the 9 shaper leaves (a cached pack made under
+    no_grad would give them no gradient, silently); without grad the pack
+    stays cached."""
+    _, p = jax_newt
+    newt = NEWT()
+    newt.load_params(params_from_jax(p))
+    packed = newt._packed_shaper()
+    assert packed.grad_fn is not None and newt._packed_shaper() is not packed
+    packed.sum().backward()
+    leaves = list(newt.shaping_fn.parameters())
+    assert len(leaves) == 9 and all(t.grad is not None and torch.all(t.grad == 1) for t in leaves)
+    with torch.no_grad():
+        cached = newt._packed_shaper()
+        assert cached.grad_fn is None and newt._packed_shaper() is cached
+    assert torch.equal(cached, packed.detach())
+
+
+def test_newt_full_lane_cr_behaves_as_cr(jax_newt):
+    """The JAX training recipe's spelling is accepted and computes what
+    "cr" computes, with gradients (on the CPU, the plain chain)."""
+    _, p = jax_newt
+    rng = np.random.default_rng(14)
+    exciter = torch.from_numpy((rng.standard_normal((1, 6 * 16, 64)) * 0.5).astype(np.float32))
+    emb = torch.from_numpy(rng.standard_normal((1, 6, 128)).astype(np.float32))
+    outs = []
+    for fused in ("full_lane_cr", "cr"):
+        newt = NEWT(fused=fused)
+        newt.load_params(params_from_jax(p))
+        out = newt(exciter, emb)
+        out.square().sum().backward()
+        outs.append((out.detach(), [t.grad for t in newt.parameters()]))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
