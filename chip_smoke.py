@@ -20,9 +20,9 @@ exits non-zero:
    gate refused (odd Tc=37, hop=64);
 4. serve: ``Synthesizer.from_checkpoint(..., device="cuda")`` renders a
    batch of four requests (2, 4, 4 and 7 s) and one 4-s request; the
-   outputs must be finite and not silent, every render must have
-   launched the kernel, and NEWT must not have run its plain chain on
-   the card. Then one request rendered on the card and on the CPU from
+   outputs must be finite and not silent, and every render must have
+   launched the kernel (NEWT raises on the card rather than run its
+   plain chain). Then one request rendered on the card and on the CPU from
    the same injected phase offsets and noise must agree within 1e-3
    normalised RMS;
 5. timing: CUDA-event medians of 20 runs after warm-up — the kernel and
@@ -42,8 +42,8 @@ exits non-zero:
 8. train: ``Trainer(device="cuda").fit`` for 30 steps at batch 8 x 4 s
    from a seeded random init on a synthetic shard dataset written here
    (harmonic tones with their controls); finite losses, one launch of
-   each kernel per step (and one forward launch per validation batch), no
-   plain chain on the card, moved parameters; then the checkpoint it
+   each kernel per step (and one forward launch per validation batch),
+   moved parameters; then the checkpoint it
    wrote served by ``Synthesizer.from_checkpoint(device="cuda")``;
 9. timing_train: CUDA-event medians of 20 after warm-up at batch 8 x 4 s:
    the whole training step, the backward kernel and its plain version on
@@ -70,7 +70,7 @@ from neural_waveshaping_synthesis_tpu_torch.data import GeneralDataModule
 from neural_waveshaping_synthesis_tpu_torch.inference import Synthesizer
 from neural_waveshaping_synthesis_tpu_torch.kernels import _build
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
-from neural_waveshaping_synthesis_tpu_torch.models import NEWT, NeuralWaveshaping
+from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping
 from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample
 from neural_waveshaping_synthesis_tpu_torch.training import TrainConfig, Trainer, compute_loss
 
@@ -324,13 +324,14 @@ def train_phases(dev):
         (card_loss, card), (cpu_loss, cpu), (exact_loss, exact) = results
         rel = {n: relnorm(card[n], cpu[n]) for n in cpu}
         # a leaf beyond 1e-3 passes only if the card is no farther from the
-        # float64 gradient than twice the CPU's own float32 gradient is:
-        # the log-magnitude L1 term of the loss divides by each bin's
+        # float64 gradient than the CPU's own float32 gradient is, plus
+        # 1e-3: the log-magnitude L1 term of the loss divides by each bin's
         # magnitude, so float32 rounding alone moves some leaves that far
+        # (scripts/torch_grad_bar.py measures the rule, PERF.md)
         witness = {n: {"card_vs_cpu": r, "card_vs_f64": relnorm(card[n], exact[n]),
                        "cpu_vs_f64": relnorm(cpu[n], exact[n])}
                    for n, r in rel.items() if r > 1e-3}
-        failed = [n for n, w in witness.items() if w["card_vs_f64"] > 2 * w["cpu_vs_f64"]]
+        failed = [n for n, w in witness.items() if w["card_vs_f64"] > w["cpu_vs_f64"] + 1e-3]
         zero = [n for n, g in card.items() if not torch.count_nonzero(g)]
         worst = max(rel, key=rel.get)
         emit({"phase": "train_card_vs_cpu", "B": 1, "Tc": tc2, "loss_card": card_loss,
@@ -348,7 +349,6 @@ def train_phases(dev):
                               cfg, device="cuda")
         before = [p.detach().clone() for p in fit_trainer.model.parameters()]
         nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
-        NEWT.cuda_chain_runs = 0
         t0 = time.perf_counter()
         history = fit_trainer.fit(dm)
         torch.cuda.synchronize()
@@ -360,14 +360,14 @@ def train_phases(dev):
               "clip_s": batch["audio"].shape[1] / SR,
               "fit_s": fit_s, "loss": history["loss"], "grad_norm": history["grad_norm"],
               "val": history["val"], "fwd_launches": fwd, "bwd_launches": bwd,
-              "val_batches": val_batches, "chain_runs": NEWT.cuda_chain_runs,
+              "val_batches": val_batches,
               "params_moved": moved, "params": len(before)})
         if not np.all(np.isfinite(history["loss"])) or len(history["loss"]) != TRAIN_STEPS:
             raise RuntimeError("training losses are not finite")
         if bwd != TRAIN_STEPS or fwd != TRAIN_STEPS + val_batches:
             raise RuntimeError(f"launches: forward {fwd}, backward {bwd}, for {TRAIN_STEPS} steps")
-        if NEWT.cuda_chain_runs or moved != len(before):
-            raise RuntimeError("training ran the plain chain on the card or left parameters")
+        if moved != len(before):
+            raise RuntimeError(f"training moved {moved} of {len(before)} parameters")
         served = Synthesizer.from_checkpoint(str(Path(tmp) / "ckpt" / "best.ckpt"), device="cuda")
         f0 = np.geomspace(220.0, 440.0, 4 * SR // HOP).astype(np.float32)
         loud = np.full_like(f0, -15.0)  # dB, the unit of the tone dataset's loudness
@@ -471,7 +471,6 @@ def main() -> int:
 
     # 4. serve through the entry point a user calls
     nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
-    NEWT.cuda_chain_runs = 0
     renders = []
     for requests in (batch, single):
         before = nf.film_shaper_cr.launches
@@ -480,8 +479,8 @@ def main() -> int:
             raise RuntimeError("a render on the card did not launch film_shaper_fused_cr")
         renders.append((requests, audio))
     launches = nf.film_shaper_cr.launches
-    if NEWT.cuda_chain_runs or nf.film_shaper_cr.bwd_launches:
-        raise RuntimeError("serving ran the plain chain or a backward on the card")
+    if nf.film_shaper_cr.bwd_launches:
+        raise RuntimeError("serving launched the backward kernel")
     for requests, audio in renders:
         for (f0, _), a in zip(requests, audio):
             if a.shape != (f0.shape[0] * HOP,) or not np.all(np.isfinite(a)):

@@ -75,11 +75,11 @@ class GeneralDataset:
 
 
 class GeneralDataModule:
-    """Batch streams for train/val/test (reference ``data/general.py``).
+    """Batch streams for train and val (reference ``data/general.py``).
 
     Train batches are shuffled per pass with ``np.random.default_rng(seed)``
-    and sized statically, the remainder dropped; val/test iterate in order
-    and drop a short final batch the same way. A split smaller than
+    and sized statically, the remainder dropped; val iterates in order
+    and drops a short final batch the same way. A split smaller than
     ``batch_size`` gives one batch of the whole split."""
 
     def __init__(self, data_root: str, batch_size: int = 16):
@@ -108,6 +108,3 @@ class GeneralDataModule:
 
     def val_batches(self) -> Iterator[Dict]:
         return self._batches("val", np.arange(len(self.dataset("val"))))
-
-    def test_batches(self) -> Iterator[Dict]:
-        return self._batches("test", np.arange(len(self.dataset("test"))))

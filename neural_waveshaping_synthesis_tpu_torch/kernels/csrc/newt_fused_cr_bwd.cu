@@ -317,39 +317,35 @@ __global__ void fold_film_partials(const float* __restrict__ part,
   }
 }
 
-cudaError_t allow_shared() {
-  return cudaFuncSetAttribute(film_shaper_cr_bwd_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kSmemBytes));
-}
-
 }  // namespace
 
-// The number of blocks the backward launches for B clips of Tc frames:
-// enough for every segment row, at most what is resident on the card at
-// once. The caller sizes the (blocks, 170, 64) weight partials with it.
-// Returns -(CUDA error) on failure.
-extern "C" int newt_fused_cr_backward_blocks(int b, int tc) {
+// The number of backward blocks resident on the current device at once
+// (SMs x blocks per SM); it also allows the kernel its dynamic shared
+// memory there, so call it once per device before the first launch. The
+// caller launches min(this, ceil(B*Tc / 4)) blocks and sizes the
+// (blocks, 170, 64) weight partials with it. Returns -(CUDA error) on
+// failure.
+extern "C" int newt_fused_cr_backward_resident_blocks() {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) err = allow_shared();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(film_shaper_cr_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemBytes));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, film_shaper_cr_bwd_kernel, kThreads, kSmemBytes);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (per_sm < 1) return -static_cast<int>(cudaErrorLaunchOutOfResources);
-  const long long needed =
-      (static_cast<long long>(b) * tc + kRowsPerBlock - 1) / kRowsPerBlock;
-  const long long resident = static_cast<long long>(sms) * per_sm;
-  return static_cast<int>(needed < resident ? needed : resident);
+  return sms * per_sm;
 }
 
 // exciter, dy, d_exciter (B, Ta, 64); film, d_film (B, Tc, 256); weights,
 // d_planes (170, 64); scratch film_part (B*Tc, 3, 256) and w_part
-// (blocks, 170, 64), blocks from newt_fused_cr_backward_blocks: contiguous
-// float32 on the current device, Ta = Tc*hop. Launches the three kernels
+// (blocks, 170, 64), with blocks as newt_fused_cr_backward_resident_blocks
+// says: contiguous float32 on the current device, Ta = Tc*hop. Launches the three kernels
 // on `stream` and returns the first CUDA error (0 = launched).
 extern "C" int newt_fused_cr_backward(const float* exciter, const float* film,
                                       const float* weights, const float* dy,
@@ -359,12 +355,10 @@ extern "C" int newt_fused_cr_backward(const float* exciter, const float* film,
                                       int blocks, void* stream) {
   if (b <= 0 || tc <= 0 || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = allow_shared();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int hop = ta / tc;
   film_shaper_cr_bwd_kernel<<<blocks, kThreads, kSmemBytes, s>>>(
       exciter, film, weights, dy, d_exciter, film_part, w_part, b * tc, tc, hop);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_weight_partials<<<(kPlane + 255) / 256, 256, 0, s>>>(w_part, d_planes, blocks);
   err = cudaGetLastError();

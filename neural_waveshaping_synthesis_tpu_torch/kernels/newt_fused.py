@@ -184,10 +184,27 @@ def _launch_forward(exciter, film_c, weights, hop) -> torch.Tensor:
     return out
 
 
+_ROWS_PER_BLOCK = 4  # kRowsPerBlock of newt_fused_cr_bwd.cu
+_RESIDENT_BLOCKS: Dict[int, int] = {}  # device index -> backward blocks resident at once
+
+
+def _resident_blocks(lib: ctypes.CDLL, device: torch.device) -> int:
+    """Asked of the library once per device (the query also allows the
+    kernel its shared memory there), then kept."""
+    if device.index not in _RESIDENT_BLOCKS:
+        fn = lib.newt_fused_cr_backward_resident_blocks
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        blocks = fn()
+        if blocks <= 0:
+            raise RuntimeError(f"newt_fused_cr_backward_resident_blocks failed: CUDA error {-blocks}")
+        _RESIDENT_BLOCKS[device.index] = blocks
+    return _RESIDENT_BLOCKS[device.index]
+
+
 def _launch_backward(exciter, film_c, weights, dy, hop):
     """-> (d_exciter, d_film_c, d_planes) from ``csrc/newt_fused_cr_bwd.cu``.
     Scratch (per-segment FiLM partials, per-block weight partials) is
-    allocated here; the C function reports how much it needs."""
+    allocated here: one block per 4 segments, at most what is resident."""
     _check(exciter, film_c, weights, hop)
     if dy.shape != exciter.shape or dy.dtype != torch.float32 or dy.device != exciter.device:
         raise ValueError(f"dy must be float32 {tuple(exciter.shape)} on {exciter.device}")
@@ -198,13 +215,8 @@ def _launch_backward(exciter, film_c, weights, dy, hop):
     d_planes = torch.empty_like(weights)
     with torch.cuda.device(exciter.device):
         lib = _lib("newt_fused_cr_bwd", "newt_fused_cr_backward", 9)
-        count_blocks = lib.newt_fused_cr_backward_blocks
-        if count_blocks.argtypes is None:
-            count_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-            count_blocks.restype = ctypes.c_int
-        blocks = count_blocks(b, tc)
-        if blocks <= 0:
-            raise RuntimeError(f"newt_fused_cr_backward_blocks failed: CUDA error {-blocks}")
+        needed = -(-b * tc // _ROWS_PER_BLOCK)
+        blocks = min(needed, _resident_blocks(lib, exciter.device))
         film_part = torch.empty((b * tc, 3, 4 * C), dtype=torch.float32, device=exciter.device)
         w_part = torch.empty((blocks, 170, C), dtype=torch.float32, device=exciter.device)
         stream = torch.cuda.current_stream(exciter.device).cuda_stream

@@ -5,7 +5,6 @@ control embedding, upsamples them to audio rate, modulates the exciter,
 pushes it through the bank of learned scalar shapers, modulates again,
 and mixes the C shaper outputs down to ``out_channels``.
 """
-import warnings
 from typing import Optional, Union
 
 import torch
@@ -26,19 +25,17 @@ class NEWT(nn.Module):
     """``fused`` keeps the JAX dispatch, gated on "the exciter is on
     CUDA" where JAX gated on "the backend is a TPU":
 
-    * ``"cr"`` (the default): on CUDA, in a geometry
-      :func:`newt_fused.supports_cr` accepts, the control-rate kernel
-      (:func:`newt_fused.film_shaper_cr`); otherwise the plain chain, as
-      JAX's ``"cr"`` falls back to its XLA chain. On CUDA that fallback
-      is ~45x slower than the kernel, so it warns and adds one to
-      ``NEWT.cuda_chain_runs``. With gradients the kernel's backward is
-      the CUDA backward kernel (``newt_fused._FilmShaperCR``);
+    * ``"cr"`` (the default): on CUDA the control-rate kernel
+      (:func:`newt_fused.film_shaper_cr`), whose backward is the CUDA
+      backward kernel (``newt_fused._FilmShaperCR``). A shaper or geometry
+      that :func:`newt_fused.supports_cr` refuses raises on CUDA: JAX's
+      ``"cr"`` falls back to its XLA chain there, but on the card that
+      chain is ~45x slower than the kernel, so the port asks for
+      ``fused=False`` to run it. On the CPU the plain chain runs;
     * ``"full_lane_cr"`` (the JAX training recipe's spelling) behaves as
       ``"cr"``. JAX falls back from it to the audio-rate kernel when its
       TPU gate refuses the geometry; the Hopper gate accepts every integer
-      hop, so with the shipped shaper that fallback cannot be reached. A
-      shaper the kernel does not take runs the chain and counts
-      ``cuda_chain_runs``, as ``"cr"`` does;
+      hop, so with the shipped shaper that fallback cannot be reached;
     * ``False`` (or ``None`` at construction): the plain chain everywhere.
 
     ``"full_lane"``, ``True``, a FastNEWT ``lookup_table`` and
@@ -71,8 +68,6 @@ class NEWT(nn.Module):
         )
         self.mixer = Dense(n_waveshapers, out_channels, generator)
         self._packed, self._packed_key = None, None
-
-    cuda_chain_runs = 0  # forwards with fused="cr" that ran the chain on CUDA
 
     def _packed_shaper(self) -> torch.Tensor:
         """The kernel's packed weight planes. With grad enabled and a shaper
@@ -126,15 +121,14 @@ class NEWT(nn.Module):
         ta, tc = exciter.shape[1], fp.shape[1]
         params = self.shaping_fn.params()
         if fused in _CR and exciter.is_cuda:
-            if newt_fused.supports_cr(self.shaping_fn, ta, tc):
-                x = newt_fused.film_shaper_cr(
-                    exciter, fp, params, ta // tc, packed=self._packed_shaper()
+            if not newt_fused.supports_cr(self.shaping_fn, ta, tc):
+                raise ValueError(
+                    f"NEWT fused={fused!r}: the CUDA kernel does not take this shaper "
+                    f"or geometry (Ta={ta}, Tc={tc}); pass fused=False for the plain chain"
                 )
-                return self.mixer(x)
-            NEWT.cuda_chain_runs += 1
-            warnings.warn(
-                f"NEWT fused={fused!r}: the kernel does not take this shaper or "
-                f"geometry (Ta={ta}, Tc={tc}); running the plain chain on CUDA"
+            x = newt_fused.film_shaper_cr(
+                exciter, fp, params, ta // tc, packed=self._packed_shaper()
             )
+            return self.mixer(x)
         x = newt_fused.film_shaper_chain(exciter, linear_upsample(fp, ta), params)
         return self.mixer(x)

@@ -88,14 +88,13 @@ def istft(
     spec: torch.Tensor,
     n_fft: int,
     hop_length: int,
-    win_length: Optional[int] = None,
     window: Optional[torch.Tensor] = None,
     center: bool = True,
 ) -> torch.Tensor:
     """Inverse STFT of ``(..., n_frames, n_bins)`` -> ``(..., T)``:
     windowed overlap-add over the overlap-added squared window.
     ``center=False`` keeps the full ``n_fft + hop*(n_frames-1)`` samples."""
-    w = _expand_window(window, n_fft, win_length, spec.device)
+    w = _expand_window(window, n_fft, None, spec.device)
     n_frames = spec.shape[-2]
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * w
     out_len = n_fft + hop_length * (n_frames - 1)
@@ -113,11 +112,10 @@ def spectrogram_magnitude(
     hop_length: int,
     win_length: Optional[int] = None,
     window: Optional[torch.Tensor] = None,
-    center: bool = True,
-    eps: float = 1e-8,
 ) -> torch.Tensor:
-    """|STFT| with the loss's numerical floor: sqrt(max(|X|^2, eps)), as
-    auraloss clamps the power at 1e-8 before the square root."""
-    spec = stft(x, n_fft, hop_length, win_length, window, center)
+    """|STFT| (centered) with the loss's numerical floor:
+    sqrt(max(|X|^2, 1e-8)), as auraloss clamps the power at 1e-8 before
+    the square root."""
+    spec = stft(x, n_fft, hop_length, win_length, window)
     power = spec.real * spec.real + spec.imag * spec.imag
-    return torch.sqrt(torch.clamp(power, min=eps))
+    return torch.sqrt(torch.clamp(power, min=1e-8))

@@ -8,7 +8,6 @@ from .trainer import (
     clip_by_global_norm_,
     compute_loss,
     make_lr_schedule,
-    make_optimizer,
     step_generator,
     train_step,
 )
@@ -22,7 +21,6 @@ __all__ = [
     "clip_by_global_norm_",
     "compute_loss",
     "make_lr_schedule",
-    "make_optimizer",
     "step_generator",
     "train_step",
 ]

@@ -15,51 +15,34 @@ Magnitudes are floored at sqrt(1e-8) (``ops.stft.spectrogram_magnitude``).
 The spectrograms are framed ``torch.fft.rfft``s, where the JAX code uses a
 polyphase matmul DFT of the same values.
 """
-from typing import Sequence
-
 import torch
 
 from ..ops.stft import spectrogram_magnitude
 from ..ops.windows import hann_window
 
-DEFAULT_FFT_SIZES = (1024, 2048, 512)
-DEFAULT_HOP_SIZES = (120, 240, 50)
-DEFAULT_WIN_LENGTHS = (600, 1200, 240)
+FFT_SIZES = (1024, 2048, 512)
+HOP_SIZES = (120, 240, 50)
+WIN_LENGTHS = (600, 1200, 240)
 
 
-def stft_loss(
-    x: torch.Tensor,
-    y: torch.Tensor,
-    fft_size: int,
-    hop_size: int,
-    win_length: int,
-    w_sc: float = 1.0,
-    w_log_mag: float = 1.0,
-    eps: float = 1e-8,
-) -> torch.Tensor:
+def stft_loss(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int, win: int) -> torch.Tensor:
     """Single-resolution STFT loss between input ``x`` and target ``y``
     (both ``(..., T)``):
 
     sc = ||Y - X||_F / ||Y||_F  (norms over the whole batched tensor)
     log_mag = mean |log Y - log X|
     """
-    window = hann_window(win_length, periodic=True, device=x.device)
-    x_mag = spectrogram_magnitude(x, fft_size, hop_size, win_length, window, eps=eps)
-    y_mag = spectrogram_magnitude(y, fft_size, hop_size, win_length, window, eps=eps)
+    window = hann_window(win, periodic=True, device=x.device)
+    x_mag = spectrogram_magnitude(x, n_fft, hop, win, window)
+    y_mag = spectrogram_magnitude(y, n_fft, hop, win, window)
     sc = torch.linalg.vector_norm(y_mag - x_mag) / torch.linalg.vector_norm(y_mag)
     log_mag = torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
-    return w_sc * sc + w_log_mag * log_mag
+    return sc + log_mag
 
 
-def multi_resolution_stft_loss(
-    x: torch.Tensor,
-    y: torch.Tensor,
-    fft_sizes: Sequence[int] = DEFAULT_FFT_SIZES,
-    hop_sizes: Sequence[int] = DEFAULT_HOP_SIZES,
-    win_lengths: Sequence[int] = DEFAULT_WIN_LENGTHS,
-) -> torch.Tensor:
-    """Mean over resolutions of (spectral convergence + log-mag L1)."""
+def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean over the three resolutions of (spectral convergence + log-mag L1)."""
     total = 0.0
-    for n_fft, hop, win in zip(fft_sizes, hop_sizes, win_lengths):
+    for n_fft, hop, win in zip(FFT_SIZES, HOP_SIZES, WIN_LENGTHS):
         total = total + stft_loss(x, y, n_fft, hop, win)
-    return total / len(fft_sizes)
+    return total / len(FFT_SIZES)

@@ -103,10 +103,6 @@ class Optimizer:
         return norm
 
 
-def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: TrainConfig) -> Optimizer:
-    return Optimizer(params, cfg)
-
-
 def step_generator(*entropy: int) -> torch.Generator:
     """A CPU generator seeded from integers, e.g. (seed, step)."""
     seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
@@ -160,7 +156,7 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
         self.model = model.to(self.device)
         self.cfg = cfg
-        self.optimizer = make_optimizer(self.model.parameters(), cfg)
+        self.optimizer = Optimizer(self.model.parameters(), cfg)
         self.step = 0
 
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -225,7 +221,7 @@ class Trainer:
         cfg = self.cfg
         if initial_params is not None:
             self.model.load_params(initial_params)
-            self.optimizer = make_optimizer(self.model.parameters(), cfg)
+            self.optimizer = Optimizer(self.model.parameters(), cfg)
             self.step = 0
         train = datamodule.dataset("train")
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)

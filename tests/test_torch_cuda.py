@@ -120,17 +120,21 @@ def test_newt_on_the_card_launches_the_kernel(cuda, params):
     np.testing.assert_allclose(out.cpu().numpy(), chain.cpu().numpy(), rtol=1e-4, atol=1e-5)
 
 
-def test_newt_counts_and_warns_when_the_card_runs_the_chain(cuda):
-    """fused="cr" with a shaper the kernel does not take runs the plain
-    chain on the card, as JAX's "cr" does, but not silently."""
+def test_newt_refuses_a_shaper_the_kernel_does_not_take(cuda):
+    """fused="cr" (and "full_lane_cr") with a shaper the kernel does not
+    take raises on the card, with or without gradients, where JAX's "cr"
+    would run its chain; fused=False is the way to the plain chain."""
     newt = NEWT(shaping_fn_depth=3).to(cuda)
     exc = torch.zeros(1, 4 * 8, 64, device=cuda)
     emb = torch.zeros(1, 4, 128, device=cuda)
-    before, launches = NEWT.cuda_chain_runs, nf.film_shaper_cr.launches
-    with torch.inference_mode(), pytest.warns(UserWarning, match="plain chain"):
-        newt(exc, emb)
-    assert NEWT.cuda_chain_runs == before + 1
+    launches = nf.film_shaper_cr.launches
+    for fused in ("cr", "full_lane_cr"):
+        with torch.inference_mode(), pytest.raises(ValueError, match="fused=False"):
+            newt(exc, emb, fused=fused)
+        with pytest.raises(ValueError, match="fused=False"):
+            newt(exc, emb, fused=fused)
     assert nf.film_shaper_cr.launches == launches
+    newt(exc, emb, fused=False).sum().backward()
 
 
 def test_model_on_the_card_matches_the_cpu(cuda, params):
@@ -240,10 +244,12 @@ def test_one_training_step_on_the_card_matches_the_cpu(cuda):
     phase offsets and noise: loss within 1e-4 relative, no gradient zero
     on the card, each within 1e-3 normalised of the CPU's. The
     log-magnitude L1 term of the loss divides by each bin's magnitude, so
-    float32 rounding alone moves some leaves by ~1e-3 (the CPU's own
-    float32 gradient against its float64 one): a leaf beyond 1e-3 passes
-    when the card is no farther from the float64 gradient than twice the
-    CPU's float32 gradient is."""
+    float32 rounding alone moves some leaves by ~1e-3 (harmonic_mixer.w
+    reads 1.4e-3 card vs CPU here): a leaf beyond 1e-3 passes when the
+    card's gradient is no farther from the float64 gradient than the
+    CPU's float32 gradient is, plus 1e-3. scripts/torch_grad_bar.py
+    measures this rule on the card, sound and with planted faults
+    (PERF.md, PR 2)."""
     rng = np.random.default_rng(10)
     tc = 125
     f0 = np.geomspace(220.0, 440.0, tc).astype(np.float32)
@@ -275,4 +281,4 @@ def test_one_training_step_on_the_card_matches_the_cpu(cuda):
     for name, g in card.items():
         assert torch.count_nonzero(g) > 0, name
         if rel(g, cpu[name]) > 1e-3:
-            assert rel(g, exact[name]) <= 2 * rel(cpu[name], exact[name]), name
+            assert rel(g, exact[name]) <= rel(cpu[name], exact[name]) + 1e-3, name

@@ -33,11 +33,11 @@ from neural_waveshaping_synthesis_tpu_torch.data import GeneralDataModule, Gener
 from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping
 from neural_waveshaping_synthesis_tpu_torch.ops import hann_window, spectrogram_magnitude
 from neural_waveshaping_synthesis_tpu_torch.training import (
+    Optimizer,
     TrainConfig,
     Trainer,
     compute_loss,
     make_lr_schedule,
-    make_optimizer,
     multi_resolution_stft_loss,
     train_step,
 )
@@ -163,7 +163,7 @@ def test_optimizer_matches_optax():
         jparams = optax.apply_updates(jparams, updates)
 
     params = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in init]
-    port = make_optimizer(params, TrainConfig(lr_decay_interval=2))
+    port = Optimizer(params, TrainConfig(lr_decay_interval=2))
     norms = []
     for g in grads:
         port.zero_grad()
@@ -285,7 +285,7 @@ def test_two_training_steps_match_jax():
     model = NeuralWaveshaping()
     model.load_params(params_from_jax(jparams))
     model.double()
-    optimizer = make_optimizer(model.parameters(), TrainConfig())
+    optimizer = Optimizer(model.parameters(), TrainConfig())
     batch = {"f0": torch.from_numpy(f0), "control": torch.from_numpy(control),
              "audio": torch.from_numpy(audio)}
     losses = [float(train_step(model, optimizer, batch, phase_offset=torch.from_numpy(o),
