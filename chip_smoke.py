@@ -7,9 +7,10 @@ Phases, each printed as one JSON line; any failure raises, so the run
 exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds both kernels from ``kernels/csrc`` for sm_90a, the
-   forward (``newt_fused_cr.cu``) and the backward
-   (``newt_fused_cr_bwd.cu``), in parallel;
+2. build: nvcc builds the three kernels from ``kernels/csrc`` for sm_90a,
+   the forward (``newt_fused_cr.cu``), the backward
+   (``newt_fused_cr_bwd.cu``) and the streaming forward
+   (``newt_fused_stream.cu``), in parallel;
 3. kernels: the forward kernel's wrapper on CUDA tensors against its plain
    PyTorch version on the same tensors (rtol=1e-4, atol=1e-5), and the
    kernel's FiLM interpolation bit for bit against ``linear_upsample``.
@@ -28,6 +29,23 @@ exits non-zero:
 5. timing: CUDA-event medians of 20 runs after warm-up — the kernel and
    its plain version on the batch-8 inputs of phase 3, the model's
    forward and the whole render at batch 1 and 8 x 4 s;
+5a. kernel_stream: the stream kernel against its plain version
+   (rtol=1e-4, atol=1e-5) on the inputs ``StreamingSynth.step`` hands it
+   at 1024-sample buffers (K=8), caught with hooks at batch 1 and 256,
+   and on made-up K=1, K=3 and hop 64; its FiLM ramp bit for bit against
+   ``segment_interp``; a 3 + 5 frame split bit-identical to one buffer;
+5b. stream: ``PipelinedStreamer(device="cuda")`` at batch 1 and 256, depth
+   4, over 64 buffers (4.1 s): finite, not silent, exactly one stream
+   kernel launch per push and no launch of the offline kernels, and
+   bit-identical to the serial loop of ``StreamingSynth.step``, whose
+   steps run under ``torch.cuda.set_sync_debug_mode("error")`` (no hidden
+   wait for the card); then 8 buffers on the card and on the CPU from the
+   same injected phase offsets and noise within 1e-3 normalised RMS;
+5c. timing_stream: CUDA-event medians of one step at batch 1 and 256, the
+   host cadence of ``push`` (p50, p95, max) over 200 buffers at depth 4,
+   the x real time of that window (all the audio pushed over the window's
+   wall time, one clock read before the pushes and one after), and the
+   stream kernel and its plain version at batch 256 with its bound;
 6. kernel_bwd: the backward kernel against autograd through the plain
    version (rtol 1e-3, atol 1e-3 * max|plain| per output), on the inputs
    one ``Trainer`` step at batch 8 x 4 s hands it (exciter, control-rate
@@ -71,7 +89,8 @@ from neural_waveshaping_synthesis_tpu_torch.inference import Synthesizer
 from neural_waveshaping_synthesis_tpu_torch.kernels import _build
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
 from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping
-from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample
+from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample, segment_interp
+from neural_waveshaping_synthesis_tpu_torch.streaming import PipelinedStreamer, StreamingSynth
 from neural_waveshaping_synthesis_tpu_torch.training import TrainConfig, Trainer, compute_loss
 
 REPO = Path(__file__).resolve().parent
@@ -98,9 +117,16 @@ CR_BWD_FLOP_PER_ELEMENT = (
     (14 + 3 + 288 + 25 * 31)
     + (2 + 16 + 1 + 16 + 2 * (128 + 128 + 8 + 8) + 8 + 16 + 16 + 2 + 1 + 1 + 2 + 16)
 )
+# ... and in newt_fused_stream.cu: the cr count with the stream ramp,
+# 4 * (sub, mul, add) + one division = 13, in place of the lerp's 14.
+STREAM_FLOP_PER_ELEMENT = 13 + 3 + 288 + 450 + 2
 BWD_RTOL = 1e-3  # the JAX suite's gradient bar; atol = BWD_RTOL * max|plain| per output
 TRAIN_STEPS = 30
-KERNELS = ["newt_fused_cr", "newt_fused_cr_bwd"]
+STREAM_K = 8  # control frames per streaming buffer: 1024 samples
+STREAM_BUFFERS = 64  # 4.1 s of controls per stream
+STREAM_BATCHES = (1, 256)  # one live stream; the concurrent streams of the JAX serving claim
+CADENCE_PUSHES = 200
+KERNELS = ["newt_fused_cr", "newt_fused_cr_bwd", "newt_fused_stream"]
 
 
 def emit(obj):
@@ -263,6 +289,197 @@ def check_backward(label, exc, film_c, dy, weights, packed, hop):
     if not bit_identical:
         raise RuntimeError(f"{label}: two backward calls gave different bits")
     return max(v[0] for v in errs.values())
+
+
+def stream_controls(synth, batch, seed):
+    """STREAM_BUFFERS buffers of controls for `batch` streams, normalised as
+    a render's: f0 (B, Tc) Hz and control (B, Tc, 2), Tc = buffers * K."""
+    tc = STREAM_BUFFERS * STREAM_K
+    f0_b, ctrl_b, _ = synth.prepare(make_requests([tc * HOP / SR] * batch, seed))
+    return np.ascontiguousarray(f0_b[:, :tc]), np.ascontiguousarray(ctrl_b[:, :tc])
+
+
+def buffer_of(x, i):
+    return x[:, i * STREAM_K : (i + 1) * STREAM_K]
+
+
+def stream_kernel_inputs(ss, f0_d, ctrl_d, spec, batch):
+    """The (exciter, prev_film, film_c) that ``StreamingSynth.step`` hands
+    the stream kernel on the second buffer of `batch` streams (the first
+    gives prev_film a value): hooks on the harmonic mixer (its output is
+    the exciter) and on NEWT's FiLM MLP (its output)."""
+    state = ss.init_state(batch, torch.Generator(device="cuda").manual_seed(batch))
+    _, state = ss.step(state, buffer_of(f0_d, 0), buffer_of(ctrl_d, 0), spec)
+    got = {}
+    hooks = [ss.model.harmonic_mixer.register_forward_hook(
+                 lambda m, args, out: got.__setitem__("exciter", out.clone())),
+             ss.model.newt.mlp.register_forward_hook(
+                 lambda m, args, out: got.__setitem__("film_c", out.clone()))]
+    try:
+        ss.step(state, buffer_of(f0_d, 1), buffer_of(ctrl_d, 1), spec)
+    finally:
+        for h in hooks:
+            h.remove()
+    return got["exciter"], state.prev_film, got["film_c"]
+
+
+def stream_phases(dev, synth, cpu_synth):
+    """Phases 5a-5c (streaming) -> the stream kernel's numbers."""
+    ss = StreamingSynth(synth.model, STREAM_K)
+    spec = ss.ir_partition_spectra()
+    weights, packed = synth.model.newt.shaping_fn.params(), synth.model.newt._packed_shaper()
+    controls = {b: stream_controls(synth, b, seed=30 + b) for b in STREAM_BATCHES}
+    on_card = {b: tuple(torch.from_numpy(a).to(dev) for a in controls[b]) for b in STREAM_BATCHES}
+
+    # 5a. the stream kernel on the inputs the step hands it, and made-up shapes
+    cases = [(f"step_b{b}", *stream_kernel_inputs(ss, *on_card[b], spec, b)) for b in STREAM_BATCHES]
+    for label, b, k, hop in (("k1", 2, 1, HOP), ("k3", 2, 3, HOP), ("hop_64", 2, STREAM_K, 64)):
+        exc, film_c = made_up_kernel_inputs(b, k, hop, 40 + k, dev)
+        prev = torch.randn((b, 256), generator=torch.Generator().manual_seed(k)).to(dev)
+        cases.append((label, exc, prev, film_c))
+    max_err = 0.0
+    for label, exc, prev, film_c in cases:
+        b, ta, _ = exc.shape
+        k = film_c.shape[1]
+        hop = ta // k
+        with torch.inference_mode():
+            out = nf.film_shaper_stream(exc, prev, film_c, weights, hop, packed=packed)
+            ref = nf.film_shaper_stream_plain(exc, prev, film_c, weights, hop)
+            film_z, prev_z = film_c.clone(), prev.clone()
+            film_z[..., 128:192] = 0.0
+            prev_z[..., 128:192] = 0.0
+            ramp = nf.film_shaper_stream(exc, prev_z, film_z, weights, hop, packed=packed).cpu()
+            cut = k // 2
+            split = cut > 0 and torch.equal(out, torch.cat([
+                nf.film_shaper_stream(exc[:, : cut * hop].contiguous(), prev,
+                                      film_c[:, :cut].contiguous(), weights, hop, packed=packed),
+                nf.film_shaper_stream(exc[:, cut * hop :].contiguous(), film_c[:, cut - 1].contiguous(),
+                                      film_c[:, cut:].contiguous(), weights, hop, packed=packed)], dim=1))
+        torch.cuda.synchronize()
+        out, ref = out.cpu().numpy(), ref.cpu().numpy()
+        err = float(np.max(np.abs(out - ref)))
+        n_diff = int((ramp != segment_interp(prev_z.cpu(), film_z.cpu(), hop)[..., 192:]).sum())
+        emit({"phase": "kernel_stream", "name": "film_shaper_fused_stream", "case": label, "B": b,
+              "K": k, "hop": hop, "max_abs_err": err, "rtol": RTOL, "atol": ATOL,
+              "ramp_elements_not_bit_exact": n_diff,
+              "split_bit_identical": split if cut > 0 else None})
+        np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL, err_msg=label)
+        if n_diff:
+            raise RuntimeError(f"{label}: the in-kernel FiLM ramp is not bit-exact")
+        if cut > 0 and not split:
+            raise RuntimeError(f"{label}: two buffers differ from one")
+        max_err = max(max_err, err)
+    timed_exc, timed_prev, timed_film = cases[1][1:]
+    del cases, out, ref, ramp
+
+    # 5b. the entry points a user calls: PipelinedStreamer, then the serial loop
+    launches = 0
+    for b in STREAM_BATCHES:
+        f0_np, ctrl_np = controls[b]
+        nf.film_shaper_stream.launches = nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
+        streamer = PipelinedStreamer(ss, batch=b, generator=torch.Generator(device="cuda").manual_seed(b),
+                                     depth=4)
+        piped = [a for a in (streamer.push(buffer_of(f0_np, i), buffer_of(ctrl_np, i))
+                             for i in range(STREAM_BUFFERS)) if a is not None]
+        piped.extend(streamer.flush())
+        counts = (nf.film_shaper_stream.launches, nf.film_shaper_cr.launches,
+                  nf.film_shaper_cr.bwd_launches)
+        launches += counts[0]
+        state = ss.init_state(b, torch.Generator(device="cuda").manual_seed(b))
+        serial = []
+        f0_d, ctrl_d = on_card[b]
+        torch.cuda.synchronize()
+        for i in range(STREAM_BUFFERS):
+            torch.cuda.set_sync_debug_mode("error")  # a hidden wait for the card raises
+            try:
+                audio, state = ss.step(state, buffer_of(f0_d, i), buffer_of(ctrl_d, i), spec)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            serial.append(audio.cpu().numpy())
+        audio = np.concatenate(piped, axis=-1)
+        identical = len(piped) == len(serial) and all(np.array_equal(p, q) for p, q in zip(piped, serial))
+        rms = [float(np.sqrt(np.mean(a**2))) for a in audio]
+        emit({"phase": "stream", "B": b, "K": STREAM_K, "depth": 4, "buffers": len(piped),
+              "seconds": STREAM_BUFFERS * STREAM_K * HOP / SR, "stream_launches": counts[0],
+              "cr_launches": counts[1], "bwd_launches": counts[2],
+              "pipelined_bit_identical_to_serial": identical, "sync_debug_mode": "error",
+              "rms_min": min(rms), "rms_max": max(rms)})
+        if len(piped) != STREAM_BUFFERS or any(p.shape != (b, STREAM_K * HOP) for p in piped):
+            raise RuntimeError("the streamer returned the wrong buffers")
+        if not np.all(np.isfinite(audio)) or min(rms) < 1e-4:
+            raise RuntimeError("streamed audio is not finite or silent")
+        if counts != (STREAM_BUFFERS, 0, 0):
+            raise RuntimeError(f"launches (stream, cr, bwd) = {counts} for {STREAM_BUFFERS} pushes")
+        if not identical:
+            raise RuntimeError("pipelined output differs from the serial loop")
+
+    # card vs CPU: 8 buffers, same injected phase offsets and noise
+    f0_np, ctrl_np = controls[1]
+    rng = np.random.default_rng(5)
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, (1, 101)).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, (8, 1, STREAM_K * HOP)).astype(np.float32))
+    outs = []
+    for s, d in ((ss, dev), (StreamingSynth(cpu_synth.model, STREAM_K), torch.device("cpu"))):
+        state = s.init_state(1, phase_offset=offset, device=d)
+        d_spec = s.ir_partition_spectra()
+        bufs = []
+        for i in range(8):
+            y, state = s.step(state, torch.from_numpy(buffer_of(f0_np, i)).to(d),
+                              torch.from_numpy(buffer_of(ctrl_np, i)).to(d), d_spec, noise=noise[i].to(d))
+            bufs.append(y.cpu().numpy())
+        outs.append(bufs)
+    per_buffer = [nrms(a, c) for a, c in zip(*outs)]
+    emit({"phase": "stream_card_vs_cpu", "B": 1, "buffers": 8, "nrms": per_buffer, "bar": 1e-3})
+    if not max(per_buffer) <= 1e-3:
+        raise RuntimeError(f"streamed buffers on the card and the CPU differ: nRMS {per_buffer}")
+
+    # 5c. timing: one step, the pipelined cadence, the kernel at batch 256
+    for b in STREAM_BATCHES:
+        f0_np, ctrl_np = controls[b]
+        f0_d, ctrl_d = on_card[b]
+        state = ss.init_state(b, torch.Generator(device="cuda").manual_seed(b))
+        with torch.inference_mode():
+            step_ms = cuda_median_ms(lambda: ss.step(state, buffer_of(f0_d, 1), buffer_of(ctrl_d, 1), spec))
+        streamer = PipelinedStreamer(ss, batch=b, generator=torch.Generator(device="cuda").manual_seed(b),
+                                     depth=4)
+        for i in range(8):
+            streamer.push(buffer_of(f0_np, i), buffer_of(ctrl_np, i))
+        cadence = []
+        window_t0 = time.perf_counter()
+        for j in range(CADENCE_PUSHES):
+            i = j % STREAM_BUFFERS
+            t0 = time.perf_counter()
+            streamer.push(buffer_of(f0_np, i), buffer_of(ctrl_np, i))
+            cadence.append((time.perf_counter() - t0) * 1e3)
+        window_ms = (time.perf_counter() - window_t0) * 1e3
+        list(streamer.flush())
+        buffer_ms = STREAM_K * HOP / SR * 1e3
+        p50, p95 = float(np.percentile(cadence, 50)), float(np.percentile(cadence, 95))
+        emit({"phase": "timing_stream", "B": b, "K": STREAM_K, "buffer_ms": buffer_ms,
+              "step_ms": step_ms, "step_x_realtime": b * buffer_ms / step_ms,
+              "push_p50_ms": p50, "push_p95_ms": p95, "push_max_ms": max(cadence),
+              "pushes": CADENCE_PUSHES, "depth": 4, "window_ms": window_ms,
+              "x_realtime": CADENCE_PUSHES * b * buffer_ms / window_ms,
+              "p95_within_budget": p95 < buffer_ms})
+    b, ta, _ = timed_exc.shape
+    k = timed_film.shape[1]
+    with torch.inference_mode():
+        kernel_ms = cuda_median_ms(
+            lambda: nf.film_shaper_stream(timed_exc, timed_prev, timed_film, weights, HOP, packed=packed))
+        plain_ms = cuda_median_ms(
+            lambda: nf.film_shaper_stream_plain(timed_exc, timed_prev, timed_film, weights, HOP))
+    n_el = b * ta * 64
+    flop = n_el * STREAM_FLOP_PER_ELEMENT
+    nbytes = 4 * (2 * n_el + timed_film.numel() + timed_prev.numel() + packed.numel())
+    bound_ms = max(nbytes / PEAK_BYTES_PER_S, flop / PEAK_F32_FLOP_PER_S) * 1e3
+    bound_by = "operations" if flop / PEAK_F32_FLOP_PER_S >= nbytes / PEAK_BYTES_PER_S else "bytes"
+    emit({"phase": "timing_kernel_stream", "B": b, "K": k, "hop": HOP, "kernel_ms": kernel_ms,
+          "plain_ms": plain_ms, "flop": flop, "bytes": nbytes, "bound_ms": bound_ms,
+          "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms})
+    del timed_exc, timed_prev, timed_film
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def leaf_grads(model):
@@ -541,6 +758,7 @@ def main() -> int:
               "forward_x_realtime": audio_s / (forward_ms / 1e3),
               "render_x_realtime": audio_s / (render_ms / 1e3)})
 
+    stream = stream_phases(dev, synth, cpu_synth)
     train = train_phases(dev)
 
     emit({"kernels": [{
@@ -557,6 +775,13 @@ def main() -> int:
         "launches": train["bwd_launches"], "max_abs_err": train["max_abs_err"],
         "ms": train["ms"], "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
         "bound_by": train["bound_by"], "library_ms": None,
+    }, {
+        "name": "film_shaper_fused_stream", "route": "cuda",
+        "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_stream.cu",
+        "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:1509",
+        "launches": stream["launches"], "max_abs_err": stream["max_abs_err"],
+        "ms": stream["ms"], "plain_ms": stream["plain_ms"], "bound_ms": stream["bound_ms"],
+        "bound_by": stream["bound_by"], "library_ms": None,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

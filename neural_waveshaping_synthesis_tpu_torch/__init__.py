@@ -10,7 +10,7 @@ of the JAX package. Public functions keep the JAX code's channels-last
 
 Entry points run on ``device="cuda"`` unless the caller asks for
 ``device="cpu"``, and raise when CUDA is asked for but missing
-(:mod:`.device`). The slices ported so far, both float32:
+(:mod:`.device`). The slices ported so far, all float32:
 
 * offline inference: :class:`inference.resynthesis.Synthesizer` renders
   control signals to audio through
@@ -18,11 +18,14 @@ Entry points run on ``device="cuda"`` unless the caller asks for
 * training: :class:`training.trainer.Trainer` fits the model on a
   :class:`data.general.GeneralDataModule` (the reference's ``.npy``
   shards) with the multi-resolution STFT loss, clip + Adam + StepLR, and
-  writes reference-format checkpoints that ``Synthesizer`` serves.
+  writes reference-format checkpoints that ``Synthesizer`` serves;
+* streaming: :class:`streaming.StreamingSynth` renders buffer by buffer
+  with carried state, and :class:`streaming.PipelinedStreamer` keeps
+  several buffers in flight.
 
 On the card the model's FiLM -> shaper -> FiLM block runs the
-hand-written CUDA kernels of :mod:`kernels.newt_fused`: the forward, and
-in training its backward.
+hand-written CUDA kernels of :mod:`kernels.newt_fused`: the forward, in
+training its backward, and in a stream the streaming forward.
 """
 from .device import resolve_device
 

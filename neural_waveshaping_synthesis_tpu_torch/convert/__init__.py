@@ -1,5 +1,6 @@
 """Weights into the port (reference checkpoints and JAX parameter trees)
-and out of it (reference-format checkpoints)."""
+and out of it (reference-format checkpoints); a JAX stream's carried
+state into the port."""
 from .checkpoint import (
     convert_state_dict,
     load_checkpoint,
@@ -8,6 +9,7 @@ from .checkpoint import (
     params_to_reference_state_dict,
     save_reference_checkpoint,
 )
+from .stream_state import stream_state_from_jax
 
 __all__ = [
     "convert_state_dict",
@@ -16,4 +18,5 @@ __all__ = [
     "params_from_jax",
     "params_to_reference_state_dict",
     "save_reference_checkpoint",
+    "stream_state_from_jax",
 ]

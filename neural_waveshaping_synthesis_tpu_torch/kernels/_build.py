@@ -3,9 +3,10 @@
 Each ``kernels/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, under
 ``build/`` at the root of the checkout, and loaded with ``ctypes``. The
-library's file name carries a hash of its source and flags, so an edited
-source rebuilds and an unchanged one is reused; ptxas's register and
-shared-memory report is kept beside it (:func:`build_log`). Nothing is
+library's file name carries a hash of its source, the shared headers and
+the flags, so an edited source rebuilds and an unchanged one is reused;
+ptxas's register and shared-memory report is kept beside it
+(:func:`build_log`). Nothing is
 built or loaded at import time: the CPU tests import every module, and
 the CPU has no ``nvcc``.
 
@@ -43,7 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, every header in
+    ``csrc/`` (``newt_shaper.cuh`` is shared) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

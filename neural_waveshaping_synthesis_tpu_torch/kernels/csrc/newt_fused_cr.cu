@@ -28,8 +28,10 @@
 // 128-byte coalesced and nothing but the result goes back to memory. The
 // nine weight planes (170 x 64 f32, 43.5 KB) sit in shared memory in the
 // pack_weights channel-fastest layout, so a warp's weight reads hit 32
-// distinct banks. Blocks stride over the samples (grid = what fits on the
-// card at once), so each block stages the weights once. The FiLM
+// distinct banks; the shaper itself is newt_shaper.cuh, shared with the
+// streaming kernel newt_fused_stream.cu. Blocks stride over the samples
+// (grid = what fits on the card at once), so each block stages the weights
+// once. The FiLM
 // interpolation is done in registers: the (B, Ta, 256) audio-rate film
 // never exists. Not yet done (later work): reusing each shared-memory
 // weight read for several samples, packed f32x2 FMA.
@@ -44,61 +46,21 @@
 //    0) is folded in as w = 0 between two copies of frame 0, which gives
 //    frame 0 exactly; the tail clamp is a lerp between two copies of the
 //    last frame, as in linear_upsample.
-//  * The polynomial sine reduces with rintf (round half to even, like
-//    jnp.round / torch.round; roundf would round half away from zero) and
-//    runs in f32 with the coefficients rounded to f32, as ops/fastmath.py.
-//    FMA contraction of the reduction and the Horner chain is allowed: the
-//    kernel-vs-plain tolerance (rtol 1e-4, atol 1e-5) absorbs it.
+//  * The polynomial sine: see newt_shaper.cuh.
 //  * Index arithmetic: samples are counted in 32-bit ints (the wrapper
 //    refuses B*Ta > 2^30, so the strided index cannot overflow), element
 //    and film offsets in 64-bit.
 #include <cuda_runtime.h>
 
+#include "newt_shaper.cuh"
+
 namespace {
 
-constexpr int kC = 64;       // channels (waveshapers)
-constexpr int kW = 8;        // shaper width
+using newt::kC;
+using newt::kRows;
+
 constexpr int kThreads = 256;  // 4 samples x 64 channels per block pass
 constexpr int kSamplesPerPass = kThreads / kC;
-
-// Row offsets of the packed weight planes, each row 64 channels wide
-// (the JAX pack_weights layout): scale, w1, b1, w2 (rows u*8+v), b2, w3,
-// b3, w4, b4.
-constexpr int kScale = 0;
-constexpr int kW1 = 1;
-constexpr int kB1 = kW1 + kW;
-constexpr int kW2 = kB1 + kW;
-constexpr int kB2 = kW2 + kW * kW;
-constexpr int kW3 = kB2 + kW;
-constexpr int kB3 = kW3 + kW * kW;
-constexpr int kW4 = kB3 + kW;
-constexpr int kB4 = kW4 + kW;
-constexpr int kRows = kB4 + 1;  // 170
-
-// float32 roundings of 2*pi, 1/(2*pi) and the sine fit's coefficients
-// (ops/fastmath.py _SIN_ODD_COEFFS), written exactly.
-constexpr float kTau = 0x1.921fb6p+2f;
-constexpr float kInvTau = 0x1.45f306p-3f;
-constexpr float kS0 = 0x1.000000p+0f;
-constexpr float kS1 = -0x1.555552p-3f;
-constexpr float kS2 = 0x1.1110e0p-7f;
-constexpr float kS3 = -0x1.a01402p-13f;
-constexpr float kS4 = 0x1.717e48p-19f;
-constexpr float kS5 = -0x1.a7f056p-26f;
-constexpr float kS6 = 0x1.27c49ep-33f;
-
-__device__ __forceinline__ float psin(float x) {
-  const float r = x - kTau * rintf(x * kInvTau);
-  const float s = r * r;
-  float p = kS6;
-  p = p * s + kS5;
-  p = p * s + kS4;
-  p = p * s + kS3;
-  p = p * s + kS2;
-  p = p * s + kS1;
-  p = p * s + kS0;
-  return r * p;
-}
 
 __device__ __forceinline__ float lerp_exact(float left, float right, float w,
                                             float one_minus_w) {
@@ -112,11 +74,10 @@ film_shaper_cr_kernel(const float* __restrict__ exciter,
                       float* __restrict__ out, int n_samples, int ta, int tc,
                       int hop) {
   __shared__ float sw[kRows * kC];
-  for (int i = threadIdx.x; i < kRows * kC; i += kThreads) sw[i] = weights[i];
+  newt::stage_weights(sw, weights, kThreads);
   __syncthreads();
 
   const int c = threadIdx.x % kC;
-  const float scale = sw[kScale * kC + c];
   const float den = static_cast<float>(2 * hop);
   const int stride = gridDim.x * kSamplesPerPass;
 
@@ -143,30 +104,7 @@ film_shaper_cr_kernel(const float* __restrict__ exciter,
     const float b_out = lerp_exact(fl[3 * kC], fr[3 * kC], w, omw);
 
     const long long e = static_cast<long long>(s) * kC + c;
-    const float h0 = (g_in * exciter[e] + b_in) * scale;
-
-    float h1[kW], h2[kW];
-#pragma unroll
-    for (int v = 0; v < kW; ++v)
-      h1[v] = psin(h0 * sw[(kW1 + v) * kC + c] + sw[(kB1 + v) * kC + c]);
-#pragma unroll
-    for (int v = 0; v < kW; ++v) {
-      float acc = h1[0] * sw[(kW2 + v) * kC + c];
-#pragma unroll
-      for (int u = 1; u < kW; ++u) acc += h1[u] * sw[(kW2 + u * kW + v) * kC + c];
-      h2[v] = psin(acc + sw[(kB2 + v) * kC + c]);
-    }
-#pragma unroll
-    for (int v = 0; v < kW; ++v) {
-      float acc = h2[0] * sw[(kW3 + v) * kC + c];
-#pragma unroll
-      for (int u = 1; u < kW; ++u) acc += h2[u] * sw[(kW3 + u * kW + v) * kC + c];
-      h1[v] = psin(acc + sw[(kB3 + v) * kC + c]);  // h1 now holds layer 3
-    }
-    float acc = h1[0] * sw[kW4 * kC + c];
-#pragma unroll
-    for (int u = 1; u < kW; ++u) acc += h1[u] * sw[(kW4 + u) * kC + c];
-    const float y = psin(acc + sw[kB4 * kC + c]);
+    const float y = newt::shaper(g_in * exciter[e] + b_in, sw, c);
     out[e] = g_out * y + b_out;
   }
 }

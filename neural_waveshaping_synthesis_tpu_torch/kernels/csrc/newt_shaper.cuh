@@ -1,0 +1,96 @@
+// The learned sine-shaper bank of one (sample, channel), float32: what the
+// forward kernels newt_fused_cr.cu (offline FiLM upsample) and
+// newt_fused_stream.cu (streaming FiLM ramp) share once each has its four
+// FiLM values in registers.
+//
+// The weights are the packed (170, 64) planes of kernels/newt_fused.py
+// pack_weights, channel fastest (the JAX pack_weights layout), staged in
+// shared memory by the kernel: scale, w1 (8), b1 (8), w2 (64, row u*8+v),
+// b2 (8), w3 (64), b3 (8), w4 (8), b4 (1). A warp's reads of one row hit 32
+// distinct banks.
+//
+// The polynomial sine reduces with rintf (round half to even, like
+// jnp.round / torch.round; roundf would round half away from zero) and runs
+// in f32 with the coefficients rounded to f32, as ops/fastmath.py. FMA
+// contraction of the reduction, the Horner chain and the MLP's sums is
+// allowed: the kernel-vs-plain tolerance (rtol 1e-4, atol 1e-5) absorbs it.
+#pragma once
+
+namespace newt {
+
+constexpr int kC = 64;  // channels (waveshapers)
+constexpr int kW = 8;   // shaper width
+
+// Row offsets of the packed weight planes, each row kC channels wide.
+constexpr int kScale = 0;
+constexpr int kW1 = 1;
+constexpr int kB1 = kW1 + kW;
+constexpr int kW2 = kB1 + kW;
+constexpr int kB2 = kW2 + kW * kW;
+constexpr int kW3 = kB2 + kW;
+constexpr int kB3 = kW3 + kW * kW;
+constexpr int kW4 = kB3 + kW;
+constexpr int kB4 = kW4 + kW;
+constexpr int kRows = kB4 + 1;  // 170
+
+// float32 roundings of 2*pi, 1/(2*pi) and the sine fit's coefficients
+// (ops/fastmath.py _SIN_ODD_COEFFS), written exactly.
+constexpr float kTau = 0x1.921fb6p+2f;
+constexpr float kInvTau = 0x1.45f306p-3f;
+constexpr float kS0 = 0x1.000000p+0f;
+constexpr float kS1 = -0x1.555552p-3f;
+constexpr float kS2 = 0x1.1110e0p-7f;
+constexpr float kS3 = -0x1.a01402p-13f;
+constexpr float kS4 = 0x1.717e48p-19f;
+constexpr float kS5 = -0x1.a7f056p-26f;
+constexpr float kS6 = 0x1.27c49ep-33f;
+
+__device__ __forceinline__ float psin(float x) {
+  const float r = x - kTau * rintf(x * kInvTau);
+  const float s = r * r;
+  float p = kS6;
+  p = p * s + kS5;
+  p = p * s + kS4;
+  p = p * s + kS3;
+  p = p * s + kS2;
+  p = p * s + kS1;
+  p = p * s + kS0;
+  return r * p;
+}
+
+// Copies the (kRows, kC) weight planes into shared memory; the caller
+// synchronises the block afterwards.
+__device__ __forceinline__ void stage_weights(float* sw, const float* __restrict__ weights,
+                                              int n_threads) {
+  for (int i = threadIdx.x; i < kRows * kC; i += n_threads) sw[i] = weights[i];
+}
+
+// x = gamma_in * exciter + beta_in -> the 1 -> 8 -> 8 -> 8 -> 1 sine MLP of
+// channel c (input scale first, a polynomial sine after every layer).
+__device__ __forceinline__ float shaper(float x, const float* sw, int c) {
+  const float h0 = x * sw[kScale * kC + c];
+  float h1[kW], h2[kW];
+#pragma unroll
+  for (int v = 0; v < kW; ++v)
+    h1[v] = psin(h0 * sw[(kW1 + v) * kC + c] + sw[(kB1 + v) * kC + c]);
+#pragma unroll
+  for (int v = 0; v < kW; ++v) {
+    float acc = h1[0] * sw[(kW2 + v) * kC + c];
+#pragma unroll
+    for (int u = 1; u < kW; ++u) acc += h1[u] * sw[(kW2 + u * kW + v) * kC + c];
+    h2[v] = psin(acc + sw[(kB2 + v) * kC + c]);
+  }
+#pragma unroll
+  for (int v = 0; v < kW; ++v) {
+    float acc = h2[0] * sw[(kW3 + v) * kC + c];
+#pragma unroll
+    for (int u = 1; u < kW; ++u) acc += h2[u] * sw[(kW3 + u * kW + v) * kC + c];
+    h1[v] = psin(acc + sw[(kB3 + v) * kC + c]);  // h1 now holds layer 3
+  }
+  float acc = h1[0] * sw[kW4 * kC + c];
+#pragma unroll
+  for (int u = 1; u < kW; ++u) acc += h1[u] * sw[(kW4 + u) * kC + c];
+  return psin(acc + sw[kB4 * kC + c]);
+}
+
+}  // namespace newt

@@ -20,14 +20,22 @@ sine MLP, and gamma_out/beta_out modulate the result.
   ``csrc/newt_fused_cr_bwd.cu`` (never the plain backward).
   ``film_shaper_cr.launches`` and ``film_shaper_cr.bwd_launches`` count
   the launches of the two kernels.
+
+The streaming counterpart (JAX ``film_shaper_fused_stream``) ramps the
+FiLM from the carried frame of the previous buffer to each new frame over
+one hop (``segment_interp``) instead of the offline upsample:
+:func:`film_shaper_stream_plain` is its plain version and
+:func:`film_shaper_stream` its wrapper, which launches
+``csrc/newt_fused_stream.cu`` on CUDA tensors (forward only) and counts
+``film_shaper_stream.launches``.
 """
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..models.modules import film, shaper_apply
-from ..ops.upsample import linear_upsample
+from ..ops.upsample import linear_upsample, segment_interp
 from . import _build
 
 C = 64
@@ -135,11 +143,11 @@ def film_shaper_cr_grad_plain(
         return torch.autograd.grad(out, (exc, film_c, planes), dy)
 
 
-def _lib(name: str, symbol: str, n_ptrs: int) -> ctypes.CDLL:
+def _lib(name: str, symbol: str, n_ptrs: int, n_ints: int = 4) -> ctypes.CDLL:
     lib = _build.load(name)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -185,20 +193,22 @@ def _launch_forward(exciter, film_c, weights, hop) -> torch.Tensor:
 
 
 _ROWS_PER_BLOCK = 4  # kRowsPerBlock of newt_fused_cr_bwd.cu
-_RESIDENT_BLOCKS: Dict[int, int] = {}  # device index -> backward blocks resident at once
+_RESIDENT_BLOCKS: Dict[Tuple[str, int], int] = {}  # (query, device index) -> blocks resident at once
 
 
-def _resident_blocks(lib: ctypes.CDLL, device: torch.device) -> int:
-    """Asked of the library once per device (the query also allows the
-    kernel its shared memory there), then kept."""
-    if device.index not in _RESIDENT_BLOCKS:
-        fn = lib.newt_fused_cr_backward_resident_blocks
+def _resident_blocks(lib: ctypes.CDLL, query: str, device: torch.device) -> int:
+    """A kernel's blocks resident on ``device`` at once, asked of the
+    library's ``query`` once per device (the backward's query also allows
+    its kernel the shared memory there), then kept."""
+    key = (query, device.index)
+    if key not in _RESIDENT_BLOCKS:
+        fn = getattr(lib, query)
         fn.argtypes, fn.restype = [], ctypes.c_int
         blocks = fn()
         if blocks <= 0:
-            raise RuntimeError(f"newt_fused_cr_backward_resident_blocks failed: CUDA error {-blocks}")
-        _RESIDENT_BLOCKS[device.index] = blocks
-    return _RESIDENT_BLOCKS[device.index]
+            raise RuntimeError(f"{query} failed: CUDA error {-blocks}")
+        _RESIDENT_BLOCKS[key] = blocks
+    return _RESIDENT_BLOCKS[key]
 
 
 def _launch_backward(exciter, film_c, weights, dy, hop):
@@ -216,7 +226,7 @@ def _launch_backward(exciter, film_c, weights, dy, hop):
     with torch.cuda.device(exciter.device):
         lib = _lib("newt_fused_cr_bwd", "newt_fused_cr_backward", 9)
         needed = -(-b * tc // _ROWS_PER_BLOCK)
-        blocks = min(needed, _resident_blocks(lib, exciter.device))
+        blocks = min(needed, _resident_blocks(lib, "newt_fused_cr_backward_resident_blocks", exciter.device))
         film_part = torch.empty((b * tc, 3, 4 * C), dtype=torch.float32, device=exciter.device)
         w_part = torch.empty((blocks, 170, C), dtype=torch.float32, device=exciter.device)
         stream = torch.cuda.current_stream(exciter.device).cuda_stream
@@ -296,3 +306,95 @@ def film_shaper_cr(
 
 film_shaper_cr.launches = 0
 film_shaper_cr.bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# streaming: the FiLM segment-ramped from the carried frame, forward only
+# ---------------------------------------------------------------------------
+def supports_stream(shaper, n_audio: int, n_control: int) -> bool:
+    """The stream kernel's gate, the cr kernel's: the shipped architecture
+    and an integer hop, any K >= 1 (JAX's even K was a TPU tiling limit).
+    A name of its own, as in JAX, so the stream path states which kernel
+    it asks about."""
+    return supports_cr(shaper, n_audio, n_control)
+
+
+def film_shaper_stream_plain(
+    exciter: torch.Tensor,
+    prev_film: torch.Tensor,
+    film_c: torch.Tensor,
+    shaper_params: Dict,
+    hop: int,
+) -> torch.Tensor:
+    """The plain PyTorch version of the stream kernel: ``segment_interp``
+    of the (B, 4C) carried frame and the (B, K, 4C) buffer frames to
+    K*hop samples, then :func:`film_shaper_chain`."""
+    ta = exciter.shape[1]
+    if hop < 1 or ta != film_c.shape[1] * hop:
+        raise ValueError(f"exciter length {ta} != K {film_c.shape[1]} * hop {hop}")
+    return film_shaper_chain(exciter, segment_interp(prev_film, film_c, hop), shaper_params)
+
+
+def _check_stream(exciter, prev_film, film_c, weights, hop):
+    _check(exciter, film_c, weights, hop)
+    if prev_film.device != exciter.device:
+        raise ValueError(f"prev_film is on {prev_film.device}, exciter on {exciter.device}")
+    if prev_film.dtype != torch.float32:
+        raise TypeError(f"prev_film must be float32, got {prev_film.dtype}")
+    if tuple(prev_film.shape) != (exciter.shape[0], 4 * C) or not prev_film.is_contiguous():
+        raise ValueError(
+            f"prev_film must be contiguous ({exciter.shape[0]}, {4 * C}), got {tuple(prev_film.shape)}"
+        )
+
+
+def _launch_stream(exciter, prev_film, film_c, weights, hop) -> torch.Tensor:
+    _check_stream(exciter, prev_film, film_c, weights, hop)
+    out = torch.empty_like(exciter)
+    b, ta, _ = exciter.shape
+    with torch.cuda.device(exciter.device):
+        lib = _lib("newt_fused_stream", "newt_fused_stream_forward", 5, n_ints=5)
+        blocks = _resident_blocks(lib, "newt_fused_stream_resident_blocks", exciter.device)
+        stream = torch.cuda.current_stream(exciter.device).cuda_stream
+        err = lib.newt_fused_stream_forward(
+            exciter.data_ptr(), prev_film.data_ptr(), film_c.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), b * ta, ta, film_c.shape[1], hop, blocks, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"newt_fused_stream_forward did not launch: CUDA error {err}")
+    film_shaper_stream.launches += 1
+    return out
+
+
+def film_shaper_stream(
+    exciter: torch.Tensor,
+    prev_film: torch.Tensor,
+    film_c: torch.Tensor,
+    shaper_params: Dict,
+    hop: int,
+    packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, K*hop, 64) exciter + (B, 256) carried FiLM frame + (B, K, 256)
+    buffer frames -> (B, K*hop, 64) (JAX ``film_shaper_fused_stream``).
+
+    CPU tensors take :func:`film_shaper_stream_plain`. CUDA tensors launch
+    ``csrc/newt_fused_stream.cu`` on the current stream after the checks of
+    the cr kernel (and prev_film's); what it does not take raises. The
+    kernel has no backward (a stream is never differentiated), so a CUDA
+    call that would need a gradient raises too. ``film_shaper_stream
+    .launches`` counts the launches."""
+    if exciter.device.type == "cpu":
+        return film_shaper_stream_plain(exciter, prev_film, film_c, shaper_params, hop)
+    if exciter.device.type != "cuda":
+        raise ValueError(f"unsupported device {exciter.device}")
+    weights = pack_weights(shaper_params) if packed is None else packed
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (exciter, prev_film, film_c, weights)
+    ):
+        raise ValueError(
+            "the stream kernel is forward only: call it under torch.no_grad() "
+            "or torch.inference_mode()"
+        )
+    return _launch_stream(exciter, prev_film, film_c, weights, hop)
+
+
+film_shaper_stream.launches = 0

@@ -6,7 +6,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.fir import fft_convolve_circular, fir_noise_filter
-from ..ops.oscillator import harmonic_oscillator_bank
+from ..ops.oscillator import final_phase, harmonic_oscillator_bank
 from .modules import Params, _load
 
 
@@ -18,12 +18,22 @@ class HarmonicOscillator(nn.Module):
         self.n_harmonics, self.sample_rate = n_harmonics, sample_rate
 
     def forward(
-        self, f0: torch.Tensor, phase_offset: Optional[torch.Tensor] = None
+        self,
+        f0: torch.Tensor,
+        phase_offset: Optional[torch.Tensor] = None,
+        initial_phase: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """(B, T) audio-rate f0 in Hz -> (B, T, n_harmonics)."""
+        """(B, T) audio-rate f0 in Hz -> (B, T, n_harmonics); a stream
+        passes its carried (B,) phase as ``initial_phase``."""
         return harmonic_oscillator_bank(
-            f0, self.n_harmonics, self.sample_rate, phase_offset
+            f0, self.n_harmonics, self.sample_rate, phase_offset, initial_phase
         )
+
+    def carry_phase(
+        self, f0: torch.Tensor, initial_phase: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """The (B,) float64 phase carry after this buffer of f0."""
+        return final_phase(f0, self.sample_rate, initial_phase)
 
 
 class FIRNoiseSynth(nn.Module):

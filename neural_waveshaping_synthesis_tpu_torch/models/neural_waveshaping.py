@@ -13,7 +13,7 @@ float32 throughout (the JAX inference default ``compute_dtype``). The
 exciter-fusing options of the JAX model (``fuse_exciter``,
 ``fuse_out_mixer``, both off there by default) are not ported.
 """
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -64,6 +64,14 @@ class NeuralWaveshaping(nn.Module):
         self.h_generator.load_params(p["h_generator"])
         self.reverb.load_params(p["reverb"])
 
+    def get_embedding(
+        self, control: torch.Tensor, h0: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, Tc, >=2) control -> ((B, Tc, E) embedding, final GRU state
+        (B, H)); only the first two channels are read. A stream passes its
+        carried GRU state as ``h0``."""
+        return self.embedding(control[..., :2], h0)
+
     def forward(
         self,
         f0: torch.Tensor,
@@ -89,7 +97,7 @@ class NeuralWaveshaping(nn.Module):
         """
         t_audio = f0.shape[1] * self.control_hop
         f0_up = linear_upsample(f0[..., None], t_audio)[..., 0]
-        embedding, _ = self.embedding(control[..., :2])
+        embedding, _ = self.get_embedding(control)
         if phase_offset is None:
             phase_offset = draw_phase_offset(
                 self.osc.n_harmonics, generator, f0.device, f0.dtype

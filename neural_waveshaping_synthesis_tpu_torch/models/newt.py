@@ -38,6 +38,9 @@ class NEWT(nn.Module):
       hop, so with the shipped shaper that fallback cannot be reached;
     * ``False`` (or ``None`` at construction): the plain chain everywhere.
 
+    :meth:`forward_stream`, one streaming buffer, follows the same rule
+    with the stream kernel (:func:`newt_fused.film_shaper_stream`).
+
     ``"full_lane"``, ``True``, a FastNEWT ``lookup_table`` and
     ``remat_shaper`` raise ``NotImplementedError``.
     """
@@ -103,6 +106,25 @@ class NEWT(nn.Module):
         self.shaping_fn.load_params(p["shaping_fn"])
         self.mixer.load_params(p["mixer"])
 
+    def film_params(self, control_embedding: torch.Tensor) -> torch.Tensor:
+        """(B, Tc, E) -> (B, Tc, 4C) control-rate FiLM parameters."""
+        return self.mlp(control_embedding)
+
+    def _use_kernel(self, fused, exciter: torch.Tensor, ta: int, tc: int, gate) -> bool:
+        """The dispatch rule shared by both forwards: True when the CUDA
+        kernel runs; raises on the card for what ``gate`` (the kernel's
+        ``supports_*``) refuses."""
+        fused = self.fused if fused is None else fused
+        self._check_fused(fused)
+        if fused not in _CR or not exciter.is_cuda:
+            return False
+        if not gate(self.shaping_fn, ta, tc):
+            raise ValueError(
+                f"NEWT fused={fused!r}: the CUDA kernel does not take this shaper "
+                f"or geometry (Ta={ta}, Tc={tc}); pass fused=False for the plain chain"
+            )
+        return True
+
     def forward(
         self,
         exciter: torch.Tensor,
@@ -115,20 +137,41 @@ class NEWT(nn.Module):
         ``fused=None`` defers to the ``fused`` given at construction."""
         if lookup_table is not None:
             raise NotImplementedError(f"the FastNEWT lookup_table {_NOT_PORTED}")
-        fused = self.fused if fused is None else fused
-        self._check_fused(fused)
-        fp = self.mlp(control_embedding)  # (B, Tc, 4C) control-rate FiLM
+        fp = self.film_params(control_embedding)  # (B, Tc, 4C) control-rate FiLM
         ta, tc = exciter.shape[1], fp.shape[1]
         params = self.shaping_fn.params()
-        if fused in _CR and exciter.is_cuda:
-            if not newt_fused.supports_cr(self.shaping_fn, ta, tc):
-                raise ValueError(
-                    f"NEWT fused={fused!r}: the CUDA kernel does not take this shaper "
-                    f"or geometry (Ta={ta}, Tc={tc}); pass fused=False for the plain chain"
-                )
+        if self._use_kernel(fused, exciter, ta, tc, newt_fused.supports_cr):
             x = newt_fused.film_shaper_cr(
                 exciter, fp, params, ta // tc, packed=self._packed_shaper()
             )
             return self.mixer(x)
         x = newt_fused.film_shaper_chain(exciter, linear_upsample(fp, ta), params)
+        return self.mixer(x)
+
+    def forward_stream(
+        self,
+        exciter: torch.Tensor,
+        prev_film: torch.Tensor,
+        film_c: torch.Tensor,
+        fused: Optional[Union[str, bool]] = None,
+    ) -> torch.Tensor:
+        """One streaming buffer: (B, K*hop, C) exciter, the carried (B, 4C)
+        FiLM frame and the buffer's (B, K, 4C) FiLM frames ->
+        (B, K*hop, out_channels). The FiLM ramps from each frame to the
+        next over one hop (``ops.upsample.segment_interp``), continuous
+        across buffers. Forward only.
+
+        The dispatch is :meth:`forward`'s: with ``"cr"``/``"full_lane_cr"``
+        the CUDA stream kernel runs on the card (JAX gates its Pallas kernel
+        on the TPU backend) and a shaper or geometry it does not take
+        raises; ``fused=False`` and the CPU run the plain version."""
+        ta, k = exciter.shape[1], film_c.shape[1]
+        params = self.shaping_fn.params()
+        if self._use_kernel(fused, exciter, ta, k, newt_fused.supports_stream):
+            x = newt_fused.film_shaper_stream(
+                exciter, prev_film, film_c, params, ta // k, packed=self._packed_shaper()
+            )
+        else:
+            hop = ta // k if k else 0
+            x = newt_fused.film_shaper_stream_plain(exciter, prev_film, film_c, params, hop)
         return self.mixer(x)

@@ -61,3 +61,50 @@ def fft_convolve_circular(x: torch.Tensor, ir: torch.Tensor) -> torch.Tensor:
         torch.fft.rfft(x, n=n, dim=-1) * torch.fft.rfft(ir, n=n), n=n, dim=-1
     )
     return y[..., :t]
+
+
+def fft_convolve_full(x: torch.Tensor, ir: torch.Tensor) -> torch.Tensor:
+    """Linear (non-circular) convolution of ``(..., T)`` with ``(T_ir,)``,
+    full length T + T_ir - 1: what the streaming reverb's partitioned
+    convolution computes block by block."""
+    n = x.shape[-1] + ir.shape[-1] - 1
+    return torch.fft.irfft(
+        torch.fft.rfft(x, n=n, dim=-1) * torch.fft.rfft(ir, n=n), n=n, dim=-1
+    )
+
+
+def n_partitions(ir_length: int, block: int) -> int:
+    """P = ceil(T_ir / block): the partitions of an IR, and the depth of
+    the frequency-domain delay line that convolves with them."""
+    return -(-ir_length // block)
+
+
+def partition_ir_spectra(ir: torch.Tensor, block: int) -> torch.Tensor:
+    """Split a (T_ir,) IR into :func:`n_partitions` zero-padded blocks and
+    rfft each at 2*block -> (P, block+1) complex64 spectra (made once per
+    block size)."""
+    n_part = n_partitions(ir.shape[-1], block)
+    padded = torch.nn.functional.pad(ir, (0, n_part * block - ir.shape[-1]))
+    return torch.fft.rfft(padded.reshape(n_part, block), n=2 * block, dim=-1)
+
+
+def partitioned_convolve_step(
+    x_block: torch.Tensor,
+    fdl: torch.Tensor,
+    tail: torch.Tensor,
+    ir_spectra: torch.Tensor,
+):
+    """One block of uniform-partitioned FFT convolution: a true linear
+    convolution with an IR of any length, at one block of latency.
+
+    Args: x_block (B, N) new input; fdl (B, P, N+1) complex frequency-
+    domain delay line, newest first; tail (B, N) overlap-add carry;
+    ir_spectra (P, N+1) from :func:`partition_ir_spectra`.
+    Returns (y (B, N), fdl', tail'), new tensors (the inputs are not
+    written)."""
+    n = x_block.shape[-1]
+    x_spec = torch.fft.rfft(x_block, n=2 * n, dim=-1)
+    fdl = torch.cat([x_spec[:, None], fdl[:, :-1]], dim=1)
+    acc = torch.einsum("bpk,pk->bk", fdl, ir_spectra)
+    full = torch.fft.irfft(acc, n=2 * n, dim=-1)
+    return full[..., :n] + tail, fdl, full[..., n:]

@@ -78,7 +78,29 @@ def harmonic_oscillator_bank(
     n_harmonics: int,
     sample_rate: float,
     phase_offset: Optional[torch.Tensor] = None,
+    initial_phase: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """(B, T) audio-rate f0 in Hz -> (B, T, H) antialiased sinusoids."""
+    """(B, T) audio-rate f0 in Hz -> (B, T, H) antialiased sinusoids.
+
+    ``initial_phase``: (B,) carried phase accumulator for streaming
+    (:func:`final_phase` of the previous buffer), added to the integrated
+    phase in float64."""
     phase = phase_accumulate(f0, sample_rate)
+    if initial_phase is not None:
+        phase = phase + initial_phase.to(torch.float64)[:, None]
     return bank_from_phase(phase, f0, n_harmonics, sample_rate, phase_offset)
+
+
+def final_phase(
+    f0: torch.Tensor, sample_rate: float, initial_phase: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The phase accumulator after the last sample of (B, T) f0, wrapped to
+    [0, tau): the carry of a stream, (B,) float64.
+
+    JAX keeps this carry in float32; the port sums and carries it in
+    float64 (as :func:`phase_accumulate`), so a stream on the card and on
+    the CPU keep the same phase however long they run."""
+    total = TAU * torch.sum(f0.to(torch.float64), dim=-1) / sample_rate
+    if initial_phase is not None:
+        total = total + initial_phase.to(torch.float64)
+    return torch.remainder(total, TAU)

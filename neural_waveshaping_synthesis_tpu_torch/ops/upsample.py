@@ -54,3 +54,23 @@ def linear_upsample(x: torch.Tensor, out_len: int) -> torch.Tensor:
     i1 = torch.clamp(i0 + 1, max=in_len - 1)
     w = (pos - i0.to(torch.float32))[None, :, None]
     return x[:, i0] * (1.0 - w) + x[:, i1] * w
+
+
+def segment_interp(prev: torch.Tensor, frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """The streaming ramp (JAX ``streaming/synth.py`` ``_segment_interp``):
+    prev (B, C), frames (B, K, C) -> (B, K*hop, C). Sample o of segment m
+    is ``start + (end - start) * t`` with start = frame m-1 (``prev`` for
+    m = 0), end = frame m and t = (o+1)/hop, so a buffer ends exactly on
+    its last frame and the next buffer ramps on from there.
+
+    t is the correctly rounded float32 quotient (o+1)/hop on every device:
+    the float64 quotient of two integers below 2^23 rounds to the float32
+    one, whatever reciprocal trick a device's division by a scalar uses.
+    The CUDA stream kernel (``kernels/csrc/newt_fused_stream.cu``) computes
+    the same t with ``__fdiv_rn`` and the same three roundings."""
+    b, k, c = frames.shape
+    starts = torch.cat([prev[:, None, :], frames[:, :-1, :]], dim=1)
+    t = torch.arange(1, hop + 1, dtype=torch.float64, device=frames.device) / hop
+    t = t.to(frames.dtype)[None, None, :, None]
+    seg = starts[:, :, None, :] + (frames - starts)[:, :, None, :] * t
+    return seg.reshape(b, k * hop, c)

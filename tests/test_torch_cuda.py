@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA kernels (forward and backward) against
-their plain versions, and the model and a training step on the card
-against the same on the CPU.
+"""The port on the card: the CUDA kernels (forward, backward and the
+streaming forward) against their plain versions, and the model, a
+training step and a streamed buffer on the card against the same on the
+CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it runs where the card is and JAX is not:
@@ -19,7 +20,8 @@ import torch
 from neural_waveshaping_synthesis_tpu_torch.convert import load_checkpoint
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
 from neural_waveshaping_synthesis_tpu_torch.models import NEWT, NeuralWaveshaping
-from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample
+from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample, segment_interp
+from neural_waveshaping_synthesis_tpu_torch.streaming import StreamingSynth
 from neural_waveshaping_synthesis_tpu_torch.training import compute_loss
 
 CKPT = str(
@@ -282,3 +284,111 @@ def test_one_training_step_on_the_card_matches_the_cpu(cuda):
         assert torch.count_nonzero(g) > 0, name
         if rel(g, cpu[name]) > 1e-3:
             assert rel(g, exact[name]) <= rel(cpu[name], exact[name]) + 1e-3, name
+
+
+# ---------------------------------------------------------------------------
+# streaming: the stream kernel (JAX film_shaper_fused_stream) and a step
+# ---------------------------------------------------------------------------
+def _stream_inputs(b, k, hop, seed=0):
+    exc, film_c = _inputs(b, k, hop, seed)
+    prev = torch.from_numpy(np.random.default_rng(seed + 100).standard_normal((b, 256)).astype(np.float32))
+    return exc, prev, film_c
+
+
+@pytest.mark.parametrize("b,k,hop", [(2, 1, 128), (2, 3, 128), (1, 8, 128), (2, 4, 64)])
+def test_stream_kernel_matches_plain(cuda, params, b, k, hop):
+    """Stream kernel vs its plain version on the same CUDA tensors, rtol
+    1e-4, atol 1e-5; K = 1 and odd K (which the TPU gate refused) and hop
+    64 included. One launch per call."""
+    exc, prev, film_c = (t.to(cuda) for t in _stream_inputs(b, k, hop, seed=k))
+    w = _shaper(params, cuda)
+    before = nf.film_shaper_stream.launches
+    with torch.inference_mode():
+        out = nf.film_shaper_stream(exc, prev, film_c, w, hop)
+        ref = nf.film_shaper_stream_plain(exc, prev, film_c, w, hop)
+    torch.cuda.synchronize()
+    assert nf.film_shaper_stream.launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,hop", [(8, 128), (3, 5)])
+def test_stream_kernel_ramp_bit_exact(cuda, params, k, hop):
+    """With gamma_out = 0 the output is the kernel's in-register beta_out
+    ramp, which must equal segment_interp on the CPU bit for bit."""
+    exc, prev, film_c = _stream_inputs(2, k, hop, seed=1)
+    film_c[..., 128:192] = 0.0
+    prev[..., 128:192] = 0.0
+    with torch.inference_mode():
+        out = nf.film_shaper_stream(exc.to(cuda), prev.to(cuda), film_c.to(cuda), _shaper(params, cuda), hop)
+    assert torch.equal(out.cpu(), segment_interp(prev, film_c, hop)[..., 192:])
+
+
+def test_stream_kernel_split_is_bit_identical(cuda, params):
+    """Two buffers (3 + 5 frames, the second carrying the first's last
+    frame) give the bits of one 8-frame buffer."""
+    hop, cut = 128, 3
+    exc, prev, film_c = (t.to(cuda) for t in _stream_inputs(2, 8, hop, seed=2))
+    w = _shaper(params, cuda)
+    with torch.inference_mode():
+        whole = nf.film_shaper_stream(exc, prev, film_c, w, hop)
+        first = nf.film_shaper_stream(exc[:, : cut * hop].contiguous(), prev,
+                                      film_c[:, :cut].contiguous(), w, hop)
+        second = nf.film_shaper_stream(exc[:, cut * hop :].contiguous(),
+                                       film_c[:, cut - 1].contiguous(),
+                                       film_c[:, cut:].contiguous(), w, hop)
+    assert torch.equal(whole, torch.cat([first, second], dim=1))
+
+
+def test_newt_stream_refuses_a_shaper_the_kernel_does_not_take(cuda):
+    newt = NEWT(shaping_fn_depth=3).to(cuda)
+    exc = torch.zeros(1, 2 * 8, 64, device=cuda)
+    prev, film_c = torch.zeros(1, 256, device=cuda), torch.zeros(1, 2, 256, device=cuda)
+    launches = nf.film_shaper_stream.launches
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="fused=False"):
+            newt.forward_stream(exc, prev, film_c)
+        newt.forward_stream(exc, prev, film_c, fused=False)
+    assert nf.film_shaper_stream.launches == launches
+
+
+def test_streamed_buffers_on_the_card_match_the_cpu(cuda, params):
+    """Two 1024-sample buffers of one stream from the same state (injected
+    phase offsets) and the same injected noise, on the card and on the
+    CPU: 1e-3 nRMS each. On the card each step launches the stream kernel
+    once, never the offline kernels, and waits for nothing (sync debug
+    mode "error")."""
+    rng = np.random.default_rng(4)
+    k = 8
+    f0 = torch.from_numpy(np.geomspace(200, 400, 2 * k)[None].astype(np.float32))
+    control = torch.from_numpy(rng.standard_normal((1, 2 * k, 2)).astype(np.float32))
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, (1, 101)).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, (2, 1, k * 128)).astype(np.float32))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model = NeuralWaveshaping()
+        model.load_params(params)
+        synth = StreamingSynth(model.to(dev), k)
+        state = synth.init_state(1, phase_offset=offset, device=dev)
+        spec = synth.ir_partition_spectra()
+        args = [(f0[:, i * k : (i + 1) * k].to(dev), control[:, i * k : (i + 1) * k].to(dev),
+                 noise[i].to(dev)) for i in range(2)]
+        launches = (nf.film_shaper_stream.launches, nf.film_shaper_cr.launches)
+        audio = []
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for f, c, n in args:
+                y, state = synth.step(state, f, c, spec, noise=n)
+                audio.append(y)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if dev.type == "cuda":
+            assert (nf.film_shaper_stream.launches, nf.film_shaper_cr.launches) == (
+                launches[0] + 2, launches[1])
+        outs.append(torch.cat(audio, dim=-1).cpu().numpy())
+    card, cpu = outs
+    assert card.shape == (1, 2 * k * 128) and np.all(np.isfinite(card))
+    for i in range(2):
+        a, b = card[:, i * k * 128 : (i + 1) * k * 128], cpu[:, i * k * 128 : (i + 1) * k * 128]
+        assert np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b**2)) <= 1e-3

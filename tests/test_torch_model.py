@@ -21,6 +21,7 @@ from neural_waveshaping_synthesis_tpu_torch import resolve_device
 from neural_waveshaping_synthesis_tpu_torch.convert import load_checkpoint, params_from_jax
 from neural_waveshaping_synthesis_tpu_torch.inference import Synthesizer, adjust_controls
 from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping
+from neural_waveshaping_synthesis_tpu_torch.streaming import PipelinedStreamer, StreamingSynth
 
 REPO = Path(__file__).resolve().parents[1]
 CKPT = str(REPO / "docs" / "results" / "run120k_cr" / "checkpoint" / "best.ckpt")
@@ -181,7 +182,8 @@ def test_adjust_controls_matches_jax():
 
 def test_entry_points_default_to_the_card():
     """With no device argument the port asks for CUDA, and without a
-    card it raises instead of falling back to the CPU."""
+    card it raises instead of falling back to the CPU: the serving entry
+    point and the streaming ones."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     with pytest.raises(RuntimeError):
@@ -189,6 +191,12 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    synth = StreamingSynth(Synthesizer.from_checkpoint(CKPT, device="cpu").model, 8)
+    with pytest.raises(RuntimeError):
+        synth.init_state(1)
+    with pytest.raises(RuntimeError):
+        PipelinedStreamer(synth, batch=1)
+    assert synth.init_state(1, device="cpu").gru_h.device == torch.device("cpu")
 
 
 def _imports(path):
