@@ -7,10 +7,11 @@ Phases, each printed as one JSON line; any failure raises, so the run
 exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds the three kernels from ``kernels/csrc`` for sm_90a,
+2. build: nvcc builds the four kernels from ``kernels/csrc`` for sm_90a,
    the forward (``newt_fused_cr.cu``), the backward
-   (``newt_fused_cr_bwd.cu``) and the streaming forward
-   (``newt_fused_stream.cu``), in parallel;
+   (``newt_fused_cr_bwd.cu``), the streaming forward
+   (``newt_fused_stream.cu``) and the FastNEWT lookup
+   (``fast_newt_lookup.cu``), in parallel;
 3. kernels: the forward kernel's wrapper on CUDA tensors against its plain
    PyTorch version on the same tensors (rtol=1e-4, atol=1e-5), and the
    kernel's FiLM interpolation bit for bit against ``linear_upsample``.
@@ -65,9 +66,33 @@ exits non-zero:
    wrote served by ``Synthesizer.from_checkpoint(device="cuda")``;
 9. timing_train: CUDA-event medians of 20 after warm-up at batch 8 x 4 s:
    the whole training step, the backward kernel and its plain version on
-   phase 6's inputs, and the peak device memory of a step.
+   phase 6's inputs, and the peak device memory of a step;
+10. kernel_fast_newt: the FastNEWT lookup kernel against its plain version
+   (rtol 0, atol 1e-6, with the count of elements that are not bit-exact)
+   on the (table, x) the FastNEWT path hands it, caught by a hook on the
+   launch in a 4-s ``timbre_transfer`` and in a batch-8 x 4-s FastNEWT
+   render, then on made-up x beyond both table edges, the exact grid
+   points, S = 256 and a row count that is not a multiple of the block;
+11. timbre_transfer: the repo's 4-s 16-kHz wav and a 2-s 330-Hz tone
+   written as a 44.1-kHz int16 stereo wav (so that the resampler and the
+   downmix run), each through ``timbre_transfer`` with and without FastNEWT
+   and through ``stream_timbre_transfer`` (1024-sample buffers, depth 4):
+   finite, not silent, Tc * 128 samples; the tone (octave +1) peaks at a
+   harmonic of 660 Hz; FastNEWT renders launch the lookup kernel and not
+   ``film_shaper_fused_cr``, the others launch ``film_shaper_fused_cr``,
+   and the stream only the stream kernel;
+12. timbre_card_vs_cpu: features on the card against the CPU (loudness
+   atol 1e-4, f0 rtol 1e-4 on the voiced frames), and a FastNEWT render
+   of one set of controls on both from the same phase offsets and noise
+   (1e-3 nRMS);
+13. timing_timbre: medians of 20 after warm-up: resample, YIN and loudness
+   on 4 s of 44.1-kHz audio (CUDA events), ``timbre_transfer``'s x real
+   time with and without FastNEWT (and the host time of a whole call),
+   the table's bake, the model's forward at batch 8 x 4 s with and
+   without FastNEWT, and the lookup kernel and its plain version at
+   batch 8 x 4 s with its bound.
 
-Then the kernels line (the numbers of phases 3-9 per kernel, with its
+Then the kernels line (the numbers of phases 3-13 per kernel, with its
 least possible time on an H100 from its bytes and operations) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN (the GRU), so the card computes in float32 like the CPU reference.
@@ -84,9 +109,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from scipy.io import wavfile
+
 from neural_waveshaping_synthesis_tpu_torch.data import GeneralDataModule
-from neural_waveshaping_synthesis_tpu_torch.inference import Synthesizer
-from neural_waveshaping_synthesis_tpu_torch.kernels import _build
+from neural_waveshaping_synthesis_tpu_torch.data.preprocess import (
+    extract_f0_with_yin,
+    extract_perceptual_loudness,
+    resample_audio,
+)
+from neural_waveshaping_synthesis_tpu_torch.inference import (
+    ControlAdjustments,
+    Synthesizer,
+    adjust_controls,
+    extract_features,
+    stream_timbre_transfer,
+    timbre_transfer,
+)
+from neural_waveshaping_synthesis_tpu_torch.kernels import _build, fast_newt
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
 from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping
 from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample, segment_interp
@@ -95,6 +134,7 @@ from neural_waveshaping_synthesis_tpu_torch.training import TrainConfig, Trainer
 
 REPO = Path(__file__).resolve().parent
 CKPT = str(REPO / "docs" / "results" / "run120k_cr" / "checkpoint" / "best.ckpt")
+WAV = str(REPO / "logs" / "audio" / "val_original_step20.wav")  # 4 s, 16 kHz int16
 HOP, SR = 128, 16000
 RTOL, ATOL = 1e-4, 1e-5
 N_TIMED = 20
@@ -126,7 +166,10 @@ STREAM_K = 8  # control frames per streaming buffer: 1024 samples
 STREAM_BUFFERS = 64  # 4.1 s of controls per stream
 STREAM_BATCHES = (1, 256)  # one live stream; the concurrent streams of the JAX serving claim
 CADENCE_PUSHES = 200
-KERNELS = ["newt_fused_cr", "newt_fused_cr_bwd", "newt_fused_stream"]
+# ... and in fast_newt_lookup.cu: sub, mul, div, floor, max, min, sub (the
+# fraction), and the lerp's sub, mul, add = 10; bytes: x in, out, the table once
+LOOKUP_FLOP_PER_ELEMENT = 10
+KERNELS = ["newt_fused_cr", "newt_fused_cr_bwd", "newt_fused_stream", "fast_newt_lookup"]
 
 
 def emit(obj):
@@ -616,6 +659,202 @@ def train_phases(dev):
     return {"fwd_launches": fwd, "bwd_launches": bwd, "max_abs_err": max_err, "ms": bwd_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
+def reset_counts():
+    nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
+    nf.film_shaper_stream.launches = fast_newt.fast_newt_lookup.launches = 0
+
+
+def counts():
+    return {"cr": nf.film_shaper_cr.launches, "bwd": nf.film_shaper_cr.bwd_launches,
+            "stream": nf.film_shaper_stream.launches, "lookup": fast_newt.fast_newt_lookup.launches}
+
+
+def caught_lookups(fn):
+    """Run ``fn`` with a hook on the lookup kernel's launch -> the (table,
+    x) of each launch, cloned: what the FastNEWT path hands the kernel."""
+    got, launch = [], fast_newt._launch
+
+    def catch(table, x):
+        got.append((table.clone(), x.clone()))
+        return launch(table, x)
+
+    fast_newt._launch = catch
+    try:
+        fn()
+    finally:
+        fast_newt._launch = launch
+    return got
+
+
+def harmonic_peak_hz(audio):
+    """The spectral peak above 50 Hz of samples 8000-24000 (the DC hump of
+    the uniform noise excitation ignored), as tests/test_timbre_transfer.py."""
+    spec = np.abs(np.fft.rfft(audio[8000:24000] * np.hanning(16000)))
+    freqs = np.fft.rfftfreq(16000, 1 / SR)
+    spec[freqs < 50.0] = 0.0
+    return float(freqs[np.argmax(spec)])
+
+
+def timbre_inputs(tmp: Path):
+    """The repo's 4-s wav, and a 2-s 330-Hz tone written here as a 44.1-kHz
+    int16 stereo wav and read back -> {name: (audio, rate, sliders)}."""
+    sr_wav, wav = wavfile.read(WAV)
+    t = np.arange(2 * 44100) / 44100
+    tone = 0.4 * np.sin(2 * np.pi * 330 * t) * (0.5 + 0.5 * np.sin(np.pi * t))
+    path = tmp / "tone_44k_stereo.wav"
+    wavfile.write(path, 44100, (np.stack([tone, 0.5 * tone], axis=-1) * 32767).astype(np.int16))
+    sr_tone, tone_pcm = wavfile.read(path)
+    return {"wav_16k": (wav, sr_wav, ControlAdjustments()),
+            "tone_44k_stereo": (tone_pcm, sr_tone, ControlAdjustments(octave_shift=1, loudness_scale=2.0))}
+
+
+def check_lookup(label, table, x):
+    """Lookup kernel vs plain on the same CUDA tensors -> max abs error."""
+    with torch.inference_mode():
+        out = fast_newt._launch(table, x)
+        ref = fast_newt.fast_newt_lookup_plain(table, x)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    n_diff = int((out != ref).sum())
+    emit({"phase": "kernel_fast_newt", "name": "fast_newt_lookup_pallas", "case": label,
+          "x_shape": list(x.shape), "S": table.shape[0], "max_abs_err": err,
+          "elements_not_bit_exact": n_diff, "elements": x.numel(), "rtol": 0.0, "atol": 1e-6})
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-6, err_msg=label)
+    return err
+
+
+def timbre_phases(dev, synth, cpu_synth):
+    """Phases 10-13 (timbre transfer) -> the lookup kernel's numbers."""
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = timbre_inputs(Path(tmp))
+    wav, wav_sr, _ = inputs["wav_16k"]
+
+    # 10. the lookup kernel on the path's own inputs, then made-up ones
+    cases = [("timbre_transfer_4s", *caught_lookups(
+        lambda: timbre_transfer(synth, wav, wav_sr, use_fast_newt=True))[0])]
+    f0_b, ctrl_b, _ = synth.prepare(make_requests([4] * 8, 6))
+    f0_t, ctrl_t = torch.from_numpy(f0_b).to(dev), torch.from_numpy(ctrl_b).to(dev)
+    with torch.inference_mode():
+        table = synth.model.newt.bake_lookup_table()
+
+        def render_b8():
+            return synth.model(f0_t, ctrl_t, generator=torch.Generator().manual_seed(0),
+                               lookup_table=table)
+
+        cases.append(("render_b8_4s", *caught_lookups(render_b8)[0]))
+    rng = np.random.default_rng(7)
+    for label, s, shape in (("beyond_edges", 4096, (2, 4000, 64)), ("grid_points", 4096, (1, 64, 64)),
+                            ("s256", 256, (2, 1000, 64)), ("ragged_rows", 4096, (3, 333, 64))):
+        x = rng.uniform(-4, 4, shape).astype(np.float32)
+        if label == "grid_points":
+            x = (np.float32(-3) + np.arange(64 * 64, dtype=np.float32) * np.float32(6 / 4096)).reshape(shape)
+        t = table if s == 4096 else torch.from_numpy(rng.standard_normal((s, 64)).astype(np.float32)).to(dev)
+        cases.append((label, t, torch.from_numpy(x).to(dev)))
+    max_err = max(check_lookup(label, t, x) for label, t, x in cases)
+    timed_table, timed_x = cases[1][1], cases[1][2]
+    del cases
+
+    # 11. the entry points a user calls; counts zeroed before each run
+    launches = 0
+    for name, (audio, sr, adj) in inputs.items():
+        for mode in ("offline", "fast_newt", "stream"):
+            reset_counts()
+            if mode == "stream":
+                out, stats = stream_timbre_transfer(synth, audio, sr, adj, buffer_size=1024, pipeline_depth=4)
+                speed = stats["x_realtime"]
+            else:
+                out, speed = timbre_transfer(synth, audio, sr, adj, use_fast_newt=mode == "fast_newt")
+                stats = None
+            got = counts()
+            launches += got["lookup"]
+            n = len(audio) if np.asarray(audio).ndim == 1 else np.asarray(audio).shape[0]
+            tc = 1 + int(n * SR / sr) // HOP
+            rms = float(np.sqrt(np.mean(out**2)))
+            peak = harmonic_peak_hz(out) if name == "tone_44k_stereo" else None
+            emit({"phase": "timbre_transfer", "input": name, "mode": mode, "samples": int(out.shape[0]),
+                  "Tc": tc, "rms": rms, "x_realtime": speed, "launches": got, "peak_hz": peak,
+                  "stream_stats": stats})
+            if out.shape != (tc * HOP,) or not np.all(np.isfinite(out)) or rms < 1e-4:
+                raise RuntimeError(f"{name} {mode}: bad audio ({out.shape}, rms {rms})")
+            if peak is not None and not any(abs(peak - h * 660.0) < 15.0 for h in (1, 2, 3)):
+                raise RuntimeError(f"{name} {mode}: the spectrum peaks at {peak} Hz")
+            expect = {"offline": got["cr"] >= 1 and got["lookup"] == 0 and got["stream"] == 0,
+                      "fast_newt": got["lookup"] >= 1 and got["cr"] == 0 and got["stream"] == 0,
+                      "stream": got["stream"] >= 1 and got["cr"] == 0 and got["lookup"] == 0}[mode]
+            if not expect or got["bwd"]:
+                raise RuntimeError(f"{name} {mode}: launches {got}")
+
+    # 12. card vs CPU: features, and one FastNEWT render with injected randomness
+    for name, (audio, sr, adj) in inputs.items():
+        card = extract_features(audio, sr, device=dev)
+        cpu = extract_features(audio, sr, device="cpu")
+        voiced = cpu[2] > 0.5
+        loud_err = float(np.max(np.abs(card[3] - cpu[3])))
+        f0_rel = float(np.max(np.abs(card[1] - cpu[1])[voiced] / cpu[1][voiced]))
+        emit({"phase": "timbre_card_vs_cpu", "input": name, "frames": int(len(cpu[1])),
+              "voiced_frames": int(voiced.sum()), "loudness_max_abs": loud_err,
+              "f0_voiced_max_rel": f0_rel, "bars": {"loudness_atol": 1e-4, "f0_rtol": 1e-4}})
+        if not voiced.any() or loud_err > 1e-4 or f0_rel > 1e-4:
+            raise RuntimeError(f"{name}: features on the card differ from the CPU")
+    f0_hz, control = adjust_controls(*card[1:], synth.data_mean, synth.data_std, adj)
+    rng = np.random.default_rng(8)
+    offset = rng.uniform(-np.pi, np.pi, 101).astype(np.float32)
+    noise = rng.uniform(0, 1, f0_hz.shape[0] * HOP - 1).astype(np.float32)
+    outs = []
+    for s in (synth, cpu_synth):
+        with torch.inference_mode():
+            y = s.model(torch.from_numpy(f0_hz[None]).to(s.device), torch.from_numpy(control[None]).to(s.device),
+                        phase_offset=torch.from_numpy(offset).to(s.device),
+                        noise=torch.from_numpy(noise).to(s.device),
+                        lookup_table=s.model.newt.bake_lookup_table())
+        outs.append(y.cpu().numpy())
+    fast_vs_cpu = nrms(outs[0], outs[1])
+    emit({"phase": "timbre_card_vs_cpu", "input": "tone_44k_stereo", "render": "fast_newt",
+          "frames": int(f0_hz.shape[0]), "nrms": fast_vs_cpu, "bar": 1e-3})
+    if not fast_vs_cpu <= 1e-3:
+        raise RuntimeError(f"FastNEWT renders on the card and the CPU differ: nRMS {fast_vs_cpu}")
+
+    # 13. timing: the feature stages, timbre_transfer end to end, the kernel
+    tone_44k = torch.from_numpy(np.tile(inputs["tone_44k_stereo"][0][:, 0].astype(np.float32) / 32767, 2)).to(dev)
+    x16 = resample_audio(tone_44k, 44100, SR)
+    stages = {
+        "resample_ms": cuda_median_ms(lambda: resample_audio(tone_44k, 44100, SR)),
+        "yin_ms": cuda_median_ms(lambda: extract_f0_with_yin(x16, maximum_frequency=1000.0)),
+        "loudness_ms": cuda_median_ms(lambda: extract_perceptual_loudness(x16, n_fft=1024, hop_length=128)),
+    }
+    speeds = {}
+    for mode in ("offline", "fast_newt"):
+        runs = [timbre_transfer(synth, wav, wav_sr, use_fast_newt=mode == "fast_newt")[1]
+                for _ in range(N_TIMED)]
+        speeds[mode] = statistics.median(runs)
+        speeds[mode + "_call_ms"] = host_median_ms(
+            lambda: timbre_transfer(synth, wav, wav_sr, use_fast_newt=mode == "fast_newt"), n=5)
+    with torch.inference_mode():
+        kernel_ms = cuda_median_ms(lambda: fast_newt.fast_newt_lookup(timed_table, timed_x))
+        plain_ms = cuda_median_ms(lambda: fast_newt.fast_newt_lookup_plain(timed_table, timed_x))
+        bake_ms = cuda_median_ms(synth.model.newt.bake_lookup_table)
+        gen = torch.Generator().manual_seed(0)
+        b8_ms = {mode: cuda_median_ms(lambda: synth.model(f0_t, ctrl_t, generator=gen, lookup_table=lookup))
+                 for mode, lookup in (("offline", None), ("fast_newt", timed_table))}
+    n_el = timed_x.numel()
+    flop = n_el * LOOKUP_FLOP_PER_ELEMENT
+    nbytes = 4 * (2 * n_el + timed_table.numel())
+    bound_ms = max(nbytes / PEAK_BYTES_PER_S, flop / PEAK_F32_FLOP_PER_S) * 1e3
+    bound_by = "operations" if flop / PEAK_F32_FLOP_PER_S >= nbytes / PEAK_BYTES_PER_S else "bytes"
+    emit({"phase": "timing_timbre", "audio_s": 4.0, "input_rate": 44100, **stages,
+          "timbre_transfer_x_realtime": speeds["offline"],
+          "timbre_transfer_fast_newt_x_realtime": speeds["fast_newt"],
+          "timbre_transfer_call_ms": speeds["offline_call_ms"],
+          "timbre_transfer_fast_newt_call_ms": speeds["fast_newt_call_ms"], "bake_ms": bake_ms,
+          "forward_b8_4s_ms": b8_ms["offline"], "forward_b8_4s_fast_newt_ms": b8_ms["fast_newt"],
+          "lookup_x_shape": list(timed_x.shape), "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "flop": flop, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+          "share_of_bound": bound_ms / kernel_ms})
+    del timed_table, timed_x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -759,6 +998,7 @@ def main() -> int:
               "render_x_realtime": audio_s / (render_ms / 1e3)})
 
     stream = stream_phases(dev, synth, cpu_synth)
+    timbre = timbre_phases(dev, synth, cpu_synth)
     train = train_phases(dev)
 
     emit({"kernels": [{
@@ -782,6 +1022,13 @@ def main() -> int:
         "launches": stream["launches"], "max_abs_err": stream["max_abs_err"],
         "ms": stream["ms"], "plain_ms": stream["plain_ms"], "bound_ms": stream["bound_ms"],
         "bound_by": stream["bound_by"], "library_ms": None,
+    }, {
+        "name": "fast_newt_lookup", "route": "cuda",
+        "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/fast_newt_lookup.cu",
+        "replaces": "neural_waveshaping_synthesis_tpu/kernels/fast_newt.py:68",
+        "launches": timbre["launches"], "max_abs_err": timbre["max_abs_err"],
+        "ms": timbre["ms"], "plain_ms": timbre["plain_ms"], "bound_ms": timbre["bound_ms"],
+        "bound_by": timbre["bound_by"], "library_ms": None,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

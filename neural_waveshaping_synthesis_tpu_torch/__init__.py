@@ -21,11 +21,15 @@ Entry points run on ``device="cuda"`` unless the caller asks for
   writes reference-format checkpoints that ``Synthesizer`` serves;
 * streaming: :class:`streaming.StreamingSynth` renders buffer by buffer
   with carried state, and :class:`streaming.PipelinedStreamer` keeps
-  several buffers in flight.
+  several buffers in flight;
+* timbre transfer: :func:`inference.timbre_transfer.timbre_transfer` and
+  ``stream_timbre_transfer`` take audio of any rate to the checkpoint's
+  instrument, extracting f0 (YIN) and loudness with :mod:`data.preprocess`.
 
 On the card the model's FiLM -> shaper -> FiLM block runs the
 hand-written CUDA kernels of :mod:`kernels.newt_fused`: the forward, in
-training its backward, and in a stream the streaming forward.
+training its backward, and in a stream the streaming forward. FastNEWT's
+table lookup runs the CUDA kernel of :mod:`kernels.fast_newt`.
 """
 from .device import resolve_device
 

@@ -1,4 +1,19 @@
-"""Serving entry points of the port."""
-from .resynthesis import Synthesizer, adjust_controls
+"""Serving entry points of the port: resynthesis of control signals and
+timbre transfer of audio."""
+from .resynthesis import Synthesizer
+from .timbre_transfer import (
+    ControlAdjustments,
+    adjust_controls,
+    extract_features,
+    stream_timbre_transfer,
+    timbre_transfer,
+)
 
-__all__ = ["Synthesizer", "adjust_controls"]
+__all__ = [
+    "Synthesizer",
+    "ControlAdjustments",
+    "adjust_controls",
+    "extract_features",
+    "stream_timbre_transfer",
+    "timbre_transfer",
+]

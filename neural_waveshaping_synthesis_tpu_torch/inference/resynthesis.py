@@ -1,14 +1,13 @@
 """Offline resynthesis: control signals -> audio with a trained checkpoint.
 
 The serving entry point of the port. A request is an ``(f0_hz, loudness)``
-pair of (Tc,) arrays at the 125 Hz control rate (what the JAX package's
-feature extraction yields; extraction itself is not ported yet).
-:meth:`Synthesizer.render` normalises every request as the JAX
-``inference/timbre_transfer.py`` ``adjust_controls`` does at its default
-sliders, zero-pads them to one length that is a multiple of
-``FRAME_BUCKET`` frames, renders them as one batch under
-``torch.inference_mode()``, and trims each output back to ``Tc * hop``
-samples.
+pair of (Tc,) arrays at the 125 Hz control rate (what
+``inference.timbre_transfer.extract_features`` yields).
+:meth:`Synthesizer.render` normalises every request with
+``adjust_controls`` at its default sliders and full pitch confidence,
+zero-pads them to one length that is a multiple of ``FRAME_BUCKET``
+frames, renders them as one batch under ``torch.inference_mode()``, and
+trims each output back to ``Tc * hop`` samples.
 
 On the card the GRU runs in cuDNN, which uses TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is False; set it (and
@@ -22,26 +21,7 @@ import torch
 from ..convert.checkpoint import load_checkpoint
 from ..device import resolve_device
 from ..models.neural_waveshaping import NeuralWaveshaping
-
-FRAME_BUCKET = 256  # requests are zero-padded to a multiple of this many frames
-
-
-def adjust_controls(
-    f0: np.ndarray, loudness: np.ndarray, data_mean: np.ndarray, data_std: np.ndarray
-) -> Tuple[np.ndarray, np.ndarray]:
-    """-> (f0_hz (Tc,), control (Tc, 2)) ready for the model.
-
-    The JAX ``adjust_controls`` at its default sliders and full pitch
-    confidence: non-positive loudness is gated to 0 and z-scored, f0 is
-    z-scored, and the model gets f0 in Hz unchanged. The sliders (octave
-    shift, floor, scale, confidence filters, smoothing) come with timbre
-    transfer (ROADMAP.md)."""
-    loud = loudness * (loudness > 0.0)
-    loud_norm = (loud - data_mean[1, 0]) / data_std[1, 0]
-    f0_norm = (f0 - data_mean[0, 0]) / data_std[0, 0]
-    control = np.stack([f0_norm, loud_norm], axis=-1).astype(np.float32)
-    return f0.astype(np.float32), control
-
+from .timbre_transfer import FRAME_BUCKET, adjust_controls
 
 Request = Tuple[np.ndarray, np.ndarray]
 
@@ -96,7 +76,9 @@ class Synthesizer:
             loudness = np.asarray(loudness, dtype=np.float32)
             if f0.ndim != 1 or f0.shape != loudness.shape or f0.size == 0:
                 raise ValueError("a request is (f0 (Tc,), loudness (Tc,)) with Tc >= 1")
-            rows.append(adjust_controls(f0, loudness, self.data_mean, self.data_std))
+            rows.append(adjust_controls(
+                f0, np.ones_like(f0), loudness, self.data_mean, self.data_std
+            ))
             lengths.append(f0.shape[0])
         tp = -(-max(lengths) // FRAME_BUCKET) * FRAME_BUCKET
         f0_b = np.zeros((len(rows), tp), np.float32)

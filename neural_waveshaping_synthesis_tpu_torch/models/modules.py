@@ -210,6 +210,16 @@ class TrainableNonlinearity(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return shaper_apply(self.params(), x, self.nonlinearity, self.final_nonlinearity)
 
+    def bake_table(self, table_size: int, table_min: float, table_max: float) -> torch.Tensor:
+        """Each channel's shaper sampled on a uniform grid of ``table_size``
+        points over [table_min, table_max] -> contiguous (table_size, C),
+        on the parameters' device: the FastNEWT lookup table, ``input_scale``
+        included (the grid goes in as the shaper's input)."""
+        grid = torch.linspace(
+            table_min, table_max, table_size, device=self.input_scale.device
+        )
+        return self(grid[None, :, None].expand(1, table_size, self.channels))[0].contiguous()
+
 
 # ---------------------------------------------------------------------------
 # GRU + ControlModule

@@ -79,6 +79,7 @@ class NeuralWaveshaping(nn.Module):
         generator: Optional[torch.Generator] = None,
         phase_offset: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
+        lookup_table: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Synthesize audio.
 
@@ -91,6 +92,8 @@ class NeuralWaveshaping(nn.Module):
             None). A CPU generator gives the same draws on every device.
           phase_offset: (H,) or (B, H) explicit phase offsets.
           noise: (hop*Tc - 1,) explicit uniform noise excitation.
+          lookup_table: an (S, C) FastNEWT table
+            (``NEWT.bake_lookup_table``) that replaces the shaper bank.
 
         Returns:
           (B, Tc * control_hop) audio.
@@ -103,7 +106,7 @@ class NeuralWaveshaping(nn.Module):
                 self.osc.n_harmonics, generator, f0.device, f0.dtype
             )
         exciter = self.harmonic_mixer(self.osc(f0_up, phase_offset=phase_offset))
-        shaped = self.newt(exciter, embedding)  # (B, Ta, 1)
+        shaped = self.newt(exciter, embedding, lookup_table=lookup_table)  # (B, Ta, 1)
         h = self.h_generator(embedding)  # (B, Tc, 129)
         noise_audio = self.noise_synth(h, generator=generator, noise=noise)
         return self.reverb(shaped[..., 0] + noise_audio)

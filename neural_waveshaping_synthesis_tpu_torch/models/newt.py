@@ -10,9 +10,9 @@ from typing import Optional, Union
 import torch
 import torch.nn as nn
 
-from ..kernels import newt_fused
+from ..kernels import fast_newt, newt_fused
 from ..ops.upsample import linear_upsample
-from .modules import Dense, Params, TimeDistributedMLP, TrainableNonlinearity
+from .modules import Dense, Params, TimeDistributedMLP, TrainableNonlinearity, film
 
 _NOT_PORTED = (
     "is not ported yet (ROADMAP.md, queue 2); the port has fused='cr' "
@@ -41,8 +41,14 @@ class NEWT(nn.Module):
     :meth:`forward_stream`, one streaming buffer, follows the same rule
     with the stream kernel (:func:`newt_fused.film_shaper_stream`).
 
-    ``"full_lane"``, ``True``, a FastNEWT ``lookup_table`` and
-    ``remat_shaper`` raise ``NotImplementedError``.
+    A FastNEWT ``lookup_table`` (:meth:`bake_lookup_table`) replaces the
+    shaper bank whatever ``fused`` says, as in JAX: the FiLM is upsampled
+    to audio rate and the lookup runs between the two FiLMs; on CUDA it
+    launches the lookup kernel (:func:`fast_newt.fast_newt_lookup`), on
+    the CPU its plain version.
+
+    ``"full_lane"``, ``True`` and ``remat_shaper`` raise
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -106,6 +112,11 @@ class NEWT(nn.Module):
         self.shaping_fn.load_params(p["shaping_fn"])
         self.mixer.load_params(p["mixer"])
 
+    def bake_lookup_table(self, table_size: int = 4096) -> torch.Tensor:
+        """The FastNEWT table: the shaper bank sampled on ``table_size``
+        points over the lookup's range [-3, 3] -> (table_size, C)."""
+        return self.shaping_fn.bake_table(table_size, fast_newt.TABLE_MIN, fast_newt.TABLE_MAX)
+
     def film_params(self, control_embedding: torch.Tensor) -> torch.Tensor:
         """(B, Tc, E) -> (B, Tc, 4C) control-rate FiLM parameters."""
         return self.mlp(control_embedding)
@@ -134,11 +145,14 @@ class NEWT(nn.Module):
     ) -> torch.Tensor:
         """(B, Ta, C) exciter + (B, Tc, E) embedding -> (B, Ta, out_channels).
 
-        ``fused=None`` defers to the ``fused`` given at construction."""
-        if lookup_table is not None:
-            raise NotImplementedError(f"the FastNEWT lookup_table {_NOT_PORTED}")
+        ``fused=None`` defers to the ``fused`` given at construction;
+        ``lookup_table`` (S, C) takes the FastNEWT path instead."""
         fp = self.film_params(control_embedding)  # (B, Tc, 4C) control-rate FiLM
         ta, tc = exciter.shape[1], fp.shape[1]
+        if lookup_table is not None:
+            gi, bi, gn, bn = linear_upsample(fp, ta).split(self.n_waveshapers, dim=-1)
+            x = fast_newt.fast_newt_lookup(lookup_table, film(exciter, gi, bi))
+            return self.mixer(film(x, gn, bn))
         params = self.shaping_fn.params()
         if self._use_kernel(fused, exciter, ta, tc, newt_fused.supports_cr):
             x = newt_fused.film_shaper_cr(

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of one offline render goes on the card (PyTorch port).
 
-    python3 scripts/profile_torch_render.py [--batch 8] [--seconds 4] [--runs 3]
+    python3 scripts/profile_torch_render.py [--batch 8] [--seconds 4] [--runs 3] [--fast-newt]
 
 Renders ``--batch`` requests of ``--seconds`` each through the port's
-``Synthesizer`` with the run120k_cr checkpoint, warms up, then traces
+``Synthesizer`` with the run120k_cr checkpoint (with ``--fast-newt``, the
+same prepared batch through the model with the baked FastNEWT table, the
+copy to the host included), warms up, then traces
 ``--runs`` renders with ``torch.profiler`` and prints JSON lines: the
 device kernels by total time, and the device's busy and idle share of
 the traced wall time (busy = union of kernel and copy intervals). Falls
@@ -59,6 +61,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seconds", type=float, default=4.0)
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--fast-newt", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -67,15 +70,28 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     synth = Synthesizer.from_checkpoint(CKPT, device="cuda")
     requests = _requests(args.batch, args.seconds)
+    if args.fast_newt:
+        f0_b, ctrl_b, _ = synth.prepare(requests)
+        f0_t, ctrl_t = torch.from_numpy(f0_b).cuda(), torch.from_numpy(ctrl_b).cuda()
+        with torch.inference_mode():
+            table = synth.model.newt.bake_lookup_table()
+
+        @torch.inference_mode()
+        def render():
+            gen = torch.Generator().manual_seed(0)
+            return synth.model(f0_t, ctrl_t, generator=gen, lookup_table=table).cpu()
+    else:
+        def render():
+            return synth.render(requests)
     for _ in range(3):
-        synth.render(requests)
+        render()
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.runs):
-            synth.render(requests)
+            render()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_events = [
@@ -90,7 +106,7 @@ def main() -> int:
         d[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "batch": args.batch,
+        "device": torch.cuda.get_device_name(0), "batch": args.batch, "fast_newt": args.fast_newt,
         "seconds": args.seconds, "runs": args.runs,
         "wall_ms_per_render": wall_ms / args.runs,
         "device_busy_ms_per_render": busy / args.runs,

@@ -1,7 +1,7 @@
-"""The port on the card: the CUDA kernels (forward, backward and the
-streaming forward) against their plain versions, and the model, a
-training step and a streamed buffer on the card against the same on the
-CPU.
+"""The port on the card: the CUDA kernels (forward, backward, the
+streaming forward and the FastNEWT lookup) against their plain versions,
+and the model, a training step, a streamed buffer and timbre transfer on
+the card against the same on the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it runs where the card is and JAX is not:
@@ -18,6 +18,8 @@ import pytest
 import torch
 
 from neural_waveshaping_synthesis_tpu_torch.convert import load_checkpoint
+from neural_waveshaping_synthesis_tpu_torch.inference import Synthesizer, extract_features, timbre_transfer
+from neural_waveshaping_synthesis_tpu_torch.kernels import fast_newt
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
 from neural_waveshaping_synthesis_tpu_torch.models import NEWT, NeuralWaveshaping
 from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample, segment_interp
@@ -392,3 +394,85 @@ def test_streamed_buffers_on_the_card_match_the_cpu(cuda, params):
     for i in range(2):
         a, b = card[:, i * k * 128 : (i + 1) * k * 128], cpu[:, i * k * 128 : (i + 1) * k * 128]
         assert np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b**2)) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# FastNEWT: the lookup kernel (JAX fast_newt_lookup_pallas) and timbre transfer
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("s,shape", [(4096, (2, 1000, 64)), (256, (3, 333, 64)), (2, (1, 7, 5))])
+def test_lookup_kernel_matches_plain_bit_for_bit(cuda, s, shape):
+    """The kernel against its plain version on the same CUDA tensors: bit
+    for bit (both round each step as written, no FMA), over x in [-4, 4]
+    with both edges crossed and the exact grid points; S = 2 and a channel
+    count other than 64 included. One launch per call."""
+    rng = np.random.default_rng(s)
+    table = torch.from_numpy(rng.standard_normal((s, shape[-1])).astype(np.float32)).to(cuda)
+    x = rng.uniform(-4, 4, shape).astype(np.float32)
+    x.reshape(-1)[:s] = np.float32(-3) + np.arange(s, dtype=np.float32) * np.float32(6 / s)
+    x = torch.from_numpy(x).to(cuda)
+    before = fast_newt.fast_newt_lookup.launches
+    with torch.inference_mode():
+        out = fast_newt.fast_newt_lookup(table, x)
+        ref = fast_newt.fast_newt_lookup_plain(table, x)
+    torch.cuda.synchronize()
+    assert fast_newt.fast_newt_lookup.launches == before + 1
+    assert torch.equal(out, ref)
+
+
+def test_lookup_kernel_refuses_what_it_does_not_take(cuda):
+    table, x = torch.zeros(256, 64, device=cuda), torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(ValueError):
+        fast_newt.fast_newt_lookup(table.cpu(), x)
+    with pytest.raises(TypeError):
+        fast_newt.fast_newt_lookup(table, x.double())
+    with pytest.raises(ValueError):
+        fast_newt.fast_newt_lookup(table, x.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        fast_newt.fast_newt_lookup(table, x.requires_grad_())
+
+
+def test_fast_newt_model_on_the_card_matches_the_cpu(cuda, params):
+    """The whole model with the baked table: the lookup kernel launches,
+    the cr kernel does not, and card and CPU agree within 1e-3 nRMS."""
+    rng = np.random.default_rng(12)
+    tc = 64
+    f0 = torch.from_numpy(np.geomspace(150, 600, tc)[None].astype(np.float32))
+    control = torch.from_numpy(rng.standard_normal((1, tc, 2)).astype(np.float32))
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, tc * 128 - 1).astype(np.float32))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model = NeuralWaveshaping()
+        model.load_params(params)
+        model.to(dev)
+        launches = (fast_newt.fast_newt_lookup.launches, nf.film_shaper_cr.launches)
+        with torch.inference_mode():
+            table = model.newt.bake_lookup_table()
+            y = model(f0.to(dev), control.to(dev), phase_offset=offset.to(dev), noise=noise.to(dev),
+                      lookup_table=table)
+        if dev.type == "cuda":
+            assert (fast_newt.fast_newt_lookup.launches, nf.film_shaper_cr.launches) == (
+                launches[0] + 1, launches[1])
+        outs.append(y.cpu().numpy())
+    card, cpu = outs
+    assert np.sqrt(np.mean((card - cpu) ** 2)) / np.sqrt(np.mean(cpu**2)) <= 1e-3
+
+
+def test_timbre_transfer_on_the_card(cuda):
+    """Features on the card against the CPU (loudness atol 1e-4, f0 rtol
+    1e-4 on the voiced frames), and ``timbre_transfer`` with and without
+    FastNEWT: finite, not silent, Tc * 128 samples."""
+    sr = 44100
+    t = np.arange(int(1.5 * sr)) / sr
+    audio = (0.4 * np.sin(2 * np.pi * 330 * t)).astype(np.float32)
+    card = extract_features(audio, sr, device=cuda)
+    cpu = extract_features(audio, sr, device="cpu")
+    voiced = cpu[2] > 0.5
+    assert voiced.mean() > 0.9
+    np.testing.assert_allclose(card[3], cpu[3], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(card[1][voiced], cpu[1][voiced], rtol=1e-4)
+    synth = Synthesizer.from_checkpoint(CKPT, device=cuda)
+    for fast in (False, True):
+        out, speed = timbre_transfer(synth, audio, sr, use_fast_newt=fast)
+        assert out.shape == (len(cpu[1]) * 128,) and np.all(np.isfinite(out)) and speed > 0
+        assert np.sqrt(np.mean(out**2)) > 1e-4

@@ -179,10 +179,20 @@ def test_newt_unported_options_raise(fused):
 
 
 def test_newt_lookup_table_and_remat_raise():
+    """remat_shaper still raises. A FastNEWT lookup table no longer does:
+    it replaces the shaper bank whatever ``fused`` says (its parity with
+    JAX is in tests/test_torch_timbre_transfer.py)."""
     with pytest.raises(NotImplementedError):
         NEWT(remat_shaper=True)
-    with pytest.raises(NotImplementedError):
-        NEWT()(torch.zeros(1, 16, 64), torch.zeros(1, 2, 128), lookup_table=torch.zeros(8, 64))
+    g = torch.Generator().manual_seed(0)
+    newt = NEWT(generator=g)
+    exc, emb = torch.randn(1, 16, 64, generator=g), torch.randn(1, 2, 128, generator=g)
+    table = torch.randn(8, 64, generator=g)
+    with torch.no_grad():
+        out = newt(exc, emb, lookup_table=table)
+        assert out.shape == (1, 16, 1) and torch.isfinite(out).all()
+        assert torch.equal(out, newt(exc, emb, lookup_table=table, fused=False))
+        assert not torch.equal(out, newt(exc, emb))
 
 
 # ---------------------------------------------------------------------------
