@@ -7,10 +7,11 @@ Phases, each printed as one JSON line; any failure raises, so the run
 exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds the four kernels from ``kernels/csrc`` for sm_90a,
+2. build: nvcc builds the six kernels from ``kernels/csrc`` for sm_90a,
    the forward (``newt_fused_cr.cu``), the backward
    (``newt_fused_cr_bwd.cu``), the streaming forward
-   (``newt_fused_stream.cu``) and the FastNEWT lookup
+   (``newt_fused_stream.cu``), the audio-rate forward and backward
+   (``newt_fused_fl.cu``, ``newt_fused_fl_bwd.cu``) and the FastNEWT lookup
    (``fast_newt_lookup.cu``), in parallel;
 3. kernels: the forward kernel's wrapper on CUDA tensors against its plain
    PyTorch version on the same tensors (rtol=1e-4, atol=1e-5), and the
@@ -54,10 +55,12 @@ exits non-zero:
    with a cotangent that reads only the first half-hop and the last hop
    (the clamps), and on two made-up shapes (odd Tc=37, hop 64); two calls
    on the same inputs must give the same bits;
-7. train_card_vs_cpu: one step's loss and gradients from the same
-   weights, batch (1 x 2 s), phase offsets and noise, on the card (both
-   kernels) and on the CPU (plain): loss within 1e-4 relative, every
-   parameter's gradient nonzero on the card and within 1e-3 normalised;
+7. train_card_vs_cpu, train_fl_card_vs_cpu: one step's loss and gradients
+   from the same weights, batch (1 x 2 s), phase offsets and noise, on the
+   card (both cr kernels; then, with ``NEWT.fused = "full_lane"``, both
+   audio-rate kernels and no other) and on the CPU (plain): loss within
+   1e-4 relative, every parameter's gradient nonzero on the card and
+   within 1e-3 normalised, or by the float64-witness rule;
 8. train: ``Trainer(device="cuda").fit`` for 30 steps at batch 8 x 4 s
    from a seeded random init on a synthetic shard dataset written here
    (harmonic tones with their controls); finite losses, one launch of
@@ -90,14 +93,37 @@ exits non-zero:
    time with and without FastNEWT (and the host time of a whole call),
    the table's bake, the model's forward at batch 8 x 4 s with and
    without FastNEWT, and the lookup kernel and its plain version at
-   batch 8 x 4 s with its bound.
+   batch 8 x 4 s with its bound;
+14. train_cli: ``scripts/torch_train.py --gin-file gin/train/train_newt.gin
+   -b "NEWT.fused = 'full_lane'"`` for 20 steps (validation every 10) on
+   the tone dataset of phase 8, in this process: every step launches the
+   audio-rate forward and backward once (and each validation batch the
+   forward) and never the cr kernels; finite losses, ``metrics.csv`` with
+   the JAX columns, ``last.ckpt`` and ``best.ckpt``; then the checkpoint
+   served by ``Synthesizer`` with ``fused="full_lane"`` and ``"cr"`` (the
+   two renders within 1e-5 nRMS);
+15. kernel_fl: the audio-rate forward against its plain version (rtol
+   1e-4, atol 1e-5) on the inputs the path hands it (caught by wrapping
+   its launch): ``full_lane`` renders at batch 1 and 8 x 4 s, the CLI's
+   first step, the ``"full_lane_cr"`` fallback at Ta=130, Tc=4; then
+   made-up odd B*Ta and a ragged last block; and kernel 1 on the batch-8
+   render's control-rate FiLM against it (rtol 1e-5, atol 2e-6);
+16. kernel_fl_bwd: the audio-rate backward against autograd through the
+   plain version (rtol 1e-3, atol 1e-3 * max|plain|) on the CLI step's
+   inputs and made-up shapes; two calls bit-identical;
+17. timing_fl: medians of 20 after warm-up (CUDA events): both audio-rate
+   kernels and their plain versions with bounds, and in turns (cr,
+   full_lane, full_lane, cr) the training step, its peak memory and the
+   batch-8 x 4-s forward.
 
-Then the kernels line (the numbers of phases 3-13 per kernel, with its
+Then the kernels line (the numbers of phases 3-17 per kernel, with its
 least possible time on an H100 from its bytes and operations) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN (the GRU), so the card computes in float32 like the CPU reference.
 """
 import copy
+import csv
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -111,6 +137,7 @@ import torch
 
 from scipy.io import wavfile
 
+from neural_waveshaping_synthesis_tpu_torch import minigin as gin
 from neural_waveshaping_synthesis_tpu_torch.data import GeneralDataModule
 from neural_waveshaping_synthesis_tpu_torch.data.preprocess import (
     extract_f0_with_yin,
@@ -160,8 +187,18 @@ CR_BWD_FLOP_PER_ELEMENT = (
 # ... and in newt_fused_stream.cu: the cr count with the stream ramp,
 # 4 * (sub, mul, add) + one division = 13, in place of the lerp's 14.
 STREAM_FLOP_PER_ELEMENT = 13 + 3 + 288 + 450 + 2
+# ... and in newt_fused_fl.cu and newt_fused_fl_bwd.cu: the cr counts without
+# the lerp (14) and, in the backward, without its transpose (16): the FiLM
+# arrives at audio rate and its cotangents leave at audio rate.
+FL_FLOP_PER_ELEMENT = CR_FLOP_PER_ELEMENT - 14
+FL_BWD_FLOP_PER_ELEMENT = CR_BWD_FLOP_PER_ELEMENT - 14 - 16
 BWD_RTOL = 1e-3  # the JAX suite's gradient bar; atol = BWD_RTOL * max|plain| per output
 TRAIN_STEPS = 30
+CLI_STEPS = 20
+CLI_VAL_EVERY = 10
+# the JAX CSVLogger's columns (training/logging.py of the JAX package)
+JAX_CSV_COLUMNS = ["step", "time", "train/loss", "train/lr", "train/steps_per_sec",
+                   "val/loss", "test/loss", "grad_norm"]
 STREAM_K = 8  # control frames per streaming buffer: 1024 samples
 STREAM_BUFFERS = 64  # 4.1 s of controls per stream
 STREAM_BATCHES = (1, 256)  # one live stream; the concurrent streams of the JAX serving claim
@@ -169,7 +206,7 @@ CADENCE_PUSHES = 200
 # ... and in fast_newt_lookup.cu: sub, mul, div, floor, max, min, sub (the
 # fraction), and the lerp's sub, mul, add = 10; bytes: x in, out, the table once
 LOOKUP_FLOP_PER_ELEMENT = 10
-KERNELS = ["newt_fused_cr", "newt_fused_cr_bwd", "newt_fused_stream", "fast_newt_lookup"]
+KERNELS = list(_build.KERNELS)
 
 
 def emit(obj):
@@ -200,6 +237,12 @@ def host_median_ms(fn, n=N_TIMED, warmup=2):
         fn()  # ends in a device-to-host copy, which waits for the card
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def bound(flop, nbytes):
+    """-> (least ms on an H100 SXM for this work, "operations" or "bytes")."""
+    t_ops, t_bytes = flop / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def nrms(a, b):
@@ -514,8 +557,7 @@ def stream_phases(dev, synth, cpu_synth):
     n_el = b * ta * 64
     flop = n_el * STREAM_FLOP_PER_ELEMENT
     nbytes = 4 * (2 * n_el + timed_film.numel() + timed_prev.numel() + packed.numel())
-    bound_ms = max(nbytes / PEAK_BYTES_PER_S, flop / PEAK_F32_FLOP_PER_S) * 1e3
-    bound_by = "operations" if flop / PEAK_F32_FLOP_PER_S >= nbytes / PEAK_BYTES_PER_S else "bytes"
+    bound_ms, bound_by = bound(flop, nbytes)
     emit({"phase": "timing_kernel_stream", "B": b, "K": k, "hop": HOP, "kernel_ms": kernel_ms,
           "plain_ms": plain_ms, "flop": flop, "bytes": nbytes, "bound_ms": bound_ms,
           "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms})
@@ -533,139 +575,396 @@ def relnorm(a, b) -> float:
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def train_phases(dev):
+def grad_rule(card, cpu, exact):
+    """The card-vs-CPU gradient rule -> (rel per leaf, witness of the leaves
+    beyond 1e-3, leaves that fail, leaves with no gradient on the card). A
+    leaf beyond 1e-3 passes only if the card is no farther from the float64
+    gradient than the CPU's own float32 gradient is, plus 1e-3: the
+    log-magnitude L1 term of the loss divides by each bin's magnitude, so
+    float32 rounding alone moves some leaves that far
+    (scripts/torch_grad_bar.py measures the rule, PERF.md)."""
+    rel = {n: relnorm(card[n], cpu[n]) for n in cpu}
+    witness = {n: {"card_vs_cpu": r, "card_vs_f64": relnorm(card[n], exact[n]),
+                   "cpu_vs_f64": relnorm(cpu[n], exact[n])}
+               for n, r in rel.items() if r > 1e-3}
+    failed = [n for n, w in witness.items() if w["card_vs_f64"] > w["cpu_vs_f64"] + 1e-3]
+    zero = [n for n, g in card.items() if not torch.count_nonzero(g)]
+    return rel, witness, failed, zero
+
+
+def train_phases(dev, root, tmp):
     """Phases 6-9 (training) -> the backward kernel's numbers."""
-    with tempfile.TemporaryDirectory() as tmp:
-        root = write_tone_dataset(Path(tmp) / "data")
-        dm = GeneralDataModule(root, batch_size=8)
-        batch = dm.dataset("train").batch(np.arange(8))
+    dm = GeneralDataModule(root, batch_size=8)
+    batch = dm.dataset("train").batch(np.arange(8))
 
-        # 6. the backward kernel on the inputs a training step hands it
-        trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)),
-                          TrainConfig(), device="cuda")
-        exc, film_c, dy = train_step_kernel_inputs(trainer, batch)
-        newt = trainer.model.newt
-        weights = {"input_scale": newt.shaping_fn.input_scale.detach(),
-                   "layers": [{k: v.detach() for k, v in layer.items()}
-                              for layer in newt.shaping_fn.params()["layers"]]}
-        packed = nf.pack_weights(weights)
-        hop = exc.shape[1] // film_c.shape[1]
-        with torch.no_grad():
-            out = nf.film_shaper_cr(exc, film_c, weights, hop, packed=packed)
-        dy_clamp = torch.zeros_like(dy)
-        dy_clamp[:, : hop // 2] = 2 * out[:, : hop // 2]
-        dy_clamp[:, -hop:] = 2 * out[:, -hop:]
-        max_err = check_backward("train_step_b8_4s", exc, film_c, dy, weights, packed, hop)
-        max_err = max(max_err, check_backward("clamp", exc, film_c, dy_clamp, weights, packed, hop))
-        del out, dy_clamp
-        for label, b, tc, h in (("odd_tc", 1, 37, HOP), ("hop_64", 2, 500, 64)):
-            e, f = made_up_kernel_inputs(b, tc, h, 10 + tc, dev)
-            g = torch.randn(e.shape, generator=torch.Generator().manual_seed(tc)).to(dev)
-            max_err = max(max_err, check_backward(label, e, f, g, weights, packed, h))
-        torch.cuda.empty_cache()
+    # 6. the backward kernel on the inputs a training step hands it
+    trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)),
+                      TrainConfig(), device="cuda")
+    exc, film_c, dy = train_step_kernel_inputs(trainer, batch)
+    newt = trainer.model.newt
+    weights = {"input_scale": newt.shaping_fn.input_scale.detach(),
+               "layers": [{k: v.detach() for k, v in layer.items()}
+                          for layer in newt.shaping_fn.params()["layers"]]}
+    packed = nf.pack_weights(weights)
+    hop = exc.shape[1] // film_c.shape[1]
+    with torch.no_grad():
+        out = nf.film_shaper_cr(exc, film_c, weights, hop, packed=packed)
+    dy_clamp = torch.zeros_like(dy)
+    dy_clamp[:, : hop // 2] = 2 * out[:, : hop // 2]
+    dy_clamp[:, -hop:] = 2 * out[:, -hop:]
+    max_err = check_backward("train_step_b8_4s", exc, film_c, dy, weights, packed, hop)
+    max_err = max(max_err, check_backward("clamp", exc, film_c, dy_clamp, weights, packed, hop))
+    del out, dy_clamp
+    for label, b, tc, h in (("odd_tc", 1, 37, HOP), ("hop_64", 2, 500, 64)):
+        e, f = made_up_kernel_inputs(b, tc, h, 10 + tc, dev)
+        g = torch.randn(e.shape, generator=torch.Generator().manual_seed(tc)).to(dev)
+        max_err = max(max_err, check_backward(label, e, f, g, weights, packed, h))
+    torch.cuda.empty_cache()
 
-        # 7. one step on the card and on the CPU, same everything
-        clip = dm.dataset("train").batch(np.arange(1))
-        tc2 = min(2 * SR // HOP, clip["f0"].shape[1])  # 2 s of the clip
-        small = {k: torch.from_numpy(np.ascontiguousarray(clip[k][:, : tc2 * HOP if k == "audio" else tc2]))
-                 for k in ("audio", "f0", "control")}
-        rng = np.random.default_rng(11)
-        offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
-        noise = torch.from_numpy(rng.uniform(0, 1, tc2 * HOP - 1).astype(np.float32))
-        base = NeuralWaveshaping(generator=torch.Generator().manual_seed(1))
-        results = []
-        for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float32),
-                              (torch.device("cpu"), torch.float64)):
-            model = copy.deepcopy(base).to(device, dtype)
-            loss = compute_loss(model, {k: v.to(device, dtype) for k, v in small.items()},
-                                phase_offset=offset.to(device, dtype), noise=noise.to(device, dtype))
-            loss.backward()
-            results.append((float(loss.detach()), leaf_grads(model)))
-        (card_loss, card), (cpu_loss, cpu), (exact_loss, exact) = results
-        rel = {n: relnorm(card[n], cpu[n]) for n in cpu}
-        # a leaf beyond 1e-3 passes only if the card is no farther from the
-        # float64 gradient than the CPU's own float32 gradient is, plus
-        # 1e-3: the log-magnitude L1 term of the loss divides by each bin's
-        # magnitude, so float32 rounding alone moves some leaves that far
-        # (scripts/torch_grad_bar.py measures the rule, PERF.md)
-        witness = {n: {"card_vs_cpu": r, "card_vs_f64": relnorm(card[n], exact[n]),
-                       "cpu_vs_f64": relnorm(cpu[n], exact[n])}
-                   for n, r in rel.items() if r > 1e-3}
-        failed = [n for n, w in witness.items() if w["card_vs_f64"] > w["cpu_vs_f64"] + 1e-3]
-        zero = [n for n, g in card.items() if not torch.count_nonzero(g)]
+    # 7. one step on the card and on the CPU, same everything
+    clip = dm.dataset("train").batch(np.arange(1))
+    tc2 = min(2 * SR // HOP, clip["f0"].shape[1])  # 2 s of the clip
+    small = {k: torch.from_numpy(np.ascontiguousarray(clip[k][:, : tc2 * HOP if k == "audio" else tc2]))
+             for k in ("audio", "f0", "control")}
+    rng = np.random.default_rng(11)
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, tc2 * HOP - 1).astype(np.float32))
+    base = NeuralWaveshaping(generator=torch.Generator().manual_seed(1))
+    results = []
+    # on the CPU every NEWT.fused runs the plain chain, so one CPU float32
+    # step and one float64 witness serve both card steps ("cr" and the
+    # audio-rate "full_lane")
+    for device, dtype, fused in ((dev, torch.float32, "cr"), (dev, torch.float32, "full_lane"),
+                                 (torch.device("cpu"), torch.float32, "cr"),
+                                 (torch.device("cpu"), torch.float64, "cr")):
+        model = copy.deepcopy(base).to(device, dtype)
+        model.newt.fused = fused
+        reset_counts()
+        loss = compute_loss(model, {k: v.to(device, dtype) for k, v in small.items()},
+                            phase_offset=offset.to(device, dtype), noise=noise.to(device, dtype))
+        loss.backward()
+        results.append((float(loss.detach()), leaf_grads(model), counts()))
+    (cpu_loss, cpu, _), (exact_loss, exact, _) = results[2:]
+    for phase, (card_loss, card, got), expect in (
+            ("train_card_vs_cpu", results[0], {"cr": 1, "bwd": 1, "fl": 0, "fl_bwd": 0}),
+            ("train_fl_card_vs_cpu", results[1], {"cr": 0, "bwd": 0, "fl": 1, "fl_bwd": 1})):
+        rel, witness, failed, zero = grad_rule(card, cpu, exact)
         worst = max(rel, key=rel.get)
-        emit({"phase": "train_card_vs_cpu", "B": 1, "Tc": tc2, "loss_card": card_loss,
+        launched = {k: got[k] for k in expect}
+        emit({"phase": phase, "B": 1, "Tc": tc2, "loss_card": card_loss,
               "loss_cpu": cpu_loss, "loss_cpu_f64": exact_loss,
               "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss), "leaves": len(rel),
               "worst_leaf": worst, "worst_rel": rel[worst], "leaves_over_1e-3": witness,
-              "leaves_failed": failed, "zero_grad_leaves": zero})
+              "leaves_failed": failed, "zero_grad_leaves": zero, "launches": launched})
         if abs(card_loss - cpu_loss) > 1e-4 * abs(cpu_loss) or zero or failed:
-            raise RuntimeError("one training step on the card differs from the CPU")
+            raise RuntimeError(f"{phase}: one training step on the card differs from the CPU")
+        if launched != expect:
+            raise RuntimeError(f"{phase}: launches {launched}, expected {expect}")
 
-        # 8. train through the entry point a user calls, then serve the result
-        cfg = TrainConfig(max_steps=TRAIN_STEPS, val_every_n_steps=TRAIN_STEPS,
-                          log_every_n_steps=10, checkpoint_dir=str(Path(tmp) / "ckpt"))
-        fit_trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)),
-                              cfg, device="cuda")
-        before = [p.detach().clone() for p in fit_trainer.model.parameters()]
-        nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
-        t0 = time.perf_counter()
-        history = fit_trainer.fit(dm)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        fwd, bwd = nf.film_shaper_cr.launches, nf.film_shaper_cr.bwd_launches
-        val_batches = len(list(dm.val_batches())) * len(history["val"])
-        moved = sum(not torch.equal(a, p) for a, p in zip(before, fit_trainer.model.parameters()))
-        emit({"phase": "train", "steps": len(history["loss"]), "B": dm.batch_size,
-              "clip_s": batch["audio"].shape[1] / SR,
-              "fit_s": fit_s, "loss": history["loss"], "grad_norm": history["grad_norm"],
-              "val": history["val"], "fwd_launches": fwd, "bwd_launches": bwd,
-              "val_batches": val_batches,
-              "params_moved": moved, "params": len(before)})
-        if not np.all(np.isfinite(history["loss"])) or len(history["loss"]) != TRAIN_STEPS:
-            raise RuntimeError("training losses are not finite")
-        if bwd != TRAIN_STEPS or fwd != TRAIN_STEPS + val_batches:
-            raise RuntimeError(f"launches: forward {fwd}, backward {bwd}, for {TRAIN_STEPS} steps")
-        if moved != len(before):
-            raise RuntimeError(f"training moved {moved} of {len(before)} parameters")
-        served = Synthesizer.from_checkpoint(str(Path(tmp) / "ckpt" / "best.ckpt"), device="cuda")
-        f0 = np.geomspace(220.0, 440.0, 4 * SR // HOP).astype(np.float32)
-        loud = np.full_like(f0, -15.0)  # dB, the unit of the tone dataset's loudness
-        audio = served.render([(f0, loud)], seed=0)[0]
-        rms = float(np.sqrt(np.mean(audio**2)))
-        emit({"phase": "serve_trained", "samples": int(audio.shape[0]), "rms": rms})
-        if audio.shape != (f0.shape[0] * HOP,) or not np.all(np.isfinite(audio)) or rms < 1e-4:
-            raise RuntimeError("the trained checkpoint renders bad audio")
+    # 8. train through the entry point a user calls, then serve the result
+    cfg = TrainConfig(max_steps=TRAIN_STEPS, val_every_n_steps=TRAIN_STEPS,
+                      log_every_n_steps=10, checkpoint_dir=str(tmp / "ckpt"))
+    fit_trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)),
+                          cfg, device="cuda")
+    before = [p.detach().clone() for p in fit_trainer.model.parameters()]
+    nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
+    t0 = time.perf_counter()
+    history = fit_trainer.fit(dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fwd, bwd = nf.film_shaper_cr.launches, nf.film_shaper_cr.bwd_launches
+    val_batches = len(list(dm.val_batches())) * len(history["val"])
+    moved = sum(not torch.equal(a, p) for a, p in zip(before, fit_trainer.model.parameters()))
+    emit({"phase": "train", "steps": len(history["loss"]), "B": dm.batch_size,
+          "clip_s": batch["audio"].shape[1] / SR,
+          "fit_s": fit_s, "loss": history["loss"], "grad_norm": history["grad_norm"],
+          "val": history["val"], "fwd_launches": fwd, "bwd_launches": bwd,
+          "val_batches": val_batches,
+          "params_moved": moved, "params": len(before)})
+    if not np.all(np.isfinite(history["loss"])) or len(history["loss"]) != TRAIN_STEPS:
+        raise RuntimeError("training losses are not finite")
+    if bwd != TRAIN_STEPS or fwd != TRAIN_STEPS + val_batches:
+        raise RuntimeError(f"launches: forward {fwd}, backward {bwd}, for {TRAIN_STEPS} steps")
+    if moved != len(before):
+        raise RuntimeError(f"training moved {moved} of {len(before)} parameters")
+    served = Synthesizer.from_checkpoint(str(tmp / "ckpt" / "best.ckpt"), device="cuda")
+    f0 = np.geomspace(220.0, 440.0, 4 * SR // HOP).astype(np.float32)
+    loud = np.full_like(f0, -15.0)  # dB, the unit of the tone dataset's loudness
+    audio = served.render([(f0, loud)], seed=0)[0]
+    rms = float(np.sqrt(np.mean(audio**2)))
+    emit({"phase": "serve_trained", "samples": int(audio.shape[0]), "rms": rms})
+    if audio.shape != (f0.shape[0] * HOP,) or not np.all(np.isfinite(audio)) or rms < 1e-4:
+        raise RuntimeError("the trained checkpoint renders bad audio")
 
-        # 9. timing: the whole step, the backward kernel and its plain version
-        step_ms = cuda_median_ms(lambda: trainer.train_step(batch))
-        torch.cuda.reset_peak_memory_stats()
-        trainer.train_step(batch)
-        peak = torch.cuda.max_memory_allocated()
-        bwd_ms = cuda_median_ms(lambda: nf._launch_backward(exc, film_c, packed, dy, hop))
-        plain_ms = cuda_median_ms(lambda: nf.film_shaper_cr_grad_plain(exc, film_c, weights, hop, dy))
-        b, ta, _ = exc.shape
-        n_el = b * ta * 64
-        flop = n_el * CR_BWD_FLOP_PER_ELEMENT
-        nbytes = 4 * (3 * n_el + 2 * film_c.numel() + 2 * packed.numel())
-        bound_ms = max(nbytes / PEAK_BYTES_PER_S, flop / PEAK_F32_FLOP_PER_S) * 1e3
-        bound_by = "operations" if flop / PEAK_F32_FLOP_PER_S >= nbytes / PEAK_BYTES_PER_S else "bytes"
-        audio_s = b * ta / SR
-        emit({"phase": "timing_train", "B": b, "Tc": film_c.shape[1], "hop": hop,
-              "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
-              "x_realtime": audio_s / (step_ms / 1e3), "peak_mem_bytes": peak,
-              "bwd_kernel_ms": bwd_ms, "bwd_plain_ms": plain_ms, "flop": flop, "bytes": nbytes,
-              "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / bwd_ms})
+    # 9. timing: the whole step, the backward kernel and its plain version
+    step_ms = cuda_median_ms(lambda: trainer.train_step(batch))
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(batch)
+    peak = torch.cuda.max_memory_allocated()
+    bwd_ms = cuda_median_ms(lambda: nf._launch_backward(exc, film_c, packed, dy, hop))
+    plain_ms = cuda_median_ms(lambda: nf.film_shaper_cr_grad_plain(exc, film_c, weights, hop, dy))
+    b, ta, _ = exc.shape
+    n_el = b * ta * 64
+    flop = n_el * CR_BWD_FLOP_PER_ELEMENT
+    nbytes = 4 * (3 * n_el + 2 * film_c.numel() + 2 * packed.numel())
+    bound_ms, bound_by = bound(flop, nbytes)
+    audio_s = b * ta / SR
+    emit({"phase": "timing_train", "B": b, "Tc": film_c.shape[1], "hop": hop,
+          "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+          "x_realtime": audio_s / (step_ms / 1e3), "peak_mem_bytes": peak,
+          "bwd_kernel_ms": bwd_ms, "bwd_plain_ms": plain_ms, "flop": flop, "bytes": nbytes,
+          "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / bwd_ms})
     return {"fwd_launches": fwd, "bwd_launches": bwd, "max_abs_err": max_err, "ms": bwd_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
+def caught_launches(name, fn, first=None):
+    """Run ``fn`` with a hook on ``nf.<name>`` (a launch function of the
+    audio-rate kernels) -> the tensors of each launch (of the first
+    ``first`` launches), cloned: what the path hands the kernel."""
+    got, launch = [], getattr(nf, name)
+
+    def catch(*args):
+        if first is None or len(got) < first:
+            got.append(tuple(a.detach().clone() for a in args))
+        return launch(*args)
+
+    setattr(nf, name, catch)
+    try:
+        fn()
+    finally:
+        setattr(nf, name, launch)
+    return got
+
+
+def check_fl(label, exc, film_a, packed):
+    """Audio-rate forward kernel vs its plain version -> max abs error."""
+    weights = nf.unpack_weight_grads(packed)
+    with torch.inference_mode():
+        out = nf._launch_forward_fl(exc, film_a, packed)
+        ref = nf.film_shaper_fl_plain(exc, film_a, weights)
+    torch.cuda.synchronize()
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    err = float(np.max(np.abs(out - ref)))
+    emit({"phase": "kernel_fl", "name": "film_shaper_fused_fl", "case": label, "B": exc.shape[0],
+          "Ta": exc.shape[1], "max_abs_err": err, "rtol": RTOL, "atol": ATOL})
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL, err_msg=label)
+    return err
+
+
+def check_fl_backward(label, exc, film_a, packed, dy):
+    """Audio-rate backward kernel vs autograd through the plain version, and
+    two calls bit-identical -> max abs error."""
+    out = nf._launch_backward_fl(exc, film_a, packed, dy)
+    again = nf._launch_backward_fl(exc, film_a, packed, dy)
+    ref = nf.film_shaper_fl_grad_plain(exc, film_a, nf.unpack_weight_grads(packed), dy)
+    torch.cuda.synchronize()
+    bit_identical = all(torch.equal(a, b) for a, b in zip(out, again))
+    errs = {}
+    for name, o, r in zip(("d_exciter", "d_film", "d_planes"), out, ref):
+        o, r = o.cpu().numpy(), r.cpu().numpy()
+        errs[name] = (float(np.max(np.abs(o - r))), float(np.max(np.abs(r))))
+        np.testing.assert_allclose(o, r, rtol=BWD_RTOL, atol=BWD_RTOL * errs[name][1],
+                                   err_msg=f"{label} {name}")
+    emit({"phase": "kernel_fl_bwd", "name": "_fused_bwd_fl", "case": label, "B": exc.shape[0],
+          "Ta": exc.shape[1], "max_abs_err": {k: v[0] for k, v in errs.items()},
+          "max_abs_plain": {k: v[1] for k, v in errs.items()}, "rtol": BWD_RTOL,
+          "bit_identical_repeat": bit_identical})
+    if not bit_identical:
+        raise RuntimeError(f"{label}: two audio-rate backward calls gave different bits")
+    return max(v[0] for v in errs.values())
+
+
+def load_train_cli():
+    spec = importlib.util.spec_from_file_location("torch_train", REPO / "scripts" / "torch_train.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def render_with(synth, requests, fused):
+    """``synth.render`` with ``NEWT.fused`` set to ``fused`` for the call ->
+    (audio, the launch counts of that render alone)."""
+    synth.model.newt.fused = fused
+    reset_counts()
+    try:
+        audio = synth.render(requests, seed=0)
+    finally:
+        synth.model.newt.fused = "cr"
+    return audio, counts()
+
+
+def audio_rate_phases(dev, synth, root, tmp):
+    """Phases 14-17 (the audio-rate kernels, NEWT.fused = "full_lane") -> the
+    two kernels' numbers."""
+    # 14. train through the CLI a user calls, catching the first step's
+    # kernel inputs; the counts are zeroed just before and read just after
+    cli = load_train_cli()
+    args = ["--gin-file", "gin/train/train_newt.gin", "--dataset-path", root, "--device", "cuda",
+            "--checkpoint-dir", str(tmp / "cli_ckpt"), "--log-dir", str(tmp / "cli_logs"),
+            "-b", "NEWT.fused = 'full_lane'", "-b", f"TrainConfig.max_steps = {CLI_STEPS}",
+            "-b", f"TrainConfig.val_every_n_steps = {CLI_VAL_EVERY}",
+            "-b", "TrainConfig.log_every_n_steps = 5"]
+    step_fwd, step_bwd = [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        step_bwd.extend(caught_launches("_launch_backward_fl", lambda: step_fwd.extend(
+            caught_launches("_launch_forward_fl", lambda: cli.main(args), first=1)), first=1))
+        torch.cuda.synchronize()
+    finally:
+        gin.clear_config()
+    cli_s = time.perf_counter() - t0
+    got = counts()
+    with open(tmp / "cli_logs" / "metrics.csv") as f:
+        reader = csv.DictReader(f)
+        table = list(reader)
+    losses = [float(r["train/loss"]) for r in table if r["train/loss"]]
+    val = [float(r["val/loss"]) for r in table if r["val/loss"]]
+    val_batches = len(list(GeneralDataModule(root, batch_size=8).val_batches()))
+    expect = {"fl": CLI_STEPS + val_batches * (CLI_STEPS // CLI_VAL_EVERY), "fl_bwd": CLI_STEPS,
+              "cr": 0, "bwd": 0}
+    ckpts = sorted(p.name for p in (tmp / "cli_ckpt").glob("*.ckpt"))
+    emit({"phase": "train_cli", "steps": CLI_STEPS, "seconds": cli_s, "launches": got,
+          "expected_launches": expect, "train_loss_windows": losses, "val_loss": val,
+          "csv_columns": reader.fieldnames, "checkpoints": ckpts})
+    if any(got[k] != v for k, v in expect.items()):
+        raise RuntimeError(f"train_cli launches {got}, expected {expect}")
+    if reader.fieldnames != JAX_CSV_COLUMNS or not losses or not val:
+        raise RuntimeError(f"metrics.csv columns {reader.fieldnames}, {len(losses)} train rows")
+    if not np.all(np.isfinite(losses + val)):
+        raise RuntimeError("the CLI's losses are not finite")
+    if ckpts != ["best.ckpt", "last.ckpt"]:
+        raise RuntimeError(f"the CLI wrote {ckpts}")
+    launches = {"fl": got["fl"], "fl_bwd": got["fl_bwd"]}
+
+    # ... and serve its checkpoint with the audio-rate kernel and with "cr"
+    served = Synthesizer.from_checkpoint(str(tmp / "cli_ckpt" / "best.ckpt"), device="cuda")
+    request = make_requests([4], seed=9)
+    (fl_audio,), fl_got = render_with(served, request, "full_lane")
+    (cr_audio,), cr_got = render_with(served, request, "cr")
+    launches["fl"] += fl_got["fl"]
+    fl_vs_cr = nrms(fl_audio, cr_audio)
+    emit({"phase": "serve_cli_checkpoint", "samples": int(fl_audio.shape[0]), "nrms_fl_vs_cr": fl_vs_cr,
+          "bar": 1e-5, "launches_full_lane": fl_got, "launches_cr": cr_got,
+          "rms": float(np.sqrt(np.mean(fl_audio**2)))})
+    if not np.all(np.isfinite(fl_audio)) or not fl_vs_cr <= 1e-5:
+        raise RuntimeError(f"the CLI checkpoint renders differ: nRMS {fl_vs_cr}")
+    if (fl_got["fl"], fl_got["cr"], cr_got["fl"], cr_got["cr"]) != (1, 0, 0, 1):
+        raise RuntimeError(f"serve launches: full_lane {fl_got}, cr {cr_got}")
+
+    # 15. the forward kernel on the inputs the path hands it: full_lane
+    # renders at batch 1 and 8 x 4 s, the CLI's first step, the
+    # "full_lane_cr" fallback at a non-integer hop; then made-up shapes
+    newt = synth.model.newt
+    renders = {}
+    for label, requests in (("render_b1_4s", make_requests([4], 5)), ("render_b8_4s", make_requests([4] * 8, 6))):
+        film_c = {}
+        hook = newt.mlp.register_forward_hook(lambda m, a, out: film_c.__setitem__("c", out.clone()))
+        try:
+            renders[label] = caught_launches(
+                "_launch_forward_fl", lambda: render_with(synth, requests, "full_lane"))[0] + (film_c["c"],)
+        finally:
+            hook.remove()
+    rng = np.random.default_rng(12)
+    emb = torch.from_numpy(rng.standard_normal((1, 4, 128)).astype(np.float32)).to(dev)
+    exc130 = torch.from_numpy((rng.standard_normal((1, 130, 64)) * 0.5).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        fallback = caught_launches("_launch_forward_fl", lambda: newt(exc130, emb, fused="full_lane_cr"))
+    with torch.no_grad():
+        packed = newt._packed_shaper()
+    cases = [(label, *renders[label][:3]) for label in renders]
+    cases += [("cli_train_step", *step_fwd[0]), ("full_lane_cr_fallback_130_4", *fallback[0])]
+    for label, b, ta in (("odd_rows", 3, 333), ("ragged_block", 2, 1025)):
+        e = torch.from_numpy((rng.standard_normal((b, ta, 64)) * 0.5).astype(np.float32)).to(dev)
+        f = torch.from_numpy(rng.standard_normal((b, ta, 256)).astype(np.float32)).to(dev)
+        cases.append((label, e, f, packed))
+    max_err = max(check_fl(label, e, f, w) for label, e, f, w in cases)
+    # kernel 1 on the control-rate FiLM vs the audio-rate kernel on its upsample (JAX
+    # test_cr_forward_matches_fl_kernel's bar)
+    exc, film_a, w, film_c = renders["render_b8_4s"]
+    hop = exc.shape[1] // film_c.shape[1]
+    with torch.inference_mode():
+        fl_out = nf._launch_forward_fl(exc, film_a, w)
+        cr_out = nf._launch_forward(exc, film_c, w, hop)
+    torch.cuda.synchronize()
+    cr_vs_fl = float((fl_out - cr_out).abs().max())
+    emit({"phase": "kernel_fl_vs_cr", "case": "render_b8_4s", "max_abs_diff": cr_vs_fl,
+          "rtol": 1e-5, "atol": 2e-6, "bit_identical": bool(torch.equal(fl_out, cr_out))})
+    np.testing.assert_allclose(fl_out.cpu().numpy(), cr_out.cpu().numpy(), rtol=1e-5, atol=2e-6)
+    del fl_out, cr_out, cases
+
+    # 16. the backward kernel on the CLI step's inputs and made-up shapes
+    bwd_cases = [("cli_train_step", *step_bwd[0])]
+    for label, b, ta in (("odd_rows", 3, 333), ("ragged_block", 2, 1025), ("full_lane_cr_fallback", 1, 130)):
+        e = torch.from_numpy((rng.standard_normal((b, ta, 64)) * 0.5).astype(np.float32)).to(dev)
+        f = torch.from_numpy(rng.standard_normal((b, ta, 256)).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal((b, ta, 64)).astype(np.float32)).to(dev)
+        bwd_cases.append((label, e, f, packed, g))
+    bwd_err = max(check_fl_backward(*case) for case in bwd_cases)
+    del bwd_cases[1:]
+    torch.cuda.empty_cache()
+
+    # 17. timing: both kernels and their plain versions on the main path's
+    # batch-8 inputs; the step and the batch-8 forward at full_lane vs cr
+    with torch.inference_mode():
+        fwd_ms = cuda_median_ms(lambda: nf._launch_forward_fl(exc, film_a, w))
+        fwd_plain_ms = cuda_median_ms(lambda: nf.film_shaper_fl_plain(exc, film_a, nf.unpack_weight_grads(w)))
+    n_el = exc.numel()
+    fwd_flop, fwd_bytes = n_el * FL_FLOP_PER_ELEMENT, 4 * (2 * n_el + film_a.numel() + w.numel())
+    fwd_bound_ms, fwd_bound_by = bound(fwd_flop, fwd_bytes)
+    _, b_exc, b_film, b_w, b_dy = bwd_cases[0]
+    bwd_ms = cuda_median_ms(lambda: nf._launch_backward_fl(b_exc, b_film, b_w, b_dy))
+    bwd_plain_ms = cuda_median_ms(
+        lambda: nf.film_shaper_fl_grad_plain(b_exc, b_film, nf.unpack_weight_grads(b_w), b_dy))
+    b_el = b_exc.numel()
+    bwd_flop, bwd_bytes = b_el * FL_BWD_FLOP_PER_ELEMENT, 4 * (3 * b_el + 2 * b_film.numel() + 2 * b_w.numel())
+    bwd_bound_ms, bwd_bound_by = bound(bwd_flop, bwd_bytes)
+    del renders, exc, film_a, b_exc, b_film, b_dy, bwd_cases
+    torch.cuda.empty_cache()
+
+    dm = GeneralDataModule(root, batch_size=8)
+    batch = dm.dataset("train").batch(np.arange(8))
+    trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)),
+                      TrainConfig(), device="cuda")
+    f0_b, ctrl_b, _ = synth.prepare(make_requests([4] * 8, 6))
+    f0_t, ctrl_t = torch.from_numpy(f0_b).to(dev), torch.from_numpy(ctrl_b).to(dev)
+    step, peak, fwd8 = {}, {}, {}
+    for fused in ("cr", "full_lane", "full_lane", "cr"):  # in turns
+        trainer.model.newt.fused = synth.model.newt.fused = fused
+        step.setdefault(fused, []).append(cuda_median_ms(lambda: trainer.train_step(batch)))
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step(batch)
+        peak[fused] = torch.cuda.max_memory_allocated()
+        gen = torch.Generator().manual_seed(0)
+        with torch.inference_mode():
+            fwd8.setdefault(fused, []).append(cuda_median_ms(lambda: synth.model(f0_t, ctrl_t, generator=gen)))
+    synth.model.newt.fused = "cr"
+    emit({"phase": "timing_fl", "fwd_shape": [8, f0_b.shape[1] * HOP, 64],
+          "fwd_kernel_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "fwd_flop": fwd_flop,
+          "fwd_bytes": fwd_bytes, "fwd_bound_ms": fwd_bound_ms, "fwd_bound_by": fwd_bound_by,
+          "fwd_share_of_bound": fwd_bound_ms / fwd_ms,
+          "bwd_shape": list(step_bwd[0][0].shape), "bwd_kernel_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+          "bwd_flop": bwd_flop, "bwd_bytes": bwd_bytes, "bwd_bound_ms": bwd_bound_ms,
+          "bwd_bound_by": bwd_bound_by, "bwd_share_of_bound": bwd_bound_ms / bwd_ms,
+          "step_ms": step, "step_peak_mem_bytes": peak, "forward_b8_4s_ms": fwd8,
+          "order": ["cr", "full_lane", "full_lane", "cr"]})
+    del trainer, step_fwd, step_bwd
+    torch.cuda.empty_cache()
+    return {"fwd_launches": launches["fl"], "bwd_launches": launches["fl_bwd"],
+            "fwd_max_abs_err": max_err, "bwd_max_abs_err": bwd_err,
+            "fwd": (fwd_ms, fwd_plain_ms, fwd_bound_ms, fwd_bound_by),
+            "bwd": (bwd_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by)}
+
+
 def reset_counts():
     nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
+    nf.film_shaper_fl.launches = nf.film_shaper_fl.bwd_launches = 0
     nf.film_shaper_stream.launches = fast_newt.fast_newt_lookup.launches = 0
 
 
 def counts():
     return {"cr": nf.film_shaper_cr.launches, "bwd": nf.film_shaper_cr.bwd_launches,
+            "fl": nf.film_shaper_fl.launches, "fl_bwd": nf.film_shaper_fl.bwd_launches,
             "stream": nf.film_shaper_stream.launches, "lookup": fast_newt.fast_newt_lookup.launches}
 
 
@@ -839,8 +1138,7 @@ def timbre_phases(dev, synth, cpu_synth):
     n_el = timed_x.numel()
     flop = n_el * LOOKUP_FLOP_PER_ELEMENT
     nbytes = 4 * (2 * n_el + timed_table.numel())
-    bound_ms = max(nbytes / PEAK_BYTES_PER_S, flop / PEAK_F32_FLOP_PER_S) * 1e3
-    bound_by = "operations" if flop / PEAK_F32_FLOP_PER_S >= nbytes / PEAK_BYTES_PER_S else "bytes"
+    bound_ms, bound_by = bound(flop, nbytes)
     emit({"phase": "timing_timbre", "audio_s": 4.0, "input_rate": 44100, **stages,
           "timbre_transfer_x_realtime": speeds["offline"],
           "timbre_transfer_fast_newt_x_realtime": speeds["fast_newt"],
@@ -977,8 +1275,7 @@ def main() -> int:
     n_el = b * ta * 64
     flop = n_el * CR_FLOP_PER_ELEMENT
     nbytes = 4 * (2 * n_el + timed_film.numel() + packed.numel())
-    bound_ms = max(nbytes / PEAK_BYTES_PER_S, flop / PEAK_F32_FLOP_PER_S) * 1e3
-    bound_by = "operations" if flop / PEAK_F32_FLOP_PER_S >= nbytes / PEAK_BYTES_PER_S else "bytes"
+    bound_ms, bound_by = bound(flop, nbytes)
     emit({"phase": "timing_kernel", "B": b, "Tc": tc, "hop": hop, "kernel_ms": kernel_ms,
           "plain_ms": plain_ms, "flop": flop, "bytes": nbytes, "bound_ms": bound_ms,
           "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms})
@@ -999,7 +1296,11 @@ def main() -> int:
 
     stream = stream_phases(dev, synth, cpu_synth)
     timbre = timbre_phases(dev, synth, cpu_synth)
-    train = train_phases(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = write_tone_dataset(tmp / "data")
+        train = train_phases(dev, root, tmp)
+        fl = audio_rate_phases(dev, synth, root, tmp)
 
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
@@ -1029,6 +1330,20 @@ def main() -> int:
         "launches": timbre["launches"], "max_abs_err": timbre["max_abs_err"],
         "ms": timbre["ms"], "plain_ms": timbre["plain_ms"], "bound_ms": timbre["bound_ms"],
         "bound_by": timbre["bound_by"], "library_ms": None,
+    }, {
+        "name": "film_shaper_fused_fl", "route": "cuda",
+        "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_fl.cu",
+        "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:488 and :417",
+        "launches": fl["fwd_launches"], "max_abs_err": fl["fwd_max_abs_err"],
+        "ms": fl["fwd"][0], "plain_ms": fl["fwd"][1], "bound_ms": fl["fwd"][2],
+        "bound_by": fl["fwd"][3], "library_ms": None,
+    }, {
+        "name": "_fused_bwd_fl", "route": "cuda",
+        "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_fl_bwd.cu",
+        "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:527 and :450",
+        "launches": fl["bwd_launches"], "max_abs_err": fl["bwd_max_abs_err"],
+        "ms": fl["bwd"][0], "plain_ms": fl["bwd"][1], "bound_ms": fl["bwd"][2],
+        "bound_by": fl["bwd"][3], "library_ms": None,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

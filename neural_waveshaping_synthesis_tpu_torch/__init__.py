@@ -17,8 +17,11 @@ Entry points run on ``device="cuda"`` unless the caller asks for
   :class:`models.neural_waveshaping.NeuralWaveshaping`;
 * training: :class:`training.trainer.Trainer` fits the model on a
   :class:`data.general.GeneralDataModule` (the reference's ``.npy``
-  shards) with the multi-resolution STFT loss, clip + Adam + StepLR, and
-  writes reference-format checkpoints that ``Synthesizer`` serves;
+  shards) with the multi-resolution STFT loss, clip + Adam + StepLR, logs
+  the JAX trainer's metrics (:mod:`training.logging`), and writes
+  reference-format checkpoints that ``Synthesizer`` serves;
+  ``scripts/torch_train.py`` drives it from the repo's gin files through
+  the port's copy of :mod:`minigin`;
 * streaming: :class:`streaming.StreamingSynth` renders buffer by buffer
   with carried state, and :class:`streaming.PipelinedStreamer` keeps
   several buffers in flight;
@@ -27,8 +30,10 @@ Entry points run on ``device="cuda"`` unless the caller asks for
   instrument, extracting f0 (YIN) and loudness with :mod:`data.preprocess`.
 
 On the card the model's FiLM -> shaper -> FiLM block runs the
-hand-written CUDA kernels of :mod:`kernels.newt_fused`: the forward, in
-training its backward, and in a stream the streaming forward. FastNEWT's
+hand-written CUDA kernels of :mod:`kernels.newt_fused`: the control-rate
+forward and, in training, its backward (``NEWT.fused = "cr"``, the
+default); with ``"full_lane"``/``"fl"``/``True`` the audio-rate forward and
+backward; in a stream the streaming forward. FastNEWT's
 table lookup runs the CUDA kernel of :mod:`kernels.fast_newt`.
 """
 from .device import resolve_device

@@ -23,6 +23,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from .. import minigin as gin
+
 
 class GeneralDataset:
     """One split of (audio, control) pairs, stacked in memory."""
@@ -74,6 +76,7 @@ class GeneralDataset:
         return {"audio": audio, "f0": self.denormalize(control)[:, :, 0], "control": control}
 
 
+@gin.configurable
 class GeneralDataModule:
     """Batch streams for train and val (reference ``data/general.py``).
 

@@ -23,6 +23,15 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# every kernel source of the port: csrc/<name>.cu
+KERNELS = (
+    "newt_fused_cr",
+    "newt_fused_cr_bwd",
+    "newt_fused_stream",
+    "newt_fused_fl",
+    "newt_fused_fl_bwd",
+    "fast_newt_lookup",
+)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,7 +54,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """The library's path, named by a hash of its source, every header in
-    ``csrc/`` (``newt_shaper.cuh`` is shared) and the flags."""
+    ``csrc/`` (``newt_shaper.cuh`` and ``newt_shaper_bwd.cuh`` are shared)
+    and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -57,10 +67,10 @@ def build_log(name: str) -> str:
     return library_path(name).with_suffix(".log").read_text()
 
 
-def build(names: Sequence[str]) -> None:
-    """Compile every ``csrc/<name>.cu`` that is not built yet, one nvcc
-    process per source, all started together; raises with the compiler's
-    output if any fails."""
+def build(names: Sequence[str] = KERNELS) -> None:
+    """Compile every ``csrc/<name>.cu`` that is not built yet (all of
+    :data:`KERNELS` by default), one nvcc process per source, all started
+    together; raises with the compiler's output if any fails."""
     jobs = []
     for name in names:
         target = library_path(name)

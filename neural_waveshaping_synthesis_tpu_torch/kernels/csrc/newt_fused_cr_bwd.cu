@@ -36,7 +36,9 @@
 //    segment's FiLM frames {m-1, m, m+1} (clamped) are read once into
 //    registers and its FiLM cotangents are summed in registers, indexed by
 //    the clamped frame (slot 0, 1, 2 = frame m-1, m, m+1), with no
-//    reduction across threads.
+//    reduction across threads. The per-sample recompute and chain rule
+//    are newt_shaper_bwd.cuh, shared with the audio-rate backward
+//    newt_fused_fl_bwd.cu.
 //  * Weight-gradient sums: each thread has an exclusive (170,) slot in
 //    shared memory, (4, 170, 64) f32 = 174 KB beside the 43.5 KB of weight
 //    planes (dynamic shared memory, one block per SM). A warp's slot
@@ -57,69 +59,17 @@
 // gradient's lerp weights are the same w and 1-w.
 #include <cuda_runtime.h>
 
+#include "newt_shaper_bwd.cuh"
+
 namespace {
 
-constexpr int kC = 64;
-constexpr int kW = 8;
+using newt::kC;
+using newt::kPlane;
+
 constexpr int kRowsPerBlock = 4;
 constexpr int kThreads = kRowsPerBlock * kC;
-
-constexpr int kScale = 0;
-constexpr int kW1 = 1;
-constexpr int kB1 = kW1 + kW;
-constexpr int kW2 = kB1 + kW;
-constexpr int kB2 = kW2 + kW * kW;
-constexpr int kW3 = kB2 + kW;
-constexpr int kB3 = kW3 + kW * kW;
-constexpr int kW4 = kB3 + kW;
-constexpr int kB4 = kW4 + kW;
-constexpr int kRows = kB4 + 1;  // 170
-constexpr int kPlane = kRows * kC;
 // weight planes + one weight-gradient slot per thread
 constexpr size_t kSmemBytes = static_cast<size_t>(1 + kRowsPerBlock) * kPlane * sizeof(float);
-
-// float32 roundings of 2*pi, 1/(2*pi) and the fits' coefficients
-// (ops/fastmath.py _SIN_ODD_COEFFS, _COS_EVEN_COEFFS), written exactly.
-constexpr float kTau = 0x1.921fb6p+2f;
-constexpr float kInvTau = 0x1.45f306p-3f;
-constexpr float kS0 = 0x1.000000p+0f;
-constexpr float kS1 = -0x1.555552p-3f;
-constexpr float kS2 = 0x1.1110e0p-7f;
-constexpr float kS3 = -0x1.a01402p-13f;
-constexpr float kS4 = 0x1.717e48p-19f;
-constexpr float kS5 = -0x1.a7f056p-26f;
-constexpr float kS6 = 0x1.27c49ep-33f;
-constexpr float kK0 = 0x1.000000p+0f;
-constexpr float kK1 = -0x1.000000p-1f;
-constexpr float kK2 = 0x1.555554p-5f;
-constexpr float kK3 = -0x1.6c1696p-10f;
-constexpr float kK4 = 0x1.a01592p-16f;
-constexpr float kK5 = -0x1.27a71cp-22f;
-constexpr float kK6 = 0x1.1b2c92p-29f;
-constexpr float kK7 = -0x1.5614d2p-37f;
-
-// sine and cosine of one argument, sharing the range reduction
-__device__ __forceinline__ void psincos(float x, float* sn, float* cs) {
-  const float r = x - kTau * rintf(x * kInvTau);
-  const float s = r * r;
-  float p = kS6;
-  p = p * s + kS5;
-  p = p * s + kS4;
-  p = p * s + kS3;
-  p = p * s + kS2;
-  p = p * s + kS1;
-  p = p * s + kS0;
-  *sn = r * p;
-  float q = kK7;
-  q = q * s + kK6;
-  q = q * s + kK5;
-  q = q * s + kK4;
-  q = q * s + kK3;
-  q = q * s + kK2;
-  q = q * s + kK1;
-  q = q * s + kK0;
-  *cs = q;
-}
 
 __device__ __forceinline__ float lerp_exact(float left, float right, float w,
                                             float one_minus_w) {
@@ -145,7 +95,6 @@ film_shaper_cr_bwd_kernel(const float* __restrict__ exciter,
   const int c = threadIdx.x % kC;
   const int r = threadIdx.x / kC;
   float* my = acc + r * kPlane + c;  // my[k * kC]: plane row k of my slot
-  const float scale = sw[kScale * kC + c];
   const float den = static_cast<float>(2 * hop);
 
   for (int seg = blockIdx.x * kRowsPerBlock + r; seg < n_seg;
@@ -180,81 +129,13 @@ film_shaper_cr_bwd_kernel(const float* __restrict__ exciter,
         film_a[a] = lerp_exact(lo ? f_prev[a] : f_mid[a], lo ? f_mid[a] : f_next[a], w, omw);
       const float g_in = film_a[0], b_in = film_a[1], g_out = film_a[2];
 
-      // forward recompute, keeping activations and sine derivatives
+      // forward recompute and chain rule (JAX _bwd_core), newt_shaper_bwd.cuh
       const long long e = (static_cast<long long>(seg) * hop + o) * kC + c;
       const float xin = exciter[e];
       const float x = g_in * xin + b_in;
-      const float h0 = x * scale;
-      float h1[kW], c1[kW], h2[kW], c2[kW], h3[kW], c3[kW];
-#pragma unroll
-      for (int v = 0; v < kW; ++v)
-        psincos(h0 * sw[(kW1 + v) * kC + c] + sw[(kB1 + v) * kC + c], &h1[v], &c1[v]);
-#pragma unroll
-      for (int v = 0; v < kW; ++v) {
-        float acc2 = h1[0] * sw[(kW2 + v) * kC + c];
-#pragma unroll
-        for (int u = 1; u < kW; ++u) acc2 += h1[u] * sw[(kW2 + u * kW + v) * kC + c];
-        psincos(acc2 + sw[(kB2 + v) * kC + c], &h2[v], &c2[v]);
-      }
-#pragma unroll
-      for (int v = 0; v < kW; ++v) {
-        float acc3 = h2[0] * sw[(kW3 + v) * kC + c];
-#pragma unroll
-        for (int u = 1; u < kW; ++u) acc3 += h2[u] * sw[(kW3 + u * kW + v) * kC + c];
-        psincos(acc3 + sw[(kB3 + v) * kC + c], &h3[v], &c3[v]);
-      }
-      float acc4 = h3[0] * sw[kW4 * kC + c];
-#pragma unroll
-      for (int u = 1; u < kW; ++u) acc4 += h3[u] * sw[(kW4 + u) * kC + c];
-      float y, c4;
-      psincos(acc4 + sw[kB4 * kC + c], &y, &c4);
-
-      // chain rule (JAX _bwd_core)
       const float g = dy[e];
-      const float dp4 = g * g_out * c4;
-      my[kB4 * kC] += dp4;
-      float dp[kW], dh[kW];
-#pragma unroll
-      for (int u = 0; u < kW; ++u) {
-        my[(kW4 + u) * kC] += dp4 * h3[u];
-        dp[u] = dp4 * sw[(kW4 + u) * kC + c] * c3[u];  // dp3
-      }
-#pragma unroll
-      for (int u = 0; u < kW; ++u) {
-        float d = 0.0f;
-#pragma unroll
-        for (int v = 0; v < kW; ++v) {
-          my[(kW3 + u * kW + v) * kC] += dp[v] * h2[u];
-          d += dp[v] * sw[(kW3 + u * kW + v) * kC + c];
-        }
-        dh[u] = d;  // dh2
-      }
-#pragma unroll
-      for (int v = 0; v < kW; ++v) {
-        my[(kB3 + v) * kC] += dp[v];
-        dp[v] = dh[v] * c2[v];  // dp2
-      }
-#pragma unroll
-      for (int u = 0; u < kW; ++u) {
-        float d = 0.0f;
-#pragma unroll
-        for (int v = 0; v < kW; ++v) {
-          my[(kW2 + u * kW + v) * kC] += dp[v] * h1[u];
-          d += dp[v] * sw[(kW2 + u * kW + v) * kC + c];
-        }
-        dh[u] = d;  // dh1
-      }
-      float dh0 = 0.0f;
-#pragma unroll
-      for (int v = 0; v < kW; ++v) {
-        my[(kB2 + v) * kC] += dp[v];
-        const float dp1 = dh[v] * c1[v];
-        my[(kB1 + v) * kC] += dp1;
-        my[(kW1 + v) * kC] += dp1 * h0;
-        dh0 += dp1 * sw[(kW1 + v) * kC + c];
-      }
-      my[kScale * kC] += dh0 * x;
-      const float dx = dh0 * scale;
+      float y, dx;
+      newt::shaper_backward(x, g * g_out, sw, c, my, &y, &dx);
       d_exciter[e] = dx * g_in;
 
       // FiLM cotangents (d gamma_in, d beta_in, d gamma_out, d beta_out)
@@ -287,16 +168,6 @@ film_shaper_cr_bwd_kernel(const float* __restrict__ exciter,
   float* out = w_part + static_cast<long long>(blockIdx.x) * kPlane;
   for (int i = threadIdx.x; i < kPlane; i += kThreads)
     out[i] = ((acc[i] + acc[kPlane + i]) + acc[2 * kPlane + i]) + acc[3 * kPlane + i];
-}
-
-// d_planes[i] = sum over blocks k = 0, 1, ... of w_part[k, i], in that order.
-__global__ void sum_weight_partials(const float* __restrict__ w_part,
-                                    float* __restrict__ d_planes, int blocks) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= kPlane) return;
-  float s = 0.0f;
-  for (int k = 0; k < blocks; ++k) s += w_part[static_cast<long long>(k) * kPlane + i];
-  d_planes[i] = s;
 }
 
 // d_film[b, f, j] = part[f-1, slot 2] + part[f, slot 1] + part[f+1, slot 0]
@@ -360,7 +231,7 @@ extern "C" int newt_fused_cr_backward(const float* exciter, const float* film,
       exciter, film, weights, dy, d_exciter, film_part, w_part, b * tc, tc, hop);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_weight_partials<<<(kPlane + 255) / 256, 256, 0, s>>>(w_part, d_planes, blocks);
+  newt::sum_weight_partials<<<(kPlane + 255) / 256, 256, 0, s>>>(w_part, d_planes, blocks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n = static_cast<long long>(b) * tc * 4 * kC;

@@ -21,6 +21,15 @@ sine MLP, and gamma_out/beta_out modulate the result.
   ``film_shaper_cr.launches`` and ``film_shaper_cr.bwd_launches`` count
   the launches of the two kernels.
 
+The audio-rate counterpart (JAX ``film_shaper_fused_fl`` and
+``film_shaper_fused``, the two TPU lane layouts of one function) takes the
+FiLM already upsampled, (B, Ta, 4C): :func:`film_shaper_fl_plain` and
+:func:`film_shaper_fl_grad_plain` are its plain versions and
+:func:`film_shaper_fl` its wrapper, which launches ``csrc/newt_fused_fl.cu``
+on CUDA tensors and, for a gradient, ``csrc/newt_fused_fl_bwd.cu`` through
+:class:`_FilmShaperFL`; ``film_shaper_fl.launches`` and
+``film_shaper_fl.bwd_launches`` count them.
+
 The streaming counterpart (JAX ``film_shaper_fused_stream``) ramps the
 FiLM from the carried frame of the previous buffer to each new frame over
 one hop (``segment_interp``) instead of the offline upsample:
@@ -152,15 +161,20 @@ def _lib(name: str, symbol: str, n_ptrs: int, n_ints: int = 4) -> ctypes.CDLL:
     return lib
 
 
-def _check(exciter: torch.Tensor, film_c: torch.Tensor, weights: torch.Tensor, hop: int):
+def _check_tensors(exciter: torch.Tensor, **others: torch.Tensor) -> None:
+    """Every tensor float32, contiguous and on the exciter's device."""
     dev = exciter.device
-    for name, t in (("exciter", exciter), ("film_c", film_c), ("shaper weights", weights)):
+    for name, t in (("exciter", exciter), *others.items()):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, exciter on {dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check(exciter: torch.Tensor, film_c: torch.Tensor, weights: torch.Tensor, hop: int):
+    _check_tensors(exciter, film_c=film_c, shaper_weights=weights)
     if exciter.dim() != 3 or exciter.shape[2] != C:
         raise ValueError(f"exciter must be (B, Ta, {C}), got {tuple(exciter.shape)}")
     b, ta, _ = exciter.shape
@@ -268,6 +282,27 @@ def _shaper_leaves(shaper_params: Dict):
         yield from layer.values()
 
 
+def _packed_for(shaper_params: Dict, packed: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernels' (170, C) planes: ``packed`` when given, packed here
+    otherwise. Raises when ``packed`` was made without autograd while a
+    shaper leaf needs a gradient: the shapers would silently get none."""
+    weights = pack_weights(shaper_params) if packed is None else packed
+    if (
+        torch.is_grad_enabled()
+        and not weights.requires_grad
+        and any(t.requires_grad for t in _shaper_leaves(shaper_params))
+    ):
+        raise ValueError(
+            "packed shaper planes were made without autograd but the shaper "
+            "parameters need a gradient; pack them with grad enabled"
+        )
+    return weights
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def film_shaper_cr(
     exciter: torch.Tensor,
     film_c: torch.Tensor,
@@ -291,21 +326,152 @@ def film_shaper_cr(
         return film_shaper_cr_plain(exciter, film_c, shaper_params, hop)
     if exciter.device.type != "cuda":
         raise ValueError(f"unsupported device {exciter.device}")
-    weights = pack_weights(shaper_params) if packed is None else packed
-    if not torch.is_grad_enabled():
-        return _launch_forward(exciter, film_c, weights, hop)
-    if not weights.requires_grad and any(t.requires_grad for t in _shaper_leaves(shaper_params)):
-        raise ValueError(
-            "packed shaper planes were made without autograd but the shaper "
-            "parameters need a gradient; pack them with grad enabled"
-        )
-    if any(t.requires_grad for t in (exciter, film_c, weights)):
+    weights = _packed_for(shaper_params, packed)
+    if _needs_grad(exciter, film_c, weights):
         return _FilmShaperCR.apply(exciter, film_c, weights, hop)
     return _launch_forward(exciter, film_c, weights, hop)
 
 
 film_shaper_cr.launches = 0
 film_shaper_cr.bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# audio rate: the FiLM already upsampled (JAX film_shaper_fused_fl and
+# film_shaper_fused, one function in two TPU lane layouts)
+# ---------------------------------------------------------------------------
+def film_shaper_fl_plain(
+    exciter: torch.Tensor, film_a: torch.Tensor, shaper_params: Dict
+) -> torch.Tensor:
+    """The plain PyTorch version of the audio-rate kernel:
+    :func:`film_shaper_chain` of the (B, Ta, C) exciter and the
+    (B, Ta, 4C) audio-rate film."""
+    if film_a.shape[:-1] != exciter.shape[:-1]:
+        raise ValueError(
+            f"film {tuple(film_a.shape)} and exciter {tuple(exciter.shape)} differ in (B, Ta)"
+        )
+    return film_shaper_chain(exciter, film_a, shaper_params)
+
+
+def film_shaper_fl_grad_plain(
+    exciter: torch.Tensor, film_a: torch.Tensor, shaper_params: Dict, dy: torch.Tensor
+):
+    """The plain version of the audio-rate backward (JAX ``_fused_bwd_fl``):
+    ``torch.autograd.grad`` through :func:`film_shaper_fl_plain` with
+    cotangent ``dy`` -> (d_exciter (B, Ta, C), d_film (B, Ta, 4C), d_planes
+    (170, C) in the :func:`pack_weights` layout)."""
+    with torch.enable_grad():
+        exc = exciter.detach().requires_grad_()
+        film_a = film_a.detach().requires_grad_()
+        planes = pack_weights(shaper_params).detach().requires_grad_()
+        out = film_shaper_fl_plain(exc, film_a, unpack_weight_grads(planes))
+        return torch.autograd.grad(out, (exc, film_a, planes), dy)
+
+
+def _check_fl(exciter: torch.Tensor, film_a: torch.Tensor, weights: torch.Tensor) -> None:
+    """What the audio-rate kernels take: (B, Ta, C) exciter and (B, Ta, 4C)
+    film with 1 <= B*Ta <= 2^30 (odd B*Ta included: JAX's even B*Ta and
+    padded tile were TPU layout limits) and the (170, C) planes."""
+    _check_tensors(exciter, film=film_a, shaper_weights=weights)
+    if exciter.dim() != 3 or exciter.shape[2] != C:
+        raise ValueError(f"exciter must be (B, Ta, {C}), got {tuple(exciter.shape)}")
+    b, ta, _ = exciter.shape
+    if tuple(film_a.shape) != (b, ta, 4 * C):
+        raise ValueError(f"film must be ({b}, {ta}, {4 * C}), got {tuple(film_a.shape)}")
+    if not 1 <= b * ta <= _MAX_SAMPLES:
+        raise ValueError(f"need 1 <= B*Ta <= {_MAX_SAMPLES}, got {b * ta}")
+    if tuple(weights.shape) != (170, C):
+        raise ValueError(f"packed weights must be (170, {C}), got {tuple(weights.shape)}")
+
+
+def _launch_forward_fl(exciter, film_a, weights) -> torch.Tensor:
+    _check_fl(exciter, film_a, weights)
+    out = torch.empty_like(exciter)
+    b, ta, _ = exciter.shape
+    with torch.cuda.device(exciter.device):
+        lib = _lib("newt_fused_fl", "newt_fused_fl_forward", 4, n_ints=1)
+        stream = torch.cuda.current_stream(exciter.device).cuda_stream
+        err = lib.newt_fused_fl_forward(
+            exciter.data_ptr(), film_a.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            b * ta, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"newt_fused_fl_forward did not launch: CUDA error {err}")
+    film_shaper_fl.launches += 1
+    return out
+
+
+def _launch_backward_fl(exciter, film_a, weights, dy):
+    """-> (d_exciter, d_film, d_planes) from ``csrc/newt_fused_fl_bwd.cu``.
+    The per-block weight partials are allocated here: one block per 4
+    samples, at most what is resident."""
+    _check_fl(exciter, film_a, weights)
+    if dy.shape != exciter.shape or dy.dtype != torch.float32 or dy.device != exciter.device:
+        raise ValueError(f"dy must be float32 {tuple(exciter.shape)} on {exciter.device}")
+    b, ta, _ = exciter.shape
+    d_exc = torch.empty_like(exciter)
+    d_film = torch.empty_like(film_a)
+    d_planes = torch.empty_like(weights)
+    with torch.cuda.device(exciter.device):
+        lib = _lib("newt_fused_fl_bwd", "newt_fused_fl_backward", 8, n_ints=2)
+        needed = -(-b * ta // _ROWS_PER_BLOCK)
+        blocks = min(needed, _resident_blocks(lib, "newt_fused_fl_backward_resident_blocks", exciter.device))
+        w_part = torch.empty((blocks, 170, C), dtype=torch.float32, device=exciter.device)
+        stream = torch.cuda.current_stream(exciter.device).cuda_stream
+        err = lib.newt_fused_fl_backward(
+            exciter.data_ptr(), film_a.data_ptr(), weights.data_ptr(), dy.data_ptr(),
+            d_exc.data_ptr(), d_film.data_ptr(), d_planes.data_ptr(), w_part.data_ptr(),
+            b * ta, blocks, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"newt_fused_fl_backward did not launch: CUDA error {err}")
+    film_shaper_fl.bwd_launches += 1
+    return d_exc, d_film, d_planes
+
+
+class _FilmShaperFL(torch.autograd.Function):
+    """The audio-rate kernel pair as one differentiable function of
+    (exciter, film, packed planes). Forward saves only its inputs, as JAX's
+    ``_fused_fwd_fl``; backward recomputes the forward in the kernel."""
+
+    @staticmethod
+    def forward(ctx, exciter, film_a, packed):
+        ctx.save_for_backward(exciter, film_a, packed)
+        return _launch_forward_fl(exciter, film_a, packed)
+
+    @staticmethod
+    def backward(ctx, dy):
+        exciter, film_a, packed = ctx.saved_tensors
+        return _launch_backward_fl(exciter, film_a, packed, dy.contiguous())
+
+
+def film_shaper_fl(
+    exciter: torch.Tensor,
+    film_a: torch.Tensor,
+    shaper_params: Dict,
+    packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, Ta, 64) exciter + (B, Ta, 256) audio-rate film -> (B, Ta, 64)
+    (JAX ``film_shaper_fused_fl`` and ``film_shaper_fused``).
+
+    CPU tensors take :func:`film_shaper_fl_plain` (autograd differentiates
+    it). CUDA tensors launch ``csrc/newt_fused_fl.cu`` on the current
+    stream after :func:`_check_fl`; anything the kernels do not take
+    raises. With grad enabled and an input that needs a gradient, the call
+    goes through :class:`_FilmShaperFL`, whose backward is
+    ``csrc/newt_fused_fl_bwd.cu``. ``packed`` as in :func:`film_shaper_cr`."""
+    if exciter.device.type == "cpu":
+        return film_shaper_fl_plain(exciter, film_a, shaper_params)
+    if exciter.device.type != "cuda":
+        raise ValueError(f"unsupported device {exciter.device}")
+    weights = _packed_for(shaper_params, packed)
+    if _needs_grad(exciter, film_a, weights):
+        return _FilmShaperFL.apply(exciter, film_a, weights)
+    return _launch_forward_fl(exciter, film_a, weights)
+
+
+film_shaper_fl.launches = 0
+film_shaper_fl.bwd_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -387,9 +553,7 @@ def film_shaper_stream(
     if exciter.device.type != "cuda":
         raise ValueError(f"unsupported device {exciter.device}")
     weights = pack_weights(shaper_params) if packed is None else packed
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (exciter, prev_film, film_c, weights)
-    ):
+    if _needs_grad(exciter, prev_film, film_c, weights):
         raise ValueError(
             "the stream kernel is forward only: call it under torch.no_grad() "
             "or torch.inference_mode()"

@@ -5,11 +5,13 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from .. import minigin as gin
 from ..ops.fir import fft_convolve_circular, fir_noise_filter
 from ..ops.oscillator import final_phase, harmonic_oscillator_bank
 from .modules import Params, _load
 
 
+@gin.configurable
 class HarmonicOscillator(nn.Module):
     """Antialiased sinusoidal harmonic bank."""
 
@@ -36,6 +38,7 @@ class HarmonicOscillator(nn.Module):
         return final_phase(f0, self.sample_rate, initial_phase)
 
 
+@gin.configurable
 class FIRNoiseSynth(nn.Module):
     """Time-varying windowed-FIR filtered noise."""
 
@@ -53,6 +56,7 @@ class FIRNoiseSynth(nn.Module):
         return fir_noise_filter(h_re, self.hop_length, generator, noise)
 
 
+@gin.configurable
 class Reverb(nn.Module):
     """Learned impulse-response reverb with a pinned leading zero.
 

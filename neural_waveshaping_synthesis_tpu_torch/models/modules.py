@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import minigin as gin
 from ..ops.fastmath import fast_sin
 
 Params = Dict
@@ -104,6 +105,7 @@ class LayerNorm(nn.Module):
 # ---------------------------------------------------------------------------
 # TimeDistributedMLP
 # ---------------------------------------------------------------------------
+@gin.configurable
 class TimeDistributedMLP(nn.Module):
     """Per-timestep MLP: ``depth`` dense layers with LayerNorm and
     LeakyReLU(0.01) between them; depth >= 3 as in the reference."""
@@ -257,6 +259,7 @@ class GRU(nn.Module):
         return ys, h_n[0]
 
 
+@gin.configurable
 class ControlModule(nn.Module):
     """GRU(control_size -> hidden) + dense projection to the embedding."""
 

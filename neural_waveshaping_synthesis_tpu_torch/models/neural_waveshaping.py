@@ -12,12 +12,18 @@
 float32 throughout (the JAX inference default ``compute_dtype``). The
 exciter-fusing options of the JAX model (``fuse_exciter``,
 ``fuse_out_mixer``, both off there by default) are not ported.
+
+The model and its submodules are gin configurables (:mod:`..minigin`), so
+the repo's ``gin/models/newt.gin`` bindings reach them as they reach the
+JAX model's ``default_factory`` submodules: the noise MLP and the noise
+synth are built inside the ``noise_synth`` scope.
 """
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from .. import minigin as gin
 from ..ops.oscillator import draw_phase_offset
 from ..ops.upsample import linear_upsample
 from .generators import FIRNoiseSynth, HarmonicOscillator, Reverb
@@ -25,7 +31,30 @@ from .modules import ControlModule, Dense, Params, TimeDistributedMLP
 from .newt import NEWT
 
 
+def _default_noise_mlp(generator=None) -> TimeDistributedMLP:
+    """The noise branch's H generator, built in the ``noise_synth`` scope
+    (``noise_synth/TimeDistributedMLP.*``, gin/models/newt.gin): the
+    bindings give its sizes; with none it is the shipped 128 -> 128 -> 129
+    MLP of depth 4, as JAX ``_default_noise_mlp``."""
+    with gin.config_scope("noise_synth"):
+        try:
+            return TimeDistributedMLP(generator=generator)
+        except TypeError:
+            return TimeDistributedMLP(128, 128, 129, depth=4, generator=generator)
+
+
+@gin.configurable
 class NeuralWaveshaping(nn.Module):
+    """The synthesizer. Each submodule is built by its configurable with
+    only what the model owns passed explicitly (``n_waveshapers`` to NEWT
+    and the harmonic mixer, ``sample_rate`` to the oscillator and the
+    reverb, ``control_hop`` to the noise synth; gin/models/newt.gin binds
+    those to the same macros), so every other binding (the harmonic count,
+    NEWT's widths and ``fused``, the noise MLP's sizes, the FIR length, the
+    reverb's length) reaches it. With no bindings it is the shipped
+    architecture, 266,945 parameters, drawn from ``generator`` in the order
+    embedding, harmonic mixer, NEWT, noise MLP, reverb."""
+
     def __init__(
         self,
         n_waveshapers: int = 64,
@@ -36,13 +65,14 @@ class NeuralWaveshaping(nn.Module):
         super().__init__()
         self.control_hop = control_hop
         self.sample_rate = sample_rate
-        self.embedding = ControlModule(2, 128, 128, generator)
-        self.osc = HarmonicOscillator(101, sample_rate)
-        self.harmonic_mixer = Dense(101, n_waveshapers, generator)
-        self.newt = NEWT(n_waveshapers, generator=generator)
-        self.h_generator = TimeDistributedMLP(128, 128, 129, 4, generator)
-        self.noise_synth = FIRNoiseSynth(256, control_hop)
-        self.reverb = Reverb(2, int(sample_rate), generator)
+        self.embedding = ControlModule(generator=generator)
+        self.osc = HarmonicOscillator(sample_rate=sample_rate)
+        self.harmonic_mixer = Dense(self.osc.n_harmonics, n_waveshapers, generator)
+        self.newt = NEWT(n_waveshapers=n_waveshapers, generator=generator)
+        self.h_generator = _default_noise_mlp(generator)
+        with gin.config_scope("noise_synth"):
+            self.noise_synth = FIRNoiseSynth(hop_length=control_hop)
+        self.reverb = Reverb(sr=int(sample_rate), generator=generator)
 
     def params(self) -> Params:
         """The parameters as a tree in the JAX layout (views of the

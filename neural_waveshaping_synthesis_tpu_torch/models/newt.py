@@ -9,18 +9,26 @@ from typing import Optional, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
+from .. import minigin as gin
 from ..kernels import fast_newt, newt_fused
 from ..ops.upsample import linear_upsample
-from .modules import Dense, Params, TimeDistributedMLP, TrainableNonlinearity, film
-
-_NOT_PORTED = (
-    "is not ported yet (ROADMAP.md, queue 2); the port has fused='cr' "
-    "(or its training spelling 'full_lane_cr') and the plain chain (fused=False)"
+from .modules import (
+    Dense,
+    Params,
+    TimeDistributedMLP,
+    TrainableNonlinearity,
+    film,
+    shaper_apply,
 )
+
 _CR = ("cr", "full_lane_cr")
+_AUDIO_RATE = (True, "full_lane", "fl")
+_FUSED = (*_CR, *_AUDIO_RATE, None, False)
 
 
+@gin.configurable
 class NEWT(nn.Module):
     """``fused`` keeps the JAX dispatch, gated on "the exciter is on
     CUDA" where JAX gated on "the backend is a TPU":
@@ -31,24 +39,35 @@ class NEWT(nn.Module):
       that :func:`newt_fused.supports_cr` refuses raises on CUDA: JAX's
       ``"cr"`` falls back to its XLA chain there, but on the card that
       chain is ~45x slower than the kernel, so the port asks for
-      ``fused=False`` to run it. On the CPU the plain chain runs;
-    * ``"full_lane_cr"`` (the JAX training recipe's spelling) behaves as
-      ``"cr"``. JAX falls back from it to the audio-rate kernel when its
-      TPU gate refuses the geometry; the Hopper gate accepts every integer
-      hop, so with the shipped shaper that fallback cannot be reached;
+      ``fused=False`` to run it;
+    * ``"full_lane_cr"`` (the JAX training recipe's spelling): the
+      control-rate kernel where ``supports_cr`` holds; otherwise, as in
+      JAX, the audio-rate kernel (a non-integer hop, e.g. Ta=130, Tc=4);
+    * ``True``, ``"full_lane"``, ``"fl"`` (JAX's half-lane and full-lane
+      TPU layouts of one function): on CUDA the FiLM is upsampled to audio
+      rate and the audio-rate kernel runs
+      (:func:`newt_fused.film_shaper_fl`), its backward the CUDA kernel
+      ``newt_fused._FilmShaperFL``. A shaper that
+      :func:`newt_fused.supports` refuses raises on CUDA;
     * ``False`` (or ``None`` at construction): the plain chain everywhere.
 
-    :meth:`forward_stream`, one streaming buffer, follows the same rule
-    with the stream kernel (:func:`newt_fused.film_shaper_stream`).
+    On the CPU every value runs the plain chain. Any other value raises
+    ``ValueError``. With ``remat_shaper`` the plain chain's shaper bank
+    runs under ``torch.utils.checkpoint`` (JAX ``jax.checkpoint``): its
+    activations are recomputed in the backward instead of kept; the
+    kernels recompute in their backward anyway, so it changes nothing on a
+    kernel path.
+
+    :meth:`forward_stream`, one streaming buffer, runs the stream kernel
+    (:func:`newt_fused.film_shaper_stream`) on CUDA for every ``fused``
+    that is not ``False``, as JAX runs its stream kernel for any truthy
+    ``NEWT.fused``.
 
     A FastNEWT ``lookup_table`` (:meth:`bake_lookup_table`) replaces the
     shaper bank whatever ``fused`` says, as in JAX: the FiLM is upsampled
     to audio rate and the lookup runs between the two FiLMs; on CUDA it
     launches the lookup kernel (:func:`fast_newt.fast_newt_lookup`), on
     the CPU its plain version.
-
-    ``"full_lane"``, ``True`` and ``remat_shaper`` raise
-    ``NotImplementedError``.
     """
 
     def __init__(
@@ -63,10 +82,9 @@ class NEWT(nn.Module):
         generator=None,
     ):
         super().__init__()
-        if remat_shaper:
-            raise NotImplementedError(f"remat_shaper {_NOT_PORTED}")
         self._check_fused(fused)
         self.n_waveshapers = n_waveshapers
+        self.remat_shaper = remat_shaper
         self.fused = fused
         self.mlp = TimeDistributedMLP(
             control_embedding_size, control_embedding_size, n_waveshapers * 4,
@@ -97,8 +115,11 @@ class NEWT(nn.Module):
 
     @staticmethod
     def _check_fused(fused) -> None:
-        if fused not in (*_CR, None, False):
-            raise NotImplementedError(f"NEWT fused={fused!r} {_NOT_PORTED}")
+        if not any(fused is v or (isinstance(v, str) and fused == v) for v in _FUSED):
+            raise ValueError(
+                f"NEWT fused={fused!r} is not one of "
+                "'cr', 'full_lane_cr', True, 'full_lane', 'fl', False, None"
+            )
 
     def params(self) -> Params:
         return {
@@ -121,20 +142,20 @@ class NEWT(nn.Module):
         """(B, Tc, E) -> (B, Tc, 4C) control-rate FiLM parameters."""
         return self.mlp(control_embedding)
 
-    def _use_kernel(self, fused, exciter: torch.Tensor, ta: int, tc: int, gate) -> bool:
-        """The dispatch rule shared by both forwards: True when the CUDA
-        kernel runs; raises on the card for what ``gate`` (the kernel's
-        ``supports_*``) refuses."""
-        fused = self.fused if fused is None else fused
-        self._check_fused(fused)
-        if fused not in _CR or not exciter.is_cuda:
-            return False
-        if not gate(self.shaping_fn, ta, tc):
-            raise ValueError(
-                f"NEWT fused={fused!r}: the CUDA kernel does not take this shaper "
-                f"or geometry (Ta={ta}, Tc={tc}); pass fused=False for the plain chain"
-            )
-        return True
+    def _refuse(self, fused, ta: int, tc: int) -> ValueError:
+        return ValueError(
+            f"NEWT fused={fused!r}: the CUDA kernel does not take this shaper "
+            f"or geometry (Ta={ta}, Tc={tc}); pass fused=False for the plain chain"
+        )
+
+    def _chain(self, exciter: torch.Tensor, film_a: torch.Tensor, params: Params) -> torch.Tensor:
+        """The plain chain on the audio-rate FiLM; with ``remat_shaper`` and
+        grad enabled the shaper bank runs under ``checkpoint``."""
+        if not (self.remat_shaper and torch.is_grad_enabled()):
+            return newt_fused.film_shaper_chain(exciter, film_a, params)
+        gi, bi, gn, bn = film_a.split(self.n_waveshapers, dim=-1)
+        x = checkpoint(shaper_apply, params, film(exciter, gi, bi), use_reentrant=False)
+        return film(x, gn, bn)
 
     def forward(
         self,
@@ -147,6 +168,8 @@ class NEWT(nn.Module):
 
         ``fused=None`` defers to the ``fused`` given at construction;
         ``lookup_table`` (S, C) takes the FastNEWT path instead."""
+        fused = self.fused if fused is None else fused
+        self._check_fused(fused)
         fp = self.film_params(control_embedding)  # (B, Tc, 4C) control-rate FiLM
         ta, tc = exciter.shape[1], fp.shape[1]
         if lookup_table is not None:
@@ -154,13 +177,22 @@ class NEWT(nn.Module):
             x = fast_newt.fast_newt_lookup(lookup_table, film(exciter, gi, bi))
             return self.mixer(film(x, gn, bn))
         params = self.shaping_fn.params()
-        if self._use_kernel(fused, exciter, ta, tc, newt_fused.supports_cr):
-            x = newt_fused.film_shaper_cr(
-                exciter, fp, params, ta // tc, packed=self._packed_shaper()
-            )
+        if exciter.is_cuda and fused in _CR:
+            if newt_fused.supports_cr(self.shaping_fn, ta, tc):
+                x = newt_fused.film_shaper_cr(
+                    exciter, fp, params, ta // tc, packed=self._packed_shaper()
+                )
+                return self.mixer(x)
+            if fused == "cr":
+                raise self._refuse(fused, ta, tc)
+            fused = "full_lane"  # JAX's fallback for the training spelling
+        film_a = linear_upsample(fp, ta)  # (B, Ta, 4C)
+        if exciter.is_cuda and fused in _AUDIO_RATE:
+            if not newt_fused.supports(self.shaping_fn):
+                raise self._refuse(fused, ta, tc)
+            x = newt_fused.film_shaper_fl(exciter, film_a, params, packed=self._packed_shaper())
             return self.mixer(x)
-        x = newt_fused.film_shaper_chain(exciter, linear_upsample(fp, ta), params)
-        return self.mixer(x)
+        return self.mixer(self._chain(exciter, film_a, params))
 
     def forward_stream(
         self,
@@ -175,13 +207,17 @@ class NEWT(nn.Module):
         next over one hop (``ops.upsample.segment_interp``), continuous
         across buffers. Forward only.
 
-        The dispatch is :meth:`forward`'s: with ``"cr"``/``"full_lane_cr"``
-        the CUDA stream kernel runs on the card (JAX gates its Pallas kernel
-        on the TPU backend) and a shaper or geometry it does not take
-        raises; ``fused=False`` and the CPU run the plain version."""
+        On CUDA every ``fused`` but ``False`` runs the stream kernel (JAX
+        runs its Pallas kernel for any truthy ``NEWT.fused`` on the TPU)
+        and a shaper or geometry it does not take raises; ``fused=False``
+        and the CPU run the plain version."""
+        fused = self.fused if fused is None else fused
+        self._check_fused(fused)
         ta, k = exciter.shape[1], film_c.shape[1]
         params = self.shaping_fn.params()
-        if self._use_kernel(fused, exciter, ta, k, newt_fused.supports_stream):
+        if exciter.is_cuda and fused:
+            if not newt_fused.supports_stream(self.shaping_fn, ta, k):
+                raise self._refuse(fused, ta, k)
             x = newt_fused.film_shaper_stream(
                 exciter, prev_film, film_c, params, ta // k, packed=self._packed_shaper()
             )

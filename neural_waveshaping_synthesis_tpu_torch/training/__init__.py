@@ -1,5 +1,6 @@
-"""Training of the port: the multi-resolution STFT loss, the optimizer
-and the Trainer."""
+"""Training of the port: the multi-resolution STFT loss, the optimizer,
+the Trainer and its loggers."""
+from .logging import ConsoleLogger, CSVLogger
 from .loss import multi_resolution_stft_loss, stft_loss
 from .trainer import (
     Optimizer,
@@ -13,6 +14,8 @@ from .trainer import (
 )
 
 __all__ = [
+    "ConsoleLogger",
+    "CSVLogger",
     "multi_resolution_stft_loss",
     "stft_loss",
     "Optimizer",

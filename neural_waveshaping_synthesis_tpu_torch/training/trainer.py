@@ -9,8 +9,13 @@ runtime for the TPU, and this module is its PyTorch counterpart:
     staircase StepLR of 0.9 every 10,000 steps, stepped once per step
     (:class:`Optimizer`, the order of JAX ``make_optimizer``);
   * :class:`Trainer`: the loop over a :class:`data.GeneralDataModule`,
-    validation, and reference-format checkpoints that
-    ``Synthesizer.from_checkpoint`` serves.
+    validation, reference-format checkpoints that
+    ``Synthesizer.from_checkpoint`` serves, and the JAX trainer's metrics
+    handed to its loggers (:mod:`.logging`).
+
+``TrainConfig`` and the data modules are gin configurables, so
+``scripts/torch_train.py`` reads the repo's gin files as the JAX
+``scripts/train.py`` does.
 
 Per-step randomness (the oscillator's phase offsets and the noise
 excitation) comes from a CPU ``torch.Generator`` seeded from (seed,
@@ -19,35 +24,43 @@ step), so a run repeats on any device. It cannot repeat JAX's key stream.
 float32 throughout, as the JAX f32 recipe; on the card the Trainer turns
 TF32 off for matmuls and cuDNN (the GRU). On the card NEWT's FiLM ->
 shaper -> FiLM block runs the CUDA forward kernel and, in the backward,
-the CUDA backward kernel (``kernels/newt_fused.py``).
+the CUDA backward kernel of the ``NEWT.fused`` it is built with: the
+control-rate pair by default, the audio-rate pair with ``"full_lane"``
+(``kernels/newt_fused.py``).
 
 Not here: the JAX runtime's multi-step ``lax.scan`` chunking and on-device
-batch gathering (TPU dispatch devices), orbax resume, data parallelism,
-logging to files and gin configuration (ROADMAP.md).
+batch gathering (TPU dispatch devices), orbax resume, data parallelism
+and wandb (ROADMAP.md).
 """
 import os
+import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import minigin as gin
 from ..convert.checkpoint import save_reference_checkpoint
 from ..device import resolve_device
 from ..models.neural_waveshaping import NeuralWaveshaping
 from .loss import multi_resolution_stft_loss
 
 
+@gin.configurable
 @dataclass(frozen=True)
 class TrainConfig:
     """The JAX ``TrainConfig`` fields that mean something here, with its
-    defaults (the reference recipe, ``gin/train/train_newt.gin``)."""
+    defaults (the reference recipe, ``gin/train/train_newt.gin``).
+    ``data_parallel`` over one card is a mesh of one; over more it is not
+    ported yet, and the Trainer raises (ROADMAP.md queue 1 item 10)."""
 
     learning_rate: float = 1e-3
     lr_decay: float = 0.9
     lr_decay_interval: int = 10000
     max_steps: int = 120000
     gradient_clip_val: float = 2.0
+    data_parallel: bool = True
     val_every_n_steps: int = 1000
     log_every_n_steps: int = 100
     checkpoint_dir: str = "checkpoints"
@@ -147,15 +160,33 @@ class Trainer:
 
     The model's parameters as given are the starting point: build it with
     a seeded ``generator`` for a seeded random init, or pass
-    ``initial_params`` to :meth:`fit`."""
+    ``initial_params`` to :meth:`fit`. ``loggers`` (:mod:`.logging`) get
+    the JAX trainer's metrics: ``train/loss`` (the window's mean),
+    ``train/lr``, ``train/steps_per_sec`` and ``grad_norm`` (the window's
+    mean, before the clip) every ``log_every_n_steps``, and at each
+    validation ``val/loss`` and the first val batch's original and
+    reconstructed audio."""
 
-    def __init__(self, model: NeuralWaveshaping, cfg: TrainConfig, device="cuda"):
+    def __init__(
+        self,
+        model: NeuralWaveshaping,
+        cfg: TrainConfig,
+        device="cuda",
+        loggers: Sequence = (),
+    ):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
+            if cfg.data_parallel and torch.cuda.device_count() > 1:
+                raise NotImplementedError(
+                    f"TrainConfig.data_parallel over {torch.cuda.device_count()} cards is "
+                    "not ported yet (ROADMAP.md queue 1 item 10, multi-GPU); make one card "
+                    "visible or set TrainConfig.data_parallel = False"
+                )
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.model = model.to(self.device)
         self.cfg = cfg
+        self.loggers = list(loggers)
         self.optimizer = Optimizer(self.model.parameters(), cfg)
         self.step = 0
 
@@ -174,15 +205,30 @@ class Trainer:
         self.step += 1
         return metrics
 
-    def evaluate(self, batches: Iterable[Dict[str, np.ndarray]]) -> float:
+    def _log(self, metrics: Dict[str, float]) -> None:
+        for logger in self.loggers:
+            logger.log_metrics(metrics, self.step)
+
+    def evaluate(
+        self, batches: Iterable[Dict[str, np.ndarray]], log_audio: bool = False
+    ) -> float:
         """Mean loss over the batches, without gradients; batch i draws its
-        randomness from a generator seeded with (seed, 1, i)."""
+        randomness from a generator seeded with (seed, 1, i). With
+        ``log_audio`` the first batch's first clip and its reconstruction
+        go to the loggers as ``val/original`` and ``val/recon``."""
         losses = []
         with torch.no_grad():
             for i, batch in enumerate(batches):
-                losses.append(compute_loss(
-                    self.model, self.to_device(batch), step_generator(self.cfg.seed, 1, i)
-                ))
+                b = self.to_device(batch)
+                recon = self.model(b["f0"], b["control"],
+                                   generator=step_generator(self.cfg.seed, 1, i))
+                losses.append(multi_resolution_stft_loss(recon, b["audio"]))
+                if i == 0 and log_audio:
+                    rate = int(self.model.sample_rate)
+                    clips = (("val/original", b["audio"][0]), ("val/recon", recon[0]))
+                    for name, clip in clips:
+                        for logger in self.loggers:
+                            logger.log_audio(name, clip.cpu().numpy(), rate, self.step)
         return float(torch.stack(losses).mean()) if losses else float("nan")
 
     def save_checkpoint(
@@ -217,7 +263,9 @@ class Trainer:
         ``initial_params`` (a JAX-layout tree) restarts from those weights
         with a fresh optimizer, as JAX ``train_state_from_params``.
         Returns the history: per-step "loss" and "grad_norm", and "val" as
-        (step, loss) pairs."""
+        (step, loss) pairs. The per-step metrics stay on the device until
+        a log step or a validation reads them, so no step waits for the
+        host."""
         cfg = self.cfg
         if initial_params is not None:
             self.model.load_params(initial_params)
@@ -227,18 +275,40 @@ class Trainer:
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
         history: Dict[str, list] = {"loss": [], "grad_norm": [], "val": []}
         pending: List[Dict[str, torch.Tensor]] = []
+        window: Dict[str, list] = {"loss": [], "grad_norm": []}
         best = [float("inf")]
+        window_start = [time.perf_counter()]
+        schedule = make_lr_schedule(cfg)
 
         def flush():
             if pending:
                 for key in ("loss", "grad_norm"):
-                    history[key].extend(torch.stack([m[key] for m in pending]).tolist())
+                    values = torch.stack([m[key] for m in pending]).tolist()
+                    history[key].extend(values)
+                    window[key].extend(values)
                 pending.clear()
+
+        def log_window():
+            flush()
+            n = len(window["loss"])
+            if not n:
+                return
+            now = time.perf_counter()
+            self._log({
+                "train/loss": float(np.mean(window["loss"])),
+                "train/lr": schedule(self.step),
+                "train/steps_per_sec": n / max(now - window_start[0], 1e-9),
+                "grad_norm": float(np.mean(window["grad_norm"])),
+            })
+            window_start[0] = now
+            for values in window.values():
+                values.clear()
 
         def validate():
             flush()
-            val_loss = self.evaluate(datamodule.val_batches())
+            val_loss = self.evaluate(datamodule.val_batches(), log_audio=bool(self.loggers))
             history["val"].append((self.step, val_loss))
+            self._log({"val/loss": val_loss})
             stats = (train.data_mean, train.data_std)
             self.save_checkpoint(os.path.join(cfg.checkpoint_dir, "last.ckpt"), *stats)
             if val_loss < best[0]:
@@ -252,7 +322,7 @@ class Trainer:
                 pending.append(self.train_step(batch))
                 ran += 1
                 if self.step % cfg.log_every_n_steps == 0:
-                    flush()
+                    log_window()
                 if self.step % cfg.val_every_n_steps == 0:
                     validate()
                     validated_at = self.step
@@ -263,5 +333,5 @@ class Trainer:
             epoch += 1
         if validated_at != self.step:
             validate()
-        flush()
+        log_window()
         return history

@@ -1,5 +1,6 @@
 """The port on the card: the CUDA kernels (forward, backward, the
-streaming forward and the FastNEWT lookup) against their plain versions,
+streaming forward, the audio-rate forward and backward, and the FastNEWT
+lookup) against their plain versions,
 and the model, a training step, a streamed buffer and timbre transfer on
 the card against the same on the CPU.
 
@@ -286,6 +287,143 @@ def test_one_training_step_on_the_card_matches_the_cpu(cuda):
         assert torch.count_nonzero(g) > 0, name
         if rel(g, cpu[name]) > 1e-3:
             assert rel(g, exact[name]) <= rel(cpu[name], exact[name]) + 1e-3, name
+
+
+# ---------------------------------------------------------------------------
+# audio rate: the forward and backward kernels (JAX film_shaper_fused_fl and
+# film_shaper_fused, and their backwards) and NEWT's audio-rate dispatch
+# ---------------------------------------------------------------------------
+def _fl_inputs(b, ta, seed=0):
+    rng = np.random.default_rng(seed)
+    exc = torch.from_numpy((rng.standard_normal((b, ta, 64)) * 0.5).astype(np.float32))
+    film_a = torch.from_numpy(rng.standard_normal((b, ta, 256)).astype(np.float32))
+    return exc, film_a
+
+
+_FL_SHAPES = [(2, 96), (1, 37), (3, 333), (1, 1), (2, 1025)]  # odd B*Ta, ragged blocks
+
+
+@pytest.mark.parametrize("b,ta", _FL_SHAPES)
+def test_fl_kernel_matches_plain(cuda, params, b, ta):
+    """The audio-rate forward against its plain version on the same CUDA
+    tensors, rtol=1e-4, atol=1e-5; odd B*Ta (JAX needed it even) and
+    B*Ta not a multiple of the block included. One launch per call."""
+    exc, film_a = (t.to(cuda) for t in _fl_inputs(b, ta, seed=ta))
+    w = _shaper(params, cuda)
+    before = nf.film_shaper_fl.launches
+    with torch.inference_mode():
+        out = nf.film_shaper_fl(exc, film_a, w)
+        ref = nf.film_shaper_fl_plain(exc, film_a, w)
+    torch.cuda.synchronize()
+    assert nf.film_shaper_fl.launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("tc,hop", [(6, 16), (37, 128)])
+def test_fl_kernel_matches_the_cr_kernel_on_the_upsampled_film(cuda, params, tc, hop):
+    """The audio-rate forward fed linear_upsample of a control-rate FiLM
+    computes what the control-rate forward computes from that FiLM: rtol
+    1e-5, atol 2e-6, the JAX test_cr_forward_matches_fl_kernel bar."""
+    exc, film_c = (t.to(cuda) for t in _inputs(2, tc, hop, seed=tc))
+    w = _shaper(params, cuda)
+    with torch.inference_mode():
+        fl = nf.film_shaper_fl(exc, linear_upsample(film_c, tc * hop), w)
+        cr = nf.film_shaper_cr(exc, film_c, w, hop)
+    np.testing.assert_allclose(fl.cpu().numpy(), cr.cpu().numpy(), rtol=1e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("b,ta", _FL_SHAPES)
+def test_fl_backward_kernel_matches_plain(cuda, params, b, ta):
+    """d_exciter, d_film and the 170 weight-gradient planes of the
+    audio-rate backward against autograd through the plain version; one
+    launch; two calls give the same bits."""
+    exc, film_a = (t.to(cuda) for t in _fl_inputs(b, ta, seed=ta + 1))
+    dy = torch.randn(exc.shape, generator=torch.Generator().manual_seed(ta)).to(cuda)
+    w = _shaper(params, cuda)
+    packed = nf.pack_weights(w)
+    before = nf.film_shaper_fl.bwd_launches
+    out = nf._launch_backward_fl(exc, film_a, packed, dy)
+    again = nf._launch_backward_fl(exc, film_a, packed, dy)
+    ref = nf.film_shaper_fl_grad_plain(exc, film_a, w, dy)
+    torch.cuda.synchronize()
+    assert nf.film_shaper_fl.bwd_launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+    for o, r in zip(out, ref):
+        _grad_close(o, r)
+
+
+def test_fl_kernel_refuses_what_it_does_not_take(cuda, params):
+    exc, film_a = (t.to(cuda) for t in _fl_inputs(1, 16))
+    w = _shaper(params, cuda)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            nf.film_shaper_fl(exc.double(), film_a, w)
+        with pytest.raises(ValueError):
+            nf.film_shaper_fl(exc, film_a[:, :8].contiguous(), w)
+        with pytest.raises(ValueError):
+            nf.film_shaper_fl(exc, film_a.cpu(), w)
+        with pytest.raises(ValueError):
+            nf.film_shaper_fl(exc[:, :0], film_a[:, :0], w)
+
+
+@pytest.mark.parametrize("fused", [True, "full_lane", "fl"])
+def test_newt_audio_rate_on_the_card(cuda, params, fused):
+    """NEWT(fused=True | "full_lane" | "fl") on the card launches the
+    audio-rate forward (and with gradients its backward) and never the
+    control-rate kernels; output and gradients agree with the same NEWT
+    on the CPU (1e-4/1e-5, and 1e-3 normalised per leaf)."""
+    rng = np.random.default_rng(11)
+    exc = torch.from_numpy((rng.standard_normal((2, 15 * 128, 64)) * 0.5).astype(np.float32))
+    emb = torch.from_numpy(rng.standard_normal((2, 15, 128)).astype(np.float32))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        newt = NEWT(fused=fused)
+        newt.load_params(params["newt"])
+        newt.to(dev)
+        before = (nf.film_shaper_fl.launches, nf.film_shaper_fl.bwd_launches,
+                  nf.film_shaper_cr.launches, nf.film_shaper_cr.bwd_launches)
+        out = newt(exc.to(dev), emb.to(dev))
+        out.square().sum().backward()
+        if dev.type == "cuda":
+            after = (nf.film_shaper_fl.launches, nf.film_shaper_fl.bwd_launches,
+                     nf.film_shaper_cr.launches, nf.film_shaper_cr.bwd_launches)
+            assert after == (before[0] + 1, before[1] + 1, before[2], before[3])
+        runs.append((out.detach().cpu(), {n: p.grad.cpu() for n, p in newt.named_parameters()}))
+    (card, card_g), (cpu, cpu_g) = runs
+    np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=1e-4, atol=1e-5)
+    for name, g in card_g.items():
+        assert torch.count_nonzero(g) > 0, name
+        assert torch.linalg.norm(g - cpu_g[name]) <= 1e-3 * torch.linalg.norm(cpu_g[name]), name
+
+
+def test_newt_full_lane_cr_falls_back_to_the_audio_rate_kernel(cuda, params):
+    """At a non-integer hop (Ta=130, Tc=4) the cr kernel refuses the
+    geometry: "full_lane_cr" runs the audio-rate kernel, as JAX falls
+    back, and "cr" raises."""
+    rng = np.random.default_rng(12)
+    exc = torch.from_numpy((rng.standard_normal((1, 130, 64)) * 0.5).astype(np.float32)).to(cuda)
+    emb = torch.from_numpy(rng.standard_normal((1, 4, 128)).astype(np.float32)).to(cuda)
+    newt = NEWT(fused="full_lane_cr")
+    newt.load_params(params["newt"])
+    newt.to(cuda)
+    before = (nf.film_shaper_fl.launches, nf.film_shaper_cr.launches)
+    with torch.inference_mode():
+        out = newt(exc, emb)
+        ref = newt(exc, emb, fused=False)
+        with pytest.raises(ValueError, match="fused=False"):
+            newt(exc, emb, fused="cr")
+    assert (nf.film_shaper_fl.launches, nf.film_shaper_cr.launches) == (before[0] + 1, before[1])
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_newt_audio_rate_refuses_a_shaper_the_kernel_does_not_take(cuda):
+    newt = NEWT(shaping_fn_depth=3, fused="full_lane").to(cuda)
+    exc = torch.zeros(1, 4 * 8, 64, device=cuda)
+    emb = torch.zeros(1, 4, 128, device=cuda)
+    for fused in (True, "full_lane", "fl"):
+        with pytest.raises(ValueError, match="fused=False"):
+            newt(exc, emb, fused=fused)
+    newt(exc, emb, fused=False).sum().backward()
 
 
 # ---------------------------------------------------------------------------

@@ -171,19 +171,33 @@ def test_newt_dispatch_on_cpu_matches_jax_chain(jax_newt):
 
 @pytest.mark.parametrize("fused", ["fl", "full_lane", True])
 def test_newt_unported_options_raise(fused):
-    with pytest.raises(NotImplementedError):
-        NEWT(fused=fused)
-    newt = NEWT()
-    with pytest.raises(NotImplementedError):
-        newt(torch.zeros(1, 16, 64), torch.zeros(1, 2, 128), fused=fused)
+    """The audio-rate options, once unported, now run: on the CPU, at
+    construction and per call, they compute the plain chain (their parity
+    with JAX is in tests/test_torch_newt_fl.py). Only a value that is not
+    a JAX ``fused`` spelling raises."""
+    g = torch.Generator().manual_seed(1)
+    newt = NEWT(fused=fused, generator=g)
+    exc, emb = torch.randn(1, 16, 64, generator=g), torch.randn(1, 2, 128, generator=g)
+    with torch.no_grad():
+        out = newt(exc, emb)
+        assert torch.equal(out, newt(exc, emb, fused=False))
+        assert torch.equal(out, NEWT(generator=torch.Generator().manual_seed(1))(exc, emb, fused=fused))
+    with pytest.raises(ValueError):
+        NEWT(fused=str(fused) + "_unknown")
+    with pytest.raises(ValueError):
+        newt(exc, emb, fused="half_lane")
 
 
 def test_newt_lookup_table_and_remat_raise():
-    """remat_shaper still raises. A FastNEWT lookup table no longer does:
-    it replaces the shaper bank whatever ``fused`` says (its parity with
-    JAX is in tests/test_torch_timbre_transfer.py)."""
-    with pytest.raises(NotImplementedError):
-        NEWT(remat_shaper=True)
+    """Neither raises any more. remat_shaper runs the plain chain with the
+    shaper bank under torch.utils.checkpoint (its gradients against JAX
+    are in tests/test_torch_newt_fl.py); a FastNEWT lookup table replaces
+    the shaper bank whatever ``fused`` says (its parity with JAX is in
+    tests/test_torch_timbre_transfer.py)."""
+    remat = NEWT(remat_shaper=True, generator=torch.Generator().manual_seed(2))
+    plain = NEWT(generator=torch.Generator().manual_seed(2))
+    x, e = torch.randn(1, 16, 64), torch.randn(1, 2, 128)
+    assert torch.equal(remat(x, e), plain(x, e))
     g = torch.Generator().manual_seed(0)
     newt = NEWT(generator=g)
     exc, emb = torch.randn(1, 16, 64, generator=g), torch.randn(1, 2, 128, generator=g)
