@@ -7,12 +7,13 @@ Phases, each printed as one JSON line; any failure raises, so the run
 exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds the six kernels from ``kernels/csrc`` for sm_90a,
-   the forward (``newt_fused_cr.cu``), the backward
+2. build: nvcc builds the eight kernel sources of ``kernels/csrc`` for
+   sm_90a, the forward (``newt_fused_cr.cu``), the backward
    (``newt_fused_cr_bwd.cu``), the streaming forward
    (``newt_fused_stream.cu``), the audio-rate forward and backward
-   (``newt_fused_fl.cu``, ``newt_fused_fl_bwd.cu``) and the FastNEWT lookup
-   (``fast_newt_lookup.cu``), in parallel;
+   (``newt_fused_fl.cu``, ``newt_fused_fl_bwd.cu``), the FastNEWT lookup
+   (``fast_newt_lookup.cu``) and the exciter-fused forward and backward
+   (``newt_fused_x.cu``, ``newt_fused_x_bwd.cu``), in parallel;
 3. kernels: the forward kernel's wrapper on CUDA tensors against its plain
    PyTorch version on the same tensors (rtol=1e-4, atol=1e-5), and the
    kernel's FiLM interpolation bit for bit against ``linear_upsample``.
@@ -114,9 +115,35 @@ exits non-zero:
 17. timing_fl: medians of 20 after warm-up (CUDA events): both audio-rate
    kernels and their plain versions with bounds, and in turns (cr,
    full_lane, full_lane, cr) the training step, its peak memory and the
-   batch-8 x 4-s forward.
+   batch-8 x 4-s forward;
+18. serve_fused: ``Synthesizer.from_checkpoint(..., device="cuda")`` with
+   ``NeuralWaveshaping.fuse_exciter`` (xcr) and then also ``fuse_out_mixer``
+   (xfull) bound through gin renders phase 4's request sets: finite, not
+   silent, one launch of its exciter-fused kernel per render and none of
+   kernel 1; from injected offsets and noise the fused render against the
+   unfused one on the card (rtol 1e-4, atol 1e-5) and against the CPU's plain
+   versions (1e-3 nRMS); (B, H) offsets and H = 129 take the unfused path
+   (kernel 1, counted);
+19. kernel_xcr, kernel_xfull: the exciter-fused forwards against their plain
+   versions (rtol 1e-4, atol 1e-5) on the inputs the renders hand them
+   (caught by wrapping ``newt_fused._launch_forward_x``) at batch 8 and 1 x
+   4 s, then made-up odd Tc = 37, hop 64, H = 2 and 128, f0 up to ~2 kHz and a
+   ragged last pass; xfull plus the bias against xcr and NEWT's mixer;
+20. kernel_xcr_bwd, kernel_xfull_bwd: one ``Trainer`` step at batch 8 x 4 s
+   with each field set (counted: its pair once, kernels 1-2 never), its
+   backward inputs caught; the backwards against autograd through the plain
+   versions (rtol 1e-3, atol 1e-3 * max|plain| per output: d_film, d_w, d_b,
+   the planes, d_w_out) there and on made-up shapes, two calls bit-identical;
+21. train_fused_card_vs_cpu: phase 7 with each field set: its pair once,
+   kernels 1-2 never, loss within 1e-4 relative, the gradient rule;
+22. train_cli_fused: ``scripts/torch_train.py`` with the recipe and both
+   fields bound for 20 steps: xfull's pair only, counted; finite losses; the
+   checkpoint serves;
+23. timing_kernel_fused, timing_fused: the four kernels and their plain
+   versions with bounds, and in turns (off, xcr, xfull, xfull, xcr, off) the
+   batch-1 and batch-8 x 4-s forward, the training step and its peak memory.
 
-Then the kernels line (the numbers of phases 3-17 per kernel, with its
+Then the kernels line (the numbers of phases 3-23 per kernel, with its
 least possible time on an H100 from its bytes and operations) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN (the GRU), so the card computes in float32 like the CPU reference.
@@ -206,6 +233,23 @@ CADENCE_PUSHES = 200
 # ... and in fast_newt_lookup.cu: sub, mul, div, floor, max, min, sub (the
 # fraction), and the lerp's sub, mul, add = 10; bytes: x in, out, the table once
 LOOKUP_FLOP_PER_ELEMENT = 10
+# ... and in newt_fused_x.cu / newt_fused_x_bwd.cu (the exciter-fused
+# kernels). Per element: the forward is kernel 1's count plus the mixer's
+# bias; the backward is kernel 2's without its d_exciter multiply, plus the
+# mixer bias and db's add; xfull adds the output mix's multiply and add
+# (forward) and the cotangent's multiply and dw_out's four (backward). On
+# top, per element, the mix's H multiply-adds (2H; the backward 4H with the
+# mixer gradient's), and per sample the bank: the mask's multiply and compare
+# for each of the H harmonics, and each unmasked harmonic's sine (argument 2,
+# reduction 4, square 1, Horner 12, r*p 1 = 20): data-dependent, so counted
+# from the run's f0 (x_flop).
+XCR_FLOP_PER_ELEMENT = CR_FLOP_PER_ELEMENT + 1
+XCR_BWD_FLOP_PER_ELEMENT = CR_BWD_FLOP_PER_ELEMENT - 1 + 2
+XFULL_FLOP_PER_ELEMENT = XCR_FLOP_PER_ELEMENT + 2
+XFULL_BWD_FLOP_PER_ELEMENT = XCR_BWD_FLOP_PER_ELEMENT + 5
+X_MIX_FLOP_PER_HARMONIC = 2  # per element; twice that in the backward
+X_MASK_FLOP_PER_HARMONIC = 2  # per sample
+X_SINE_FLOP = 20  # per sample and unmasked harmonic
 KERNELS = list(_build.KERNELS)
 
 
@@ -719,13 +763,14 @@ def train_phases(dev, root, tmp):
 
 def caught_launches(name, fn, first=None):
     """Run ``fn`` with a hook on ``nf.<name>`` (a launch function of the
-    audio-rate kernels) -> the tensors of each launch (of the first
-    ``first`` launches), cloned: what the path hands the kernel."""
+    audio-rate or exciter-fused kernels) -> the arguments of each launch (of
+    the first ``first`` launches), tensors cloned: what the path hands the
+    kernel."""
     got, launch = [], getattr(nf, name)
 
     def catch(*args):
         if first is None or len(got) < first:
-            got.append(tuple(a.detach().clone() for a in args))
+            got.append(tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args))
         return launch(*args)
 
     setattr(nf, name, catch)
@@ -960,12 +1005,16 @@ def reset_counts():
     nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
     nf.film_shaper_fl.launches = nf.film_shaper_fl.bwd_launches = 0
     nf.film_shaper_stream.launches = fast_newt.fast_newt_lookup.launches = 0
+    nf.bank_film_shaper_xcr.launches = nf.bank_film_shaper_xcr.bwd_launches = 0
+    nf.bank_newt_xfull.launches = nf.bank_newt_xfull.bwd_launches = 0
 
 
 def counts():
     return {"cr": nf.film_shaper_cr.launches, "bwd": nf.film_shaper_cr.bwd_launches,
             "fl": nf.film_shaper_fl.launches, "fl_bwd": nf.film_shaper_fl.bwd_launches,
-            "stream": nf.film_shaper_stream.launches, "lookup": fast_newt.fast_newt_lookup.launches}
+            "stream": nf.film_shaper_stream.launches, "lookup": fast_newt.fast_newt_lookup.launches,
+            "xcr": nf.bank_film_shaper_xcr.launches, "xcr_bwd": nf.bank_film_shaper_xcr.bwd_launches,
+            "xfull": nf.bank_newt_xfull.launches, "xfull_bwd": nf.bank_newt_xfull.bwd_launches}
 
 
 def caught_lookups(fn):
@@ -1154,6 +1203,401 @@ def timbre_phases(dev, synth, cpu_synth):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def x_flop(args, backward):
+    """The exciter-fused kernel's operations on these launch arguments (the
+    bank's unmasked harmonics counted from the run's f0)."""
+    phase, f0, _, _, _, _, _, w_out, h, sample_rate, _ = args[:11]
+    xfull = w_out is not None
+    per_el = {(False, False): XCR_FLOP_PER_ELEMENT, (False, True): XCR_BWD_FLOP_PER_ELEMENT,
+              (True, False): XFULL_FLOP_PER_ELEMENT, (True, True): XFULL_BWD_FLOP_PER_ELEMENT}
+    k = torch.arange(1, h + 1, dtype=torch.float32, device=f0.device)
+    live = int(sum(int(((row[:, None] * k) < sample_rate / 2.0).sum()) for row in f0))
+    n_samples = f0.numel()
+    mix = X_MIX_FLOP_PER_HARMONIC * h * (2 if backward else 1)
+    return (n_samples * 64 * (per_el[(xfull, backward)] + mix)
+            + n_samples * X_MASK_FLOP_PER_HARMONIC * h + live * X_SINE_FLOP)
+
+
+def x_bytes(args, backward):
+    """Each input read once and each output written once: phase and f0, the
+    film, offsets, mixer, planes (and w_out); out (or dy, d_film and the
+    summed gradient table)."""
+    phase, f0, off, film_c, w, b, packed, w_out = args[:8]
+    n = phase.numel() * 2 + off.numel() + film_c.numel() + w.numel() + b.numel() + packed.numel()
+    n += 0 if w_out is None else w_out.numel()
+    out = phase.numel() * (1 if w_out is not None else 64)
+    if backward:  # dy in; d_film and the (170 + H + 1 [+ 1], 64) table out
+        out += film_c.numel() + (packed.numel() + w.numel() + b.numel() + (0 if w_out is None else 64))
+    return 4 * (n + out)
+
+
+def x_plain(args):
+    """The plain version of the exciter-fused forward on launch arguments."""
+    phase, f0, off, film_c, w, b, packed, w_out, h, sample_rate, hop = args
+    mixer, shaper = {"w": w, "b": b}, nf.unpack_weight_grads(packed)
+    if w_out is None:
+        return nf.bank_film_shaper_xcr_plain(phase, f0, off, film_c, mixer, shaper, h, sample_rate, hop)
+    return nf.bank_newt_xfull_plain(phase, f0, off, film_c, mixer, w_out, shaper, h, sample_rate, hop)
+
+
+def x_grad_plain(args):
+    phase, f0, off, film_c, w, b, packed, w_out, h, sample_rate, hop, dy = args
+    mixer, shaper = {"w": w, "b": b}, nf.unpack_weight_grads(packed)
+    if w_out is None:
+        return nf.bank_film_shaper_xcr_grad_plain(phase, f0, off, film_c, mixer, shaper, h,
+                                                  sample_rate, hop, dy)
+    return nf.bank_newt_xfull_grad_plain(phase, f0, off, film_c, mixer, w_out, shaper, h,
+                                         sample_rate, hop, dy)
+
+
+def check_x(label, args):
+    """Exciter-fused forward kernel vs its plain version -> max abs error."""
+    with torch.inference_mode():
+        out = nf._launch_forward_x(*args)
+        ref = x_plain(args)
+    torch.cuda.synchronize()
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    err = float(np.max(np.abs(out - ref)))
+    xfull = args[7] is not None
+    emit({"phase": "kernel_xfull" if xfull else "kernel_xcr",
+          "name": "bank_newt_fused_xfull" if xfull else "bank_film_shaper_fused_xcr", "case": label,
+          "B": args[0].shape[0], "Tc": args[3].shape[1], "hop": args[10], "H": args[8],
+          "max_abs_err": err, "rtol": RTOL, "atol": ATOL})
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL, err_msg=label)
+    return err
+
+
+def check_x_backward(label, args):
+    """Exciter-fused backward kernel vs autograd through the plain version,
+    every output, and two calls bit-identical -> max abs error."""
+    out = nf._launch_backward_x(*args)
+    again = nf._launch_backward_x(*args)
+    ref = x_grad_plain(args)
+    torch.cuda.synchronize()
+    bit_identical = all(torch.equal(a, b) for a, b in zip(out, again))
+    errs = {}
+    for name, o, r in zip(("d_film_c", "d_w", "d_b", "d_planes", "d_w_out"), out, ref):
+        o, r = o.cpu().numpy(), r.cpu().numpy()
+        errs[name] = (float(np.max(np.abs(o - r))), float(np.max(np.abs(r))))
+        np.testing.assert_allclose(o, r, rtol=BWD_RTOL, atol=BWD_RTOL * errs[name][1],
+                                   err_msg=f"{label} {name}")
+    xfull = args[7] is not None
+    emit({"phase": "kernel_xfull_bwd" if xfull else "kernel_xcr_bwd",
+          "name": "_fused_bwd_xfull" if xfull else "_fused_bwd_xcr", "case": label,
+          "B": args[0].shape[0], "Tc": args[3].shape[1], "hop": args[10], "H": args[8],
+          "outputs": len(out), "max_abs_err": {k: v[0] for k, v in errs.items()},
+          "max_abs_plain": {k: v[1] for k, v in errs.items()}, "rtol": BWD_RTOL,
+          "bit_identical_repeat": bit_identical})
+    if len(out) != len(ref) or len(out) != (5 if xfull else 4):
+        raise RuntimeError(f"{label}: {len(out)} backward outputs, plain {len(ref)}")
+    if not bit_identical:
+        raise RuntimeError(f"{label}: two exciter-fused backward calls gave different bits")
+    return max(v[0] for v in errs.values())
+
+
+def made_up_x_args(b, tc, hop, h, seed, dev, packed, xfull, backward=False):
+    """Launch arguments of made-up inputs: f0 from 110 Hz to ~2 kHz (the
+    antialias mask cuts real harmonics), its wrapped phase, offsets, film,
+    a 0.1-scaled mixer and w_out, the given planes."""
+    rng = np.random.default_rng(seed)
+    f0 = (110.0 * 2.0 ** rng.uniform(0, np.log2(2000 / 110), (b, tc * hop))).astype(np.float32)
+    phase = np.mod(2 * np.pi * np.cumsum(f0.astype(np.float64), -1) / SR, 2 * np.pi).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (
+        phase, f0, rng.uniform(-np.pi, np.pi, h).astype(np.float32),
+        rng.standard_normal((b, tc, 256)).astype(np.float32),
+        (rng.standard_normal((h, 64)) * 0.1).astype(np.float32),
+        (rng.standard_normal(64) * 0.1).astype(np.float32),
+        (rng.standard_normal(64) * 0.1).astype(np.float32))]
+    args = (*t[:6], packed, t[6] if xfull else None, h, float(SR), hop)
+    if not backward:
+        return args
+    shape = (b, tc * hop) if xfull else (b, tc * hop, 64)
+    return (*args, torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev))
+
+
+X_FIELDS = {"xcr": {"fuse_exciter": True}, "xfull": {"fuse_exciter": True, "fuse_out_mixer": True}}
+
+
+def synth_with(fields, device="cuda"):
+    """``Synthesizer.from_checkpoint`` with the fields bound through gin, as a
+    user binds them; the bindings are cleared after."""
+    gin.clear_config()
+    for name, value in fields.items():
+        gin.bind_parameter(f"NeuralWaveshaping.{name}", value)
+    try:
+        return Synthesizer.from_checkpoint(CKPT, device=device)
+    finally:
+        gin.clear_config()
+
+
+def set_fields(model, fields):
+    model.fuse_exciter = fields.get("fuse_exciter", False)
+    model.fuse_out_mixer = fields.get("fuse_out_mixer", False)
+
+
+def exciter_fused_phases(dev, synth, root, tmp, batch_requests, single_requests):
+    """Phases 18-23 (the exciter-fused kernels, NeuralWaveshaping.fuse_exciter
+    and fuse_out_mixer) -> the four kernels' numbers."""
+    synths = {kind: synth_with(fields) for kind, fields in X_FIELDS.items()}
+    launches = {"xcr": 0, "xcr_bwd": 0, "xfull": 0, "xfull_bwd": 0}
+
+    # 18. serve through the entry point a user calls, with the fields bound
+    for kind, s in synths.items():
+        rms = []
+        for requests in (batch_requests, single_requests):
+            reset_counts()
+            audio = s.render(requests, seed=0)
+            got = counts()
+            launches[kind] += got[kind]
+            expect = {k: int(k == kind) for k in ("xcr", "xfull", "cr", "fl", "lookup")}
+            if {k: got[k] for k in expect} != expect or got["bwd"] or got["xcr_bwd"] or got["xfull_bwd"]:
+                raise RuntimeError(f"serve_fused {kind}: launches {got}, expected {expect}")
+            for (f0, _), a in zip(requests, audio):
+                rms.append(float(np.sqrt(np.mean(a**2))))
+                if a.shape != (f0.shape[0] * HOP,) or not np.all(np.isfinite(a)) or rms[-1] < 1e-4:
+                    raise RuntimeError(f"serve_fused {kind}: bad render ({a.shape}, rms {rms[-1]})")
+        # fused vs unfused on the card and fused on the card vs the CPU, one
+        # request with injected offsets and noise; then (B, H) offsets fall back
+        f0_b, ctrl_b, _ = synth.prepare(make_requests([4, 2], seed=3))
+        rng = np.random.default_rng(4)
+        offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+        noise = torch.from_numpy(rng.uniform(0, 1, f0_b.shape[1] * HOP - 1).astype(np.float32))
+        cpu = synth_with(X_FIELDS[kind], device="cpu")
+        outs = {}
+        for name, model, d in (("fused", s.model, dev), ("unfused", synth.model, dev), ("cpu", cpu.model, "cpu")):
+            reset_counts()
+            with torch.inference_mode():
+                y = model(torch.from_numpy(f0_b).to(d), torch.from_numpy(ctrl_b).to(d),
+                          phase_offset=offset.to(d), noise=noise.to(d))
+            outs[name] = (y.cpu().numpy(), counts())
+        with torch.inference_mode():
+            reset_counts()
+            s.model(torch.from_numpy(f0_b).to(dev), torch.from_numpy(ctrl_b).to(dev),
+                    phase_offset=offset.to(dev)[None].repeat(f0_b.shape[0], 1), noise=noise.to(dev))
+            per_batch = counts()
+        fused_vs_unfused = float(np.max(np.abs(outs["fused"][0] - outs["unfused"][0])))
+        card_vs_cpu = nrms(outs["fused"][0], outs["cpu"][0])
+        emit({"phase": "serve_fused", "kind": kind, "fields": X_FIELDS[kind], "requests_s": [2, 4, 4, 7, 4],
+              "rms": rms, "launches": launches[kind], "fused_vs_unfused_max_abs": fused_vs_unfused,
+              "card_vs_cpu_nrms": card_vs_cpu, "bars": {"rtol": RTOL, "atol": ATOL, "nrms": 1e-3},
+              "launches_fused": outs["fused"][1], "launches_unfused": outs["unfused"][1],
+              "launches_per_batch_offsets": per_batch})
+        np.testing.assert_allclose(outs["fused"][0], outs["unfused"][0], rtol=RTOL, atol=ATOL)
+        if not card_vs_cpu <= 1e-3:
+            raise RuntimeError(f"serve_fused {kind}: card vs CPU nRMS {card_vs_cpu}")
+        if (outs["fused"][1][kind], outs["fused"][1]["cr"], outs["unfused"][1]["cr"]) != (1, 0, 1):
+            raise RuntimeError(f"serve_fused {kind}: launches {outs['fused'][1]}, {outs['unfused'][1]}")
+        if (per_batch["cr"], per_batch["xcr"], per_batch["xfull"]) != (1, 0, 0):
+            raise RuntimeError(f"serve_fused {kind}: (B, H) offsets launched {per_batch}")
+        del cpu
+    # a geometry supports_xcr refuses (H = 129 harmonics) takes the unfused path
+    gin.parse_config("HarmonicOscillator.n_harmonics = 129")
+    try:
+        wide = NeuralWaveshaping(fuse_exciter=True, generator=torch.Generator().manual_seed(0)).to(dev)
+    finally:
+        gin.clear_config()
+    reset_counts()
+    with torch.inference_mode():
+        wide(torch.full((1, 64), 220.0, device=dev), torch.zeros(1, 64, 2, device=dev),
+             generator=torch.Generator().manual_seed(0))
+    got = counts()
+    emit({"phase": "serve_fused_refused_geometry", "H": 129, "launches": got})
+    if (got["cr"], got["xcr"], got["xfull"]) != (1, 0, 0):
+        raise RuntimeError(f"H = 129 launched {got}")
+    del wide
+
+    # 19. the forward kernels on the inputs the path hands them, then made-up ones
+    renders = {}
+    for kind, s in synths.items():
+        for label, requests in (("render_b8_4s", make_requests([4] * 8, 6)), ("render_b1_4s", make_requests([4], 5))):
+            renders[(kind, label)] = caught_launches(
+                "_launch_forward_x", lambda: s.render(requests, seed=0))[0]
+    with torch.no_grad():
+        packed = synth.model.newt._packed_shaper()
+    cases = [(f"{label}_{kind}", args) for (kind, label), args in renders.items()]
+    for kind in X_FIELDS:
+        xfull = kind == "xfull"
+        for label, b, tc, hop, h in (("odd_tc", 1, 37, HOP, 101), ("hop_64", 2, 50, 64, 101),
+                                     ("h2", 2, 8, HOP, 2), ("h128", 2, 8, HOP, 128),
+                                     ("ragged_block", 1, 37, 5, 101)):
+            cases.append((f"{label}_{kind}", made_up_x_args(b, tc, hop, h, 50 + tc + h, dev, packed, xfull)))
+    fwd_err = {"xcr": 0.0, "xfull": 0.0}
+    for label, args in cases:
+        kind = "xfull" if args[7] is not None else "xcr"
+        fwd_err[kind] = max(fwd_err[kind], check_x(label, args))
+    # xfull plus the output mix's bias against xcr followed by NEWT's mixer
+    xcr_args = renders[("xcr", "render_b8_4s")]
+    newt = synth.model.newt
+    with torch.inference_mode():
+        shaped = nf._launch_forward_x(*xcr_args)
+        ref = newt.mixer(shaped)[..., 0]
+        xfull_out = nf._launch_forward_x(*xcr_args[:7], newt.mixer.w[:, 0].contiguous(), *xcr_args[8:])
+        xfull_out = xfull_out + newt.mixer.b[0]
+    torch.cuda.synchronize()
+    diff = float((xfull_out - ref).abs().max())
+    emit({"phase": "kernel_xfull_vs_xcr", "case": "render_b8_4s", "max_abs_diff": diff,
+          "rtol": RTOL, "atol": ATOL})
+    np.testing.assert_allclose(xfull_out.cpu().numpy(), ref.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    del cases, shaped, ref, xfull_out
+
+    # 20. the backward kernels on the inputs one Trainer step at batch 8 x 4 s
+    # hands them (counts zeroed just before, read just after), then made-up ones
+    dm = GeneralDataModule(root, batch_size=8)
+    batch = dm.dataset("train").batch(np.arange(8))
+    trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)),
+                      TrainConfig(), device="cuda")
+    step_args = {}
+    for kind, fields in X_FIELDS.items():
+        set_fields(trainer.model, fields)
+        reset_counts()
+        step_args[kind] = caught_launches("_launch_backward_x", lambda: trainer.train_step(batch))[0]
+        torch.cuda.synchronize()
+        got = counts()
+        expect = {kind: 1, f"{kind}_bwd": 1, "cr": 0, "bwd": 0, "fl": 0, "fl_bwd": 0}
+        emit({"phase": "train_step_fused", "kind": kind, "B": 8, "launches": got})
+        if any(got[k] != v for k, v in expect.items()):
+            raise RuntimeError(f"a {kind} training step launched {got}, expected {expect}")
+        launches[kind] += got[kind]
+        launches[f"{kind}_bwd"] += got[f"{kind}_bwd"]
+    set_fields(trainer.model, {})
+    bwd_err = {"xcr": 0.0, "xfull": 0.0}
+    for kind in X_FIELDS:
+        xfull = kind == "xfull"
+        bwd_cases = [("train_step_b8_4s", step_args[kind])]
+        for label, b, tc, hop, h in (("odd_tc", 1, 37, HOP, 101), ("hop_64", 2, 50, 64, 101),
+                                     ("h2", 1, 8, HOP, 2), ("h128", 1, 8, HOP, 128)):
+            bwd_cases.append((label, made_up_x_args(b, tc, hop, h, 70 + tc + h, dev, packed, xfull, True)))
+        bwd_err[kind] = max(check_x_backward(f"{label}_{kind}", args) for label, args in bwd_cases)
+        torch.cuda.empty_cache()
+
+    # 21. one step's loss and gradients, card against CPU, with each field set
+    clip = dm.dataset("train").batch(np.arange(1))
+    tc2 = min(2 * SR // HOP, clip["f0"].shape[1])
+    small = {k: torch.from_numpy(np.ascontiguousarray(clip[k][:, : tc2 * HOP if k == "audio" else tc2]))
+             for k in ("audio", "f0", "control")}
+    rng = np.random.default_rng(11)
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, tc2 * HOP - 1).astype(np.float32))
+    base = NeuralWaveshaping(generator=torch.Generator().manual_seed(1))
+    for kind, fields in X_FIELDS.items():
+        results = []
+        for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float32),
+                              (torch.device("cpu"), torch.float64)):
+            model = copy.deepcopy(base).to(device, dtype)
+            set_fields(model, fields)
+            reset_counts()
+            loss = compute_loss(model, {k: v.to(device, dtype) for k, v in small.items()},
+                                phase_offset=offset.to(device, dtype), noise=noise.to(device, dtype))
+            loss.backward()
+            results.append((float(loss.detach()), leaf_grads(model), counts()))
+        (card_loss, card, got), (cpu_loss, cpu, _), (exact_loss, exact, _) = results
+        rel, witness, failed, zero = grad_rule(card, cpu, exact)
+        worst = max(rel, key=rel.get)
+        expect = {kind: 1, f"{kind}_bwd": 1, "cr": 0, "bwd": 0}
+        launched = {k: got[k] for k in expect}
+        emit({"phase": "train_fused_card_vs_cpu", "kind": kind, "B": 1, "Tc": tc2, "loss_card": card_loss,
+              "loss_cpu": cpu_loss, "loss_cpu_f64": exact_loss,
+              "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss), "leaves": len(rel),
+              "worst_leaf": worst, "worst_rel": rel[worst],
+              "rel_harmonic_mixer": {n: rel[n] for n in rel if n.startswith("harmonic_mixer")},
+              "rel_newt_mixer_w": rel["newt.mixer.w"], "leaves_over_1e-3": witness,
+              "leaves_failed": failed, "zero_grad_leaves": zero, "launches": launched})
+        if abs(card_loss - cpu_loss) > 1e-4 * abs(cpu_loss) or zero or failed:
+            raise RuntimeError(f"train_fused_card_vs_cpu {kind}: the card differs from the CPU")
+        if launched != expect:
+            raise RuntimeError(f"train_fused_card_vs_cpu {kind}: launches {launched}, expected {expect}")
+
+    # 22. train through the CLI a user calls with both fields bound; counts
+    # zeroed just before and read just after; then serve its checkpoint
+    cli = load_train_cli()
+    args = ["--gin-file", "gin/train/train_newt.gin", "--dataset-path", root, "--device", "cuda",
+            "--checkpoint-dir", str(tmp / "cli_x_ckpt"), "--log-dir", str(tmp / "cli_x_logs"),
+            "-b", "NeuralWaveshaping.fuse_exciter = True", "-b", "NeuralWaveshaping.fuse_out_mixer = True",
+            "-b", f"TrainConfig.max_steps = {CLI_STEPS}",
+            "-b", f"TrainConfig.val_every_n_steps = {CLI_VAL_EVERY}",
+            "-b", "TrainConfig.log_every_n_steps = 5"]
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(args)
+        torch.cuda.synchronize()
+    finally:
+        gin.clear_config()
+    cli_s = time.perf_counter() - t0
+    got = counts()
+    with open(tmp / "cli_x_logs" / "metrics.csv") as f:
+        table = list(csv.DictReader(f))
+    losses = [float(r["train/loss"]) for r in table if r["train/loss"]]
+    val = [float(r["val/loss"]) for r in table if r["val/loss"]]
+    val_batches = len(list(dm.val_batches()))
+    expect = {"xfull": CLI_STEPS + val_batches * (CLI_STEPS // CLI_VAL_EVERY), "xfull_bwd": CLI_STEPS,
+              "xcr": 0, "xcr_bwd": 0, "cr": 0, "bwd": 0, "fl": 0, "fl_bwd": 0}
+    served = Synthesizer.from_checkpoint(str(tmp / "cli_x_ckpt" / "best.ckpt"), device="cuda")
+    audio = served.render(make_requests([4], seed=9), seed=0)[0]
+    emit({"phase": "train_cli_fused", "steps": CLI_STEPS, "seconds": cli_s, "launches": got,
+          "expected_launches": expect, "train_loss_windows": losses, "val_loss": val,
+          "served_rms": float(np.sqrt(np.mean(audio**2)))})
+    if any(got[k] != v for k, v in expect.items()):
+        raise RuntimeError(f"train_cli_fused launches {got}, expected {expect}")
+    if not losses or not val or not np.all(np.isfinite(losses + val)) or not np.all(np.isfinite(audio)):
+        raise RuntimeError("the fused CLI's losses or its checkpoint's render are not finite")
+    launches["xfull"] += got["xfull"]
+    launches["xfull_bwd"] += got["xfull_bwd"]
+
+    # 23. timing: the four kernels and their plain versions on the main path's
+    # batch-8 inputs; in turns, the forward at batch 1 and 8 x 4 s, the step and
+    # its peak memory, fusion off (bank, mixer, kernel 1 or 2), xcr and xfull
+    numbers = {}
+    for kind in X_FIELDS:
+        fa = renders[(kind, "render_b8_4s")]
+        ba = step_args[kind]
+        with torch.inference_mode():
+            f_ms = cuda_median_ms(lambda: nf._launch_forward_x(*fa))
+            f_plain = cuda_median_ms(lambda: x_plain(fa))
+        b_ms = cuda_median_ms(lambda: nf._launch_backward_x(*ba))
+        b_plain = cuda_median_ms(lambda: x_grad_plain(ba))
+        f_flop, f_bytes = x_flop(fa, False), x_bytes(fa, False)
+        b_flop, b_bytes = x_flop(ba, True), x_bytes(ba, True)
+        numbers[kind] = ((f_ms, f_plain, *bound(f_flop, f_bytes)), (b_ms, b_plain, *bound(b_flop, b_bytes)))
+        emit({"phase": "timing_kernel_fused", "kind": kind, "fwd_shape": list(fa[0].shape),
+              "fwd_kernel_ms": f_ms, "fwd_plain_ms": f_plain, "fwd_flop": f_flop, "fwd_bytes": f_bytes,
+              "fwd_bound_ms": numbers[kind][0][2], "fwd_bound_by": numbers[kind][0][3],
+              "fwd_share_of_bound": numbers[kind][0][2] / f_ms,
+              "bwd_shape": list(ba[0].shape), "bwd_kernel_ms": b_ms, "bwd_plain_ms": b_plain,
+              "bwd_flop": b_flop, "bwd_bytes": b_bytes, "bwd_bound_ms": numbers[kind][1][2],
+              "bwd_bound_by": numbers[kind][1][3], "bwd_share_of_bound": numbers[kind][1][2] / b_ms})
+    del renders, step_args
+    torch.cuda.empty_cache()
+    arms = {"off": {}, **X_FIELDS}
+    order = ["off", "xcr", "xfull", "xfull", "xcr", "off"]
+    inputs = {}
+    for label, requests in (("b1", make_requests([4], 5)), ("b8", make_requests([4] * 8, 6))):
+        f0_b, ctrl_b, _ = synth.prepare(requests)
+        inputs[label] = (torch.from_numpy(f0_b).to(dev), torch.from_numpy(ctrl_b).to(dev))
+    fwd = {"b1": {}, "b8": {}}
+    step, peak = {}, {}
+    for arm in order:
+        set_fields(synth.model, arms[arm])
+        set_fields(trainer.model, arms[arm])
+        for label, (f0_t, ctrl_t) in inputs.items():
+            gen = torch.Generator().manual_seed(0)
+            with torch.inference_mode():
+                fwd[label].setdefault(arm, []).append(
+                    cuda_median_ms(lambda: synth.model(f0_t, ctrl_t, generator=gen)))
+        step.setdefault(arm, []).append(cuda_median_ms(lambda: trainer.train_step(batch)))
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step(batch)
+        peak[arm] = torch.cuda.max_memory_allocated()
+    set_fields(synth.model, {})
+    emit({"phase": "timing_fused", "order": order, "forward_b1_4s_ms": fwd["b1"],
+          "forward_b8_4s_ms": fwd["b8"], "step_ms": step, "step_peak_mem_bytes": peak,
+          "x_realtime_b1": {a: [4.0 / (t / 1e3) for t in v] for a, v in fwd["b1"].items()},
+          "x_realtime_b8": {a: [32.0 / (t / 1e3) for t in v] for a, v in fwd["b8"].items()}})
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches, "fwd_err": fwd_err, "bwd_err": bwd_err, "numbers": numbers}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1301,6 +1745,7 @@ def main() -> int:
         root = write_tone_dataset(tmp / "data")
         train = train_phases(dev, root, tmp)
         fl = audio_rate_phases(dev, synth, root, tmp)
+        x = exciter_fused_phases(dev, synth, root, tmp, batch, single)
 
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
@@ -1344,7 +1789,20 @@ def main() -> int:
         "launches": fl["bwd_launches"], "max_abs_err": fl["bwd_max_abs_err"],
         "ms": fl["bwd"][0], "plain_ms": fl["bwd"][1], "bound_ms": fl["bwd"][2],
         "bound_by": fl["bwd"][3], "library_ms": None,
-    }]})
+    }] + [{
+        "name": name, "route": "cuda",
+        "source": f"neural_waveshaping_synthesis_tpu_torch/kernels/csrc/{source}",
+        "replaces": f"neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:{line}",
+        "launches": x["launches"][kind + ("_bwd" if bwd else "")],
+        "max_abs_err": (x["bwd_err"] if bwd else x["fwd_err"])[kind],
+        "ms": x["numbers"][kind][bwd][0], "plain_ms": x["numbers"][kind][bwd][1],
+        "bound_ms": x["numbers"][kind][bwd][2], "bound_by": x["numbers"][kind][bwd][3],
+        "library_ms": None,
+    } for name, source, line, kind, bwd in (
+        ("bank_film_shaper_fused_xcr", "newt_fused_x.cu", 1136, "xcr", 0),
+        ("_fused_bwd_xcr", "newt_fused_x_bwd.cu", 1199, "xcr", 1),
+        ("bank_newt_fused_xfull", "newt_fused_x.cu", 1383, "xfull", 0),
+        ("_fused_bwd_xfull", "newt_fused_x_bwd.cu", 1447, "xfull", 1))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

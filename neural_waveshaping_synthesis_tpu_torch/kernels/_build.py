@@ -31,6 +31,8 @@ KERNELS = (
     "newt_fused_fl",
     "newt_fused_fl_bwd",
     "fast_newt_lookup",
+    "newt_fused_x",
+    "newt_fused_x_bwd",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
@@ -54,8 +56,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """The library's path, named by a hash of its source, every header in
-    ``csrc/`` (``newt_shaper.cuh`` and ``newt_shaper_bwd.cuh`` are shared)
-    and the flags."""
+    ``csrc/`` (``newt_shaper.cuh``, ``newt_shaper_bwd.cuh`` and
+    ``newt_bank.cuh`` are shared) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]

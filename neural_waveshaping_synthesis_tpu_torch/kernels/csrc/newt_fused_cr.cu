@@ -37,15 +37,15 @@
 // weight read for several samples, packed f32x2 FMA.
 //
 // Where the numbers would trip, and what holds them:
-//  * FiLM interpolation is bit-exact to linear_upsample: the weight is ONE
-//    IEEE f32 division of exact integers, (2o+1 +- hop) / (2*hop), via
-//    __fdiv_rn (the build does not use --use_fast_math, which would make
-//    division approximate); the lerp left*(1-w) + right*w is written with
-//    __fsub_rn/__fmul_rn/__fadd_rn so that nvcc's default FMA contraction
-//    cannot fuse it. The head clamp (first half-hop of a clip copies frame
-//    0) is folded in as w = 0 between two copies of frame 0, which gives
-//    frame 0 exactly; the tail clamp is a lerp between two copies of the
-//    last frame, as in linear_upsample.
+//  * FiLM interpolation is bit-exact to linear_upsample (newt::film_at in
+//    newt_shaper.cuh): the weight is ONE IEEE f32 division of exact
+//    integers, (2o+1 +- hop) / (2*hop), via __fdiv_rn (the build does not
+//    use --use_fast_math, which would make division approximate); the lerp
+//    left*(1-w) + right*w is written with __fsub_rn/__fmul_rn/__fadd_rn so
+//    that nvcc's default FMA contraction cannot fuse it. The head clamp
+//    (first half-hop of a clip copies frame 0) is folded in as w = 0 between
+//    two copies of frame 0, which gives frame 0 exactly; the tail clamp is a
+//    lerp between two copies of the last frame, as in linear_upsample.
 //  * The polynomial sine: see newt_shaper.cuh.
 //  * Index arithmetic: samples are counted in 32-bit ints (the wrapper
 //    refuses B*Ta > 2^30, so the strided index cannot overflow), element
@@ -62,11 +62,6 @@ using newt::kRows;
 constexpr int kThreads = 256;  // 4 samples x 64 channels per block pass
 constexpr int kSamplesPerPass = kThreads / kC;
 
-__device__ __forceinline__ float lerp_exact(float left, float right, float w,
-                                            float one_minus_w) {
-  return __fadd_rn(__fmul_rn(left, one_minus_w), __fmul_rn(right, w));
-}
-
 __global__ void __launch_bounds__(kThreads)
 film_shaper_cr_kernel(const float* __restrict__ exciter,
                       const float* __restrict__ film,
@@ -78,34 +73,16 @@ film_shaper_cr_kernel(const float* __restrict__ exciter,
   __syncthreads();
 
   const int c = threadIdx.x % kC;
-  const float den = static_cast<float>(2 * hop);
   const int stride = gridDim.x * kSamplesPerPass;
 
   for (int s = blockIdx.x * kSamplesPerPass + threadIdx.x / kC; s < n_samples;
        s += stride) {
     const int b = s / ta;
-    const int t = s - b * ta;
-    const int m = t / hop;
-    const int two_o1 = 2 * (t - m * hop) + 1;
-    const bool lo = two_o1 < hop;
-    const int f_left = lo ? max(m - 1, 0) : m;
-    const int f_right = lo ? m : min(m + 1, tc - 1);
-    float w = __fdiv_rn(static_cast<float>(lo ? two_o1 + hop : two_o1 - hop),
-                        den);
-    if (lo && m == 0) w = 0.0f;  // head clamp: frame 0 exactly
-    const float omw = __fsub_rn(1.0f, w);
-
-    const long long row = static_cast<long long>(b) * tc;
-    const float* fl = film + (row + f_left) * (4 * kC) + c;
-    const float* fr = film + (row + f_right) * (4 * kC) + c;
-    const float g_in = lerp_exact(fl[0], fr[0], w, omw);
-    const float b_in = lerp_exact(fl[kC], fr[kC], w, omw);
-    const float g_out = lerp_exact(fl[2 * kC], fr[2 * kC], w, omw);
-    const float b_out = lerp_exact(fl[3 * kC], fr[3 * kC], w, omw);
-
+    float f[4];  // gamma_in, beta_in, gamma_out, beta_out
+    newt::film_at(film + static_cast<long long>(b) * tc * (4 * kC), s - b * ta, hop, tc, c, f);
     const long long e = static_cast<long long>(s) * kC + c;
-    const float y = newt::shaper(g_in * exciter[e] + b_in, sw, c);
-    out[e] = g_out * y + b_out;
+    const float y = newt::shaper(f[0] * exciter[e] + f[1], sw, c);
+    out[e] = f[2] * y + f[3];
   }
 }
 

@@ -36,9 +36,10 @@
 //    segment's FiLM frames {m-1, m, m+1} (clamped) are read once into
 //    registers and its FiLM cotangents are summed in registers, indexed by
 //    the clamped frame (slot 0, 1, 2 = frame m-1, m, m+1), with no
-//    reduction across threads. The per-sample recompute and chain rule
-//    are newt_shaper_bwd.cuh, shared with the audio-rate backward
-//    newt_fused_fl_bwd.cu.
+//    reduction across threads (newt::FilmSegment, shared with the
+//    exciter-fused backward newt_fused_x_bwd.cu). The per-sample recompute
+//    and chain rule are newt_shaper_bwd.cuh, shared with the audio-rate
+//    backward newt_fused_fl_bwd.cu.
 //  * Weight-gradient sums: each thread has an exclusive (170,) slot in
 //    shared memory, (4, 170, 64) f32 = 174 KB beside the 43.5 KB of weight
 //    planes (dynamic shared memory, one block per SM). A warp's slot
@@ -49,9 +50,9 @@
 //    two calls give the same bits. Each block writes its 4 slots summed in
 //    row order as one (170, 64) partial; each segment writes its (3, 256)
 //    FiLM partial. Then sum_weight_partials adds the block partials in
-//    block order and fold_film_partials adds, for frame f, segment f-1's
-//    slot 2, segment f's slot 1 and segment f+1's slot 0, in that order
-//    (the analogue of _unwindow_dfilm).
+//    block order and fold_film_partials (newt_shaper_bwd.cuh) adds, for
+//    frame f, segment f-1's slot 2, segment f's slot 1 and segment f+1's
+//    slot 0, in that order (the analogue of _unwindow_dfilm).
 //
 // Exactness, as the forward: the recomputed FiLM lerp is the forward's,
 // bit for bit (one __fdiv_rn weight, __fmul_rn/__fadd_rn lerp, head clamp
@@ -70,11 +71,6 @@ constexpr int kRowsPerBlock = 4;
 constexpr int kThreads = kRowsPerBlock * kC;
 // weight planes + one weight-gradient slot per thread
 constexpr size_t kSmemBytes = static_cast<size_t>(1 + kRowsPerBlock) * kPlane * sizeof(float);
-
-__device__ __forceinline__ float lerp_exact(float left, float right, float w,
-                                            float one_minus_w) {
-  return __fadd_rn(__fmul_rn(left, one_minus_w), __fmul_rn(right, w));
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 film_shaper_cr_bwd_kernel(const float* __restrict__ exciter,
@@ -95,38 +91,18 @@ film_shaper_cr_bwd_kernel(const float* __restrict__ exciter,
   const int c = threadIdx.x % kC;
   const int r = threadIdx.x / kC;
   float* my = acc + r * kPlane + c;  // my[k * kC]: plane row k of my slot
-  const float den = static_cast<float>(2 * hop);
 
   for (int seg = blockIdx.x * kRowsPerBlock + r; seg < n_seg;
        seg += gridDim.x * kRowsPerBlock) {
     const int b = seg / tc;
-    const int m = seg - b * tc;
-    const bool has_next = m + 1 < tc;
-    const long long row = static_cast<long long>(b) * tc;
-    const float* fp = film + (row + max(m - 1, 0)) * (4 * kC) + c;
-    const float* fm = film + (row + m) * (4 * kC) + c;
-    const float* fn = film + (row + min(m + 1, tc - 1)) * (4 * kC) + c;
-    float f_prev[4], f_mid[4], f_next[4];
-    float s0[4], s1[4], s2[4];  // FiLM cotangents of frames m-1, m, m+1
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      f_prev[a] = fp[a * kC];
-      f_mid[a] = fm[a * kC];
-      f_next[a] = fn[a * kC];
-      s0[a] = s1[a] = s2[a] = 0.0f;
-    }
+    newt::FilmSegment fs;
+    fs.load(film + static_cast<long long>(b) * tc * (4 * kC), seg - b * tc, tc, hop, c);
 
     for (int o = 0; o < hop; ++o) {
       // FiLM lerp, exactly as newt_fused_cr.cu
-      const int two_o1 = 2 * o + 1;
-      const bool lo = two_o1 < hop;
-      float w = __fdiv_rn(static_cast<float>(lo ? two_o1 + hop : two_o1 - hop), den);
-      if (lo && m == 0) w = 0.0f;
-      const float omw = __fsub_rn(1.0f, w);
-      float film_a[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        film_a[a] = lerp_exact(lo ? f_prev[a] : f_mid[a], lo ? f_mid[a] : f_next[a], w, omw);
+      float film_a[4], w, omw;
+      bool lo;
+      fs.at(o, film_a, &w, &omw, &lo);
       const float g_in = film_a[0], b_in = film_a[1], g_out = film_a[2];
 
       // forward recompute and chain rule (JAX _bwd_core), newt_shaper_bwd.cuh
@@ -139,53 +115,16 @@ film_shaper_cr_bwd_kernel(const float* __restrict__ exciter,
       d_exciter[e] = dx * g_in;
 
       // FiLM cotangents (d gamma_in, d beta_in, d gamma_out, d beta_out)
-      // into the clamped frames' slots, left weight 1-w, right weight w
       const float d_film[4] = {dx * xin, dx, g * y, g};
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float dl = omw * d_film[a];
-        const float dr = w * d_film[a];
-        if (lo) {
-          if (m > 0) s0[a] += dl; else s1[a] += dl;
-          s1[a] += dr;
-        } else {
-          s1[a] += dl;
-          if (has_next) s2[a] += dr; else s1[a] += dr;
-        }
-      }
+      fs.add(d_film, w, omw, lo);
     }
-
-    float* part = film_part + static_cast<long long>(seg) * 3 * (4 * kC) + c;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      part[a * kC] = s0[a];
-      part[4 * kC + a * kC] = s1[a];
-      part[8 * kC + a * kC] = s2[a];
-    }
+    fs.store(film_part + static_cast<long long>(seg) * 3 * (4 * kC) + c);
   }
 
   __syncthreads();
   float* out = w_part + static_cast<long long>(blockIdx.x) * kPlane;
   for (int i = threadIdx.x; i < kPlane; i += kThreads)
     out[i] = ((acc[i] + acc[kPlane + i]) + acc[2 * kPlane + i]) + acc[3 * kPlane + i];
-}
-
-// d_film[b, f, j] = part[f-1, slot 2] + part[f, slot 1] + part[f+1, slot 0]
-// over the segments of clip b that exist, in that order.
-__global__ void fold_film_partials(const float* __restrict__ part,
-                                   float* __restrict__ d_film, long long n, int tc) {
-  const int width = 4 * kC;
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       idx < n; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long seg = idx / width;
-    const int j = static_cast<int>(idx - seg * width);
-    const int f = static_cast<int>(seg % tc);
-    float s = 0.0f;
-    if (f > 0) s += part[((seg - 1) * 3 + 2) * width + j];
-    s += part[(seg * 3 + 1) * width + j];
-    if (f + 1 < tc) s += part[((seg + 1) * 3 + 0) * width + j];
-    d_film[idx] = s;
-  }
 }
 
 }  // namespace
@@ -231,12 +170,9 @@ extern "C" int newt_fused_cr_backward(const float* exciter, const float* film,
       exciter, film, weights, dy, d_exciter, film_part, w_part, b * tc, tc, hop);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  newt::sum_weight_partials<<<(kPlane + 255) / 256, 256, 0, s>>>(w_part, d_planes, blocks);
+  newt::sum_weight_partials<<<(kPlane + 255) / 256, 256, 0, s>>>(w_part, d_planes, kPlane,
+                                                                  blocks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = static_cast<long long>(b) * tc * 4 * kC;
-  const long long want = (n + 255) / 256;
-  const int grid = static_cast<int>(want < 65535 ? want : 65535);
-  fold_film_partials<<<grid, 256, 0, s>>>(film_part, d_film, n, tc);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(newt::fold_film(film_part, d_film, b, tc, s));
 }

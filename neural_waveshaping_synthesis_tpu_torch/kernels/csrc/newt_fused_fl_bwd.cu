@@ -143,6 +143,7 @@ extern "C" int newt_fused_fl_backward(const float* exciter, const float* film,
       exciter, film, weights, dy, d_exciter, d_film, w_part, n_samples);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  newt::sum_weight_partials<<<(kPlane + 255) / 256, 256, 0, s>>>(w_part, d_planes, blocks);
+  newt::sum_weight_partials<<<(kPlane + 255) / 256, 256, 0, s>>>(w_part, d_planes, kPlane,
+                                                                  blocks);
   return static_cast<int>(cudaGetLastError());
 }

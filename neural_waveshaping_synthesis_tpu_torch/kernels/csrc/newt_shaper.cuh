@@ -1,7 +1,9 @@
 // The learned sine-shaper bank of one (sample, channel), float32: what the
-// forward kernels newt_fused_cr.cu (offline FiLM upsample) and
-// newt_fused_stream.cu (streaming FiLM ramp) share once each has its four
-// FiLM values in registers.
+// forward kernels newt_fused_cr.cu (offline FiLM upsample),
+// newt_fused_stream.cu (streaming FiLM ramp), newt_fused_fl.cu (audio-rate
+// FiLM) and newt_fused_x.cu (exciter-fused) share once each has its four
+// FiLM values in registers; and the control-rate FiLM lerp (film_at) of
+// newt_fused_cr.cu and newt_fused_x.cu.
 //
 // The weights are the packed (170, 64) planes of kernels/newt_fused.py
 // pack_weights, channel fastest (the JAX pack_weights layout), staged in
@@ -56,6 +58,38 @@ __device__ __forceinline__ float psin(float x) {
   p = p * s + kS1;
   p = p * s + kS0;
   return r * p;
+}
+
+// left*(1-w) + right*w written with __fmul_rn/__fadd_rn, so that nvcc's
+// default FMA contraction cannot fuse it: the in-kernel FiLM then equals
+// ops/upsample.py linear_upsample bit for bit.
+__device__ __forceinline__ float lerp_exact(float left, float right, float w,
+                                            float one_minus_w) {
+  return __fadd_rn(__fmul_rn(left, one_minus_w), __fmul_rn(right, w));
+}
+
+// The four FiLM values (gamma_in, beta_in, gamma_out, beta_out) of channel c
+// at audio sample t of a clip, from the clip's (tc, 4*kC) control-rate
+// frames at `clip`: linear_upsample's align_corners=False lerp between two
+// frames. The weight is ONE IEEE division of exact integers, (2o+1 +- hop) /
+// (2*hop) (__fdiv_rn; the build does not use --use_fast_math); the head
+// clamp (the first half-hop copies frame 0) is a lerp of weight 0 between
+// two copies of frame 0, the tail clamp one between two copies of the last.
+__device__ __forceinline__ void film_at(const float* clip, int t, int hop, int tc, int c,
+                                        float film[4]) {
+  const int m = t / hop;
+  const int two_o1 = 2 * (t - m * hop) + 1;
+  const bool lo = two_o1 < hop;
+  const int f_left = lo ? max(m - 1, 0) : m;
+  const int f_right = lo ? m : min(m + 1, tc - 1);
+  float w = __fdiv_rn(static_cast<float>(lo ? two_o1 + hop : two_o1 - hop),
+                      static_cast<float>(2 * hop));
+  if (lo && m == 0) w = 0.0f;  // head clamp: frame 0 exactly
+  const float omw = __fsub_rn(1.0f, w);
+  const float* fl = clip + static_cast<long long>(f_left) * (4 * kC) + c;
+  const float* fr = clip + static_cast<long long>(f_right) * (4 * kC) + c;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) film[a] = lerp_exact(fl[a * kC], fr[a * kC], w, omw);
 }
 
 // Copies the (kRows, kC) weight planes into shared memory; the caller

@@ -37,13 +37,26 @@ one hop (``segment_interp``) instead of the offline upsample:
 :func:`film_shaper_stream` its wrapper, which launches
 ``csrc/newt_fused_stream.cu`` on CUDA tensors (forward only) and counts
 ``film_shaper_stream.launches``.
+
+The exciter-fused counterparts (JAX ``bank_film_shaper_fused_xcr`` and
+``bank_newt_fused_xfull``, reached through ``NeuralWaveshaping.fuse_exciter``
+and ``fuse_out_mixer``) take the (B, Ta) wrapped phase and f0 in place of the
+exciter and build the harmonic bank and the H -> C mix in the kernel:
+:func:`bank_film_shaper_xcr_plain` and :func:`bank_newt_xfull_plain` (the
+latter with NEWT's C -> 1 output mix, bias excluded) are their plain
+versions, the ``..._grad_plain`` functions their backwards', and
+:func:`bank_film_shaper_xcr` / :func:`bank_newt_xfull` the wrappers, which
+launch ``csrc/newt_fused_x.cu`` on CUDA tensors and, for a gradient,
+``csrc/newt_fused_x_bwd.cu`` through :class:`_BankFilmShaperX`; each counts
+``.launches`` and ``.bwd_launches``. :func:`supports_xcr` is their gate.
 """
 import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..models.modules import film, shaper_apply
+from ..models.modules import dense_apply, film, shaper_apply
+from ..ops.oscillator import bank_from_wrapped_phase
 from ..ops.upsample import linear_upsample, segment_interp
 from . import _build
 
@@ -152,21 +165,24 @@ def film_shaper_cr_grad_plain(
         return torch.autograd.grad(out, (exc, film_c, planes), dy)
 
 
-def _lib(name: str, symbol: str, n_ptrs: int, n_ints: int = 4) -> ctypes.CDLL:
+def _lib(name: str, symbol: str, n_ptrs: int, n_ints: int = 4, n_floats: int = 0) -> ctypes.CDLL:
     lib = _build.load(name)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
+        )
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_tensors(exciter: torch.Tensor, **others: torch.Tensor) -> None:
-    """Every tensor float32, contiguous and on the exciter's device."""
-    dev = exciter.device
-    for name, t in (("exciter", exciter), *others.items()):
+def _check_tensors(**tensors: torch.Tensor) -> None:
+    """Every tensor float32, contiguous and on the first one's device."""
+    first, dev = next((name, t.device) for name, t in tensors.items())
+    for name, t in tensors.items():
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, exciter on {dev}")
+            raise ValueError(f"{name} is on {t.device}, {first} on {dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
@@ -174,7 +190,7 @@ def _check_tensors(exciter: torch.Tensor, **others: torch.Tensor) -> None:
 
 
 def _check(exciter: torch.Tensor, film_c: torch.Tensor, weights: torch.Tensor, hop: int):
-    _check_tensors(exciter, film_c=film_c, shaper_weights=weights)
+    _check_tensors(exciter=exciter, film_c=film_c, shaper_weights=weights)
     if exciter.dim() != 3 or exciter.shape[2] != C:
         raise ValueError(f"exciter must be (B, Ta, {C}), got {tuple(exciter.shape)}")
     b, ta, _ = exciter.shape
@@ -372,7 +388,7 @@ def _check_fl(exciter: torch.Tensor, film_a: torch.Tensor, weights: torch.Tensor
     """What the audio-rate kernels take: (B, Ta, C) exciter and (B, Ta, 4C)
     film with 1 <= B*Ta <= 2^30 (odd B*Ta included: JAX's even B*Ta and
     padded tile were TPU layout limits) and the (170, C) planes."""
-    _check_tensors(exciter, film=film_a, shaper_weights=weights)
+    _check_tensors(exciter=exciter, film=film_a, shaper_weights=weights)
     if exciter.dim() != 3 or exciter.shape[2] != C:
         raise ValueError(f"exciter must be (B, Ta, {C}), got {tuple(exciter.shape)}")
     b, ta, _ = exciter.shape
@@ -562,3 +578,298 @@ def film_shaper_stream(
 
 
 film_shaper_stream.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# exciter-fused: the harmonic bank and the H -> C mixer computed in the
+# kernel from the wrapped phase and f0 (JAX bank_film_shaper_fused_xcr), and
+# with NEWT's C -> 1 output mix as well (JAX bank_newt_fused_xfull)
+# ---------------------------------------------------------------------------
+H_MAX = 128  # the most harmonics the exciter-fused kernels take (JAX's bound)
+_SAMPLES_PER_PASS = 4  # kSamplesPerPass of newt_fused_x.cu
+_X_ROWS_PER_BLOCK = 2  # kRowsPerBlock of newt_fused_x_bwd.cu
+
+
+def supports_xcr(shaper, n_audio: int, n_control: int, n_harmonics: int) -> bool:
+    """The exciter-fused kernels' gate: :func:`supports_cr` (the shipped
+    shaper, any integer hop, any Tc) and 2 <= H <= :data:`H_MAX`, the
+    bound the kernels' shared memory is sized for."""
+    return supports_cr(shaper, n_audio, n_control) and 2 <= n_harmonics <= H_MAX
+
+
+def bank_film_shaper_xcr_plain(
+    phase_w: torch.Tensor,
+    f0_up: torch.Tensor,
+    offsets: torch.Tensor,
+    film_c: torch.Tensor,
+    mixer_params: Dict,
+    shaper_params: Dict,
+    n_harmonics: int,
+    sample_rate: float,
+    hop: int,
+) -> torch.Tensor:
+    """The plain version of the xcr kernel: (B, Ta) wrapped phase and f0 ->
+    ``bank_from_wrapped_phase`` (B, Ta, H) -> the harmonic mixer ``x @ w +
+    b`` (B, Ta, C) -> :func:`film_shaper_cr_plain` with the (B, Tc, 4C)
+    control-rate film -> (B, Ta, C)."""
+    bank = bank_from_wrapped_phase(phase_w, f0_up, n_harmonics, sample_rate, offsets)
+    return film_shaper_cr_plain(dense_apply(mixer_params, bank), film_c, shaper_params, hop)
+
+
+def bank_newt_xfull_plain(
+    phase_w: torch.Tensor,
+    f0_up: torch.Tensor,
+    offsets: torch.Tensor,
+    film_c: torch.Tensor,
+    mixer_params: Dict,
+    w_out: torch.Tensor,
+    shaper_params: Dict,
+    n_harmonics: int,
+    sample_rate: float,
+    hop: int,
+) -> torch.Tensor:
+    """The plain version of the xfull kernel: :func:`bank_film_shaper_xcr_plain`
+    then NEWT's C -> 1 output mix with the (C,) weights ``w_out``, its bias
+    left out -> (B, Ta)."""
+    shaped = bank_film_shaper_xcr_plain(
+        phase_w, f0_up, offsets, film_c, mixer_params, shaper_params, n_harmonics, sample_rate, hop
+    )
+    return torch.matmul(shaped, w_out)
+
+
+def _x_grad_plain(phase_w, f0_up, offsets, film_c, mixer_params, w_out, shaper_params,
+                  n_harmonics, sample_rate, hop, dy):
+    with torch.enable_grad():
+        film_c = film_c.detach().requires_grad_()
+        w = mixer_params["w"].detach().requires_grad_()
+        b = mixer_params["b"].detach().requires_grad_()
+        planes = pack_weights(shaper_params).detach().requires_grad_()
+        args = (phase_w, f0_up, offsets, film_c, {"w": w, "b": b})
+        shaper = unpack_weight_grads(planes)
+        if w_out is None:
+            out = bank_film_shaper_xcr_plain(*args, shaper, n_harmonics, sample_rate, hop)
+            return torch.autograd.grad(out, (film_c, w, b, planes), dy)
+        w_out = w_out.detach().requires_grad_()
+        out = bank_newt_xfull_plain(*args, w_out, shaper, n_harmonics, sample_rate, hop)
+        return torch.autograd.grad(out, (film_c, w, b, planes, w_out), dy)
+
+
+def bank_film_shaper_xcr_grad_plain(
+    phase_w, f0_up, offsets, film_c, mixer_params, shaper_params, n_harmonics, sample_rate, hop, dy
+):
+    """The plain version of the xcr backward (JAX ``_fused_bwd_xcr``):
+    ``torch.autograd.grad`` through :func:`bank_film_shaper_xcr_plain` with
+    cotangent ``dy`` (B, Ta, C) -> (d_film_c (B, Tc, 4C), d_w (H, C), d_b
+    (C,), d_planes (170, C)). Phase, f0 and offsets get none, as in JAX."""
+    return _x_grad_plain(phase_w, f0_up, offsets, film_c, mixer_params, None, shaper_params,
+                         n_harmonics, sample_rate, hop, dy)
+
+
+def bank_newt_xfull_grad_plain(
+    phase_w, f0_up, offsets, film_c, mixer_params, w_out, shaper_params, n_harmonics,
+    sample_rate, hop, dy
+):
+    """The plain version of the xfull backward (JAX ``_fused_bwd_xfull``):
+    as :func:`bank_film_shaper_xcr_grad_plain` with the (B, Ta) cotangent of
+    the output mix, and d_w_out (C,) last."""
+    return _x_grad_plain(phase_w, f0_up, offsets, film_c, mixer_params, w_out, shaper_params,
+                         n_harmonics, sample_rate, hop, dy)
+
+
+def _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop):
+    """What the exciter-fused kernels take: (B, Ta) phase and f0, (B, Tc, 4C)
+    film with Ta = Tc * hop, (H,) offsets, (H, C) and (C,) mixer, the (170,
+    C) planes and, for xfull, the (C,) output-mix weights; 2 <= H <= 128,
+    1 <= B*Ta <= 2^30."""
+    tensors = dict(phase=phase, f0=f0, offsets=offsets, film_c=film_c, mixer_w=w, mixer_b=b,
+                   shaper_weights=weights)
+    if w_out is not None:
+        tensors["w_out"] = w_out
+    _check_tensors(**tensors)
+    if phase.dim() != 2 or f0.shape != phase.shape:
+        raise ValueError(f"phase and f0 must be one (B, Ta), got {tuple(phase.shape)}, {tuple(f0.shape)}")
+    bsz, ta = phase.shape
+    if film_c.dim() != 3 or film_c.shape[0] != bsz or film_c.shape[2] != 4 * C:
+        raise ValueError(f"film_c must be ({bsz}, Tc, {4 * C}), got {tuple(film_c.shape)}")
+    tc = film_c.shape[1]
+    if not 1 <= hop <= _MAX_HOP or tc < 1 or ta != tc * hop:
+        raise ValueError(f"need Ta = Tc * hop with 1 <= hop <= {_MAX_HOP}: Ta={ta}, Tc={tc}, hop={hop}")
+    if not 1 <= bsz * ta <= _MAX_SAMPLES:
+        raise ValueError(f"need 1 <= B*Ta <= {_MAX_SAMPLES}, got {bsz * ta}")
+    h = n_harmonics
+    if not 2 <= h <= H_MAX or offsets.shape != (h,) or w.shape != (h, C) or b.shape != (C,):
+        raise ValueError(
+            f"need 2 <= H <= {H_MAX}, offsets ({h},), mixer w ({h}, {C}) and b ({C},): got "
+            f"{tuple(offsets.shape)}, {tuple(w.shape)}, {tuple(b.shape)}"
+        )
+    if tuple(weights.shape) != (170, C):
+        raise ValueError(f"packed weights must be (170, {C}), got {tuple(weights.shape)}")
+    if w_out is not None and w_out.shape != (C,):
+        raise ValueError(f"w_out must be ({C},), got {tuple(w_out.shape)}")
+
+
+def _launch_forward_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, sample_rate, hop):
+    """``csrc/newt_fused_x.cu``: xcr -> (B, Ta, C) when ``w_out`` is None,
+    xfull -> (B, Ta) otherwise."""
+    _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop)
+    bsz, ta = phase.shape
+    xfull = w_out is not None
+    out = phase.new_empty((bsz, ta) if xfull else (bsz, ta, C))
+    query = "newt_fused_xfull_resident_blocks" if xfull else "newt_fused_xcr_resident_blocks"
+    with torch.cuda.device(phase.device):
+        lib = _lib("newt_fused_x", "newt_fused_x_forward", 9, n_ints=6, n_floats=1)
+        needed = -(-bsz * ta // _SAMPLES_PER_PASS)
+        blocks = min(needed, _resident_blocks(lib, query, phase.device))
+        stream = torch.cuda.current_stream(phase.device).cuda_stream
+        err = lib.newt_fused_x_forward(
+            phase.data_ptr(), f0.data_ptr(), offsets.data_ptr(), film_c.data_ptr(),
+            w.data_ptr(), b.data_ptr(), weights.data_ptr(), w_out.data_ptr() if xfull else None,
+            out.data_ptr(), bsz * ta, ta, film_c.shape[1], hop, n_harmonics, blocks,
+            sample_rate / 2.0, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"newt_fused_x_forward did not launch: CUDA error {err}")
+    (bank_newt_xfull if xfull else bank_film_shaper_xcr).launches += 1
+    return out
+
+
+def _launch_backward_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics,
+                       sample_rate, hop, dy):
+    """``csrc/newt_fused_x_bwd.cu`` -> (d_film_c, d_w, d_b, d_planes) and,
+    for xfull (``w_out`` given), d_w_out. The block partials of the summed
+    gradients (planes, mixer w, b and w_out in one (rows, C) table) and the
+    per-segment FiLM partials are allocated here: one block per 2 segments,
+    at most what is resident."""
+    _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop)
+    xfull = w_out is not None
+    out_shape = phase.shape if xfull else (*phase.shape, C)
+    if (dy.shape != out_shape or dy.dtype != torch.float32 or dy.device != phase.device
+            or not dy.is_contiguous()):
+        raise ValueError(f"dy must be contiguous float32 {tuple(out_shape)} on {phase.device}")
+    bsz, ta = phase.shape
+    tc = film_c.shape[1]
+    h = n_harmonics
+    rows = 170 + h + 1 + int(xfull)  # planes, mixer w, mixer b, w_out
+    d_film = torch.empty_like(film_c)
+    grads = phase.new_empty((rows, C))
+    query = ("newt_fused_xfull_backward_resident_blocks" if xfull
+             else "newt_fused_xcr_backward_resident_blocks")
+    with torch.cuda.device(phase.device):
+        lib = _lib("newt_fused_x_bwd", "newt_fused_x_backward", 13, n_ints=5, n_floats=1)
+        needed = -(-bsz * tc // _X_ROWS_PER_BLOCK)
+        blocks = min(needed, _resident_blocks(lib, query, phase.device))
+        film_part = phase.new_empty((bsz * tc, 3, 4 * C))
+        part = phase.new_empty((blocks, rows, C))
+        stream = torch.cuda.current_stream(phase.device).cuda_stream
+        err = lib.newt_fused_x_backward(
+            phase.data_ptr(), f0.data_ptr(), offsets.data_ptr(), film_c.data_ptr(),
+            w.data_ptr(), b.data_ptr(), weights.data_ptr(), w_out.data_ptr() if xfull else None,
+            dy.data_ptr(), d_film.data_ptr(), grads.data_ptr(), film_part.data_ptr(),
+            part.data_ptr(), bsz, ta, tc, h, blocks, sample_rate / 2.0, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"newt_fused_x_backward did not launch: CUDA error {err}")
+    (bank_newt_xfull if xfull else bank_film_shaper_xcr).bwd_launches += 1
+    out = (d_film, grads[170:170 + h], grads[170 + h], grads[:170])
+    return (*out, grads[171 + h]) if xfull else out
+
+
+class _BankFilmShaperX(torch.autograd.Function):
+    """The exciter-fused kernel pair as one differentiable function of
+    (film_c, mixer w, mixer b, packed planes, w_out); phase, f0 and offsets
+    are data and get no gradient, as in JAX. Forward saves only its inputs;
+    backward recomputes the bank, the mix and the chain in the kernel."""
+
+    @staticmethod
+    def forward(ctx, phase, f0, offsets, film_c, w, b, packed, w_out, n_harmonics, sample_rate, hop):
+        ctx.consts = (n_harmonics, sample_rate, hop)
+        ctx.save_for_backward(phase, f0, offsets, film_c, w, b, packed, w_out)
+        return _launch_forward_x(phase, f0, offsets, film_c, w, b, packed, w_out,
+                                 n_harmonics, sample_rate, hop)
+
+    @staticmethod
+    def backward(ctx, dy):
+        phase, f0, offsets, film_c, w, b, packed, w_out = ctx.saved_tensors
+        grads = _launch_backward_x(phase, f0, offsets, film_c, w, b, packed, w_out,
+                                   *ctx.consts, dy.contiguous())
+        d_w_out = grads[4] if w_out is not None else None
+        return (None, None, None, *grads[:4], d_w_out, None, None, None)
+
+
+def _bank_film_shaper_x(phase_w, f0_up, offsets, film_c, mixer_params, w_out, shaper_params,
+                        n_harmonics, sample_rate, hop, packed):
+    """The CUDA side of both wrappers: the kernel alone without a gradient,
+    :class:`_BankFilmShaperX` with one."""
+    if phase_w.device.type != "cuda":
+        raise ValueError(f"unsupported device {phase_w.device}")
+    weights = _packed_for(shaper_params, packed)
+    w, b = mixer_params["w"], mixer_params["b"]
+    args = (phase_w, f0_up, offsets, film_c, w, b, weights, w_out, n_harmonics, sample_rate, hop)
+    if _needs_grad(film_c, w, b, weights, *(() if w_out is None else (w_out,))):
+        return _BankFilmShaperX.apply(*args)
+    return _launch_forward_x(*args)
+
+
+def bank_film_shaper_xcr(
+    phase_w: torch.Tensor,
+    f0_up: torch.Tensor,
+    offsets: torch.Tensor,
+    film_c: torch.Tensor,
+    mixer_params: Dict,
+    shaper_params: Dict,
+    n_harmonics: int,
+    sample_rate: float,
+    hop: int,
+    packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, Ta) wrapped phase + (B, Ta) f0 + (H,) offsets + (B, Tc, 256)
+    control-rate film + harmonic mixer {w (H, 64), b (64,)} -> (B, Ta, 64)
+    (JAX ``bank_film_shaper_fused_xcr``): the bank, the mixer and FiLM ->
+    shapers -> FiLM in one kernel; neither the (B, Ta, H) bank nor the
+    (B, Ta, 64) exciter is written to device memory.
+
+    CPU tensors take :func:`bank_film_shaper_xcr_plain`. CUDA tensors launch
+    ``csrc/newt_fused_x.cu`` on the current stream after :func:`_check_x`;
+    anything the kernel does not take raises. With a gradient needed the
+    call goes through :class:`_BankFilmShaperX`, whose backward is
+    ``csrc/newt_fused_x_bwd.cu``. ``packed`` as in :func:`film_shaper_cr`.
+    ``bank_film_shaper_xcr.launches`` / ``.bwd_launches`` count the
+    launches."""
+    if phase_w.device.type == "cpu":
+        return bank_film_shaper_xcr_plain(phase_w, f0_up, offsets, film_c, mixer_params,
+                                          shaper_params, n_harmonics, sample_rate, hop)
+    return _bank_film_shaper_x(phase_w, f0_up, offsets, film_c, mixer_params, None,
+                               shaper_params, n_harmonics, sample_rate, hop, packed)
+
+
+def bank_newt_xfull(
+    phase_w: torch.Tensor,
+    f0_up: torch.Tensor,
+    offsets: torch.Tensor,
+    film_c: torch.Tensor,
+    mixer_params: Dict,
+    w_out: torch.Tensor,
+    shaper_params: Dict,
+    n_harmonics: int,
+    sample_rate: float,
+    hop: int,
+    packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`bank_film_shaper_xcr` with NEWT's 64 -> 1 output mix (the
+    (64,) weights ``w_out``) in the kernel -> (B, Ta) audio before the
+    mixer's bias (JAX ``bank_newt_fused_xfull``; add the bias outside).
+    CPU tensors take :func:`bank_newt_xfull_plain`; CUDA tensors launch the
+    xfull instance of ``csrc/newt_fused_x.cu`` and, for a gradient, of
+    ``csrc/newt_fused_x_bwd.cu``. ``bank_newt_xfull.launches`` /
+    ``.bwd_launches`` count them."""
+    if phase_w.device.type == "cpu":
+        return bank_newt_xfull_plain(phase_w, f0_up, offsets, film_c, mixer_params, w_out,
+                                     shaper_params, n_harmonics, sample_rate, hop)
+    return _bank_film_shaper_x(phase_w, f0_up, offsets, film_c, mixer_params, w_out,
+                               shaper_params, n_harmonics, sample_rate, hop, packed)
+
+
+bank_film_shaper_xcr.launches = 0
+bank_film_shaper_xcr.bwd_launches = 0
+bank_newt_xfull.launches = 0
+bank_newt_xfull.bwd_launches = 0

@@ -9,9 +9,17 @@
         '-> noise MLP > H (B, Tc, 129) > FIR noise --> (B, Ta)
     sum --> learned reverb --> audio (B, Ta)
 
-float32 throughout (the JAX inference default ``compute_dtype``). The
-exciter-fusing options of the JAX model (``fuse_exciter``,
-``fuse_out_mixer``, both off there by default) are not ported.
+float32 throughout: ``compute_dtype`` takes only ``"float32"`` (the JAX
+default) until mixed precision is ported (ROADMAP.md queue 1 item 2).
+
+``fuse_exciter`` and ``fuse_out_mixer`` (both off by default, as in JAX)
+fold the harmonic bank and the 101 -> 64 mixer, and with
+``fuse_out_mixer`` also NEWT's 64 -> 1 output mix, into the exciter-fused
+kernels (``kernels/newt_fused.py`` ``bank_film_shaper_xcr`` /
+``bank_newt_xfull``): on CUDA the hand-written kernels and their backwards,
+on the CPU their plain versions. See :meth:`NeuralWaveshaping._fused_exciter_newt`
+for when the path engages; otherwise the bank, the mixer and NEWT run as
+before.
 
 The model and its submodules are gin configurables (:mod:`..minigin`), so
 the repo's ``gin/models/newt.gin`` bindings reach them as they reach the
@@ -24,11 +32,12 @@ import torch
 import torch.nn as nn
 
 from .. import minigin as gin
-from ..ops.oscillator import draw_phase_offset
+from ..kernels import newt_fused
+from ..ops.oscillator import draw_phase_offset, phase_accumulate, wrap_phase
 from ..ops.upsample import linear_upsample
 from .generators import FIRNoiseSynth, HarmonicOscillator, Reverb
 from .modules import ControlModule, Dense, Params, TimeDistributedMLP
-from .newt import NEWT
+from .newt import _CR, NEWT
 
 
 def _default_noise_mlp(generator=None) -> TimeDistributedMLP:
@@ -53,7 +62,14 @@ class NeuralWaveshaping(nn.Module):
     NEWT's widths and ``fused``, the noise MLP's sizes, the FIR length, the
     reverb's length) reaches it. With no bindings it is the shipped
     architecture, 266,945 parameters, drawn from ``generator`` in the order
-    embedding, harmonic mixer, NEWT, noise MLP, reverb."""
+    embedding, harmonic mixer, NEWT, noise MLP, reverb.
+
+    ``compute_dtype`` other than ``"float32"`` raises ``NotImplementedError``
+    (mixed precision, ROADMAP.md queue 1 item 2, is not ported), so the
+    repo's ``gin/train/train_newt_bf16.gin`` stops there. ``fuse_exciter`` /
+    ``fuse_out_mixer`` are the JAX fields of the same names; like every
+    parameter here they bind from gin (``-b "NeuralWaveshaping.fuse_exciter
+    = True"``), also for ``Synthesizer.from_checkpoint``'s model."""
 
     def __init__(
         self,
@@ -61,10 +77,20 @@ class NeuralWaveshaping(nn.Module):
         control_hop: int = 128,
         sample_rate: float = 16000,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: str = "float32",
+        fuse_exciter: bool = False,
+        fuse_out_mixer: bool = False,
     ):
         super().__init__()
+        if compute_dtype != "float32":
+            raise NotImplementedError(
+                f"NeuralWaveshaping.compute_dtype = {compute_dtype!r}: mixed precision is not "
+                "ported yet (ROADMAP.md queue 1 item 2); only 'float32' runs"
+            )
         self.control_hop = control_hop
         self.sample_rate = sample_rate
+        self.fuse_exciter = fuse_exciter
+        self.fuse_out_mixer = fuse_out_mixer
         self.embedding = ControlModule(generator=generator)
         self.osc = HarmonicOscillator(sample_rate=sample_rate)
         self.harmonic_mixer = Dense(self.osc.n_harmonics, n_waveshapers, generator)
@@ -102,6 +128,47 @@ class NeuralWaveshaping(nn.Module):
         carried GRU state as ``h0``."""
         return self.embedding(control[..., :2], h0)
 
+    def _fused_exciter_newt(
+        self, f0_up: torch.Tensor, embedding: torch.Tensor, phase_offset: torch.Tensor
+    ) -> Optional[torch.Tensor]:
+        """The exciter-fused path (JAX ``_fused_exciter_newt``): (B, Ta)
+        audio-rate f0 + (B, Tc, E) embedding -> NEWT's (B, Ta, out_channels)
+        output, or None where the path does not apply and the caller runs
+        the bank, the mixer and NEWT.
+
+        It applies when ``fuse_exciter`` is set, NEWT's ``fused`` is a
+        control-rate spelling (``"cr"``, ``"full_lane_cr"``), the offsets
+        are (H,) (a (B, H) offset is the streaming layout) and
+        ``newt_fused.supports_xcr`` takes the geometry; the device decides
+        in the kernel wrapper (JAX's "the backend is a TPU" has no
+        counterpart). The phase is wrapped in float64 and cast, the tensor
+        ``bank_from_phase`` expands. With ``fuse_out_mixer`` and one output
+        channel the xfull kernel also mixes to audio and NEWT's mixer bias is
+        added here; otherwise the xcr kernel's (B, Ta, C) goes through
+        NEWT's mixer."""
+        newt = self.newt
+        n_harm = self.osc.n_harmonics
+        ta, tc = f0_up.shape[1], embedding.shape[1]
+        if not (
+            self.fuse_exciter
+            and newt.fused in _CR
+            and phase_offset.dim() == 1
+            and newt_fused.supports_xcr(newt.shaping_fn, ta, tc, n_harm)
+        ):
+            return None
+        sr = self.osc.sample_rate
+        phase = wrap_phase(phase_accumulate(f0_up, sr), f0_up.dtype)
+        fp = newt.film_params(embedding)
+        args = (phase, f0_up, phase_offset, fp, self.harmonic_mixer.params())
+        shaper, packed = newt.shaping_fn.params(), newt._packed_shaper()
+        if self.fuse_out_mixer and newt.mixer.w.shape[1] == 1:
+            audio = newt_fused.bank_newt_xfull(
+                *args, newt.mixer.w[:, 0], shaper, n_harm, sr, ta // tc, packed=packed
+            )
+            return (audio + newt.mixer.b[0])[..., None]
+        x = newt_fused.bank_film_shaper_xcr(*args, shaper, n_harm, sr, ta // tc, packed=packed)
+        return newt.mixer(x)
+
     def forward(
         self,
         f0: torch.Tensor,
@@ -135,8 +202,12 @@ class NeuralWaveshaping(nn.Module):
             phase_offset = draw_phase_offset(
                 self.osc.n_harmonics, generator, f0.device, f0.dtype
             )
-        exciter = self.harmonic_mixer(self.osc(f0_up, phase_offset=phase_offset))
-        shaped = self.newt(exciter, embedding, lookup_table=lookup_table)  # (B, Ta, 1)
+        shaped = None
+        if lookup_table is None:
+            shaped = self._fused_exciter_newt(f0_up, embedding, phase_offset)
+        if shaped is None:
+            exciter = self.harmonic_mixer(self.osc(f0_up, phase_offset=phase_offset))
+            shaped = self.newt(exciter, embedding, lookup_table=lookup_table)  # (B, Ta, 1)
         h = self.h_generator(embedding)  # (B, Tc, 129)
         noise_audio = self.noise_synth(h, generator=generator, noise=noise)
         return self.reverb(shaped[..., 0] + noise_audio)

@@ -11,10 +11,12 @@ from .fir import (
 )
 from .oscillator import (
     bank_from_phase,
+    bank_from_wrapped_phase,
     draw_phase_offset,
     final_phase,
     harmonic_oscillator_bank,
     phase_accumulate,
+    wrap_phase,
 )
 from .stft import frame_signal, istft, overlap_add, spectrogram_magnitude, stft
 from .upsample import linear_upsample, segment_interp
@@ -34,6 +36,8 @@ __all__ = [
     "final_phase",
     "harmonic_oscillator_bank",
     "phase_accumulate",
+    "bank_from_wrapped_phase",
+    "wrap_phase",
     "frame_signal",
     "istft",
     "overlap_add",

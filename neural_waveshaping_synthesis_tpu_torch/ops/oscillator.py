@@ -44,6 +44,34 @@ def draw_phase_offset(
     return (u * TAU - math.pi).to(device)
 
 
+def wrap_phase(phase: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An integrated phase track wrapped to [0, tau), then cast to
+    ``dtype``: the phase :func:`bank_from_phase` expands."""
+    return torch.remainder(phase, TAU).to(dtype)
+
+
+def bank_from_wrapped_phase(
+    phase: torch.Tensor,
+    f0: torch.Tensor,
+    n_harmonics: int,
+    sample_rate: float,
+    phase_offset: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`bank_from_phase` from a phase already wrapped to [0, tau)
+    in f0's dtype (:func:`wrap_phase`): what the exciter-fused kernels
+    compute per sample (``kernels/newt_fused.py``)."""
+    k = torch.arange(1, n_harmonics + 1, dtype=f0.dtype, device=f0.device)
+    if phase_offset is None:
+        phase_offset = torch.zeros(n_harmonics, dtype=f0.dtype, device=f0.device)
+    if phase_offset.dim() == 1:
+        phase_offset = phase_offset[None, None, :]
+    else:
+        phase_offset = phase_offset[:, None, :]
+    harmonic_phase = phase[..., None] * k + phase_offset
+    antialias = (f0[..., None] * k) < (sample_rate / 2.0)
+    return fast_sin(harmonic_phase) * antialias.to(f0.dtype)
+
+
 def bank_from_phase(
     phase: torch.Tensor,
     f0: torch.Tensor,
@@ -60,17 +88,9 @@ def bank_from_phase(
     The phase is wrapped mod tau BEFORE the harmonic expansion: k is an
     integer, so sin(k*(phi mod tau) + o) == sin(k*phi + o), while the
     argument stays below tau*H instead of growing with clip length."""
-    k = torch.arange(1, n_harmonics + 1, dtype=f0.dtype, device=f0.device)
-    if phase_offset is None:
-        phase_offset = torch.zeros(n_harmonics, dtype=f0.dtype, device=f0.device)
-    if phase_offset.dim() == 1:
-        phase_offset = phase_offset[None, None, :]
-    else:
-        phase_offset = phase_offset[:, None, :]
-    phase = torch.remainder(phase, TAU).to(f0.dtype)
-    harmonic_phase = phase[..., None] * k + phase_offset
-    antialias = (f0[..., None] * k) < (sample_rate / 2.0)
-    return fast_sin(harmonic_phase) * antialias.to(f0.dtype)
+    return bank_from_wrapped_phase(
+        wrap_phase(phase, f0.dtype), f0, n_harmonics, sample_rate, phase_offset
+    )
 
 
 def harmonic_oscillator_bank(

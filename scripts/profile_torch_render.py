@@ -2,11 +2,14 @@
 """Where the time of one offline render goes on the card (PyTorch port).
 
     python3 scripts/profile_torch_render.py [--batch 8] [--seconds 4] [--runs 3] [--fast-newt]
+        [--fuse off|xcr|xfull]
 
 Renders ``--batch`` requests of ``--seconds`` each through the port's
 ``Synthesizer`` with the run120k_cr checkpoint (with ``--fast-newt``, the
 same prepared batch through the model with the baked FastNEWT table, the
-copy to the host included), warms up, then traces
+copy to the host included; with ``--fuse xcr`` or ``xfull``,
+``NeuralWaveshaping.fuse_exciter`` and for xfull ``fuse_out_mixer`` set),
+warms up, then traces
 ``--runs`` renders with ``torch.profiler`` and prints JSON lines: the
 device kernels by total time, and the device's busy and idle share of
 the traced wall time (busy = union of kernel and copy intervals). Falls
@@ -62,6 +65,7 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=4.0)
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--fast-newt", action="store_true")
+    ap.add_argument("--fuse", default="off", choices=["off", "xcr", "xfull"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -69,6 +73,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     synth = Synthesizer.from_checkpoint(CKPT, device="cuda")
+    synth.model.fuse_exciter = args.fuse != "off"
+    synth.model.fuse_out_mixer = args.fuse == "xfull"
     requests = _requests(args.batch, args.seconds)
     if args.fast_newt:
         f0_b, ctrl_b, _ = synth.prepare(requests)
@@ -107,6 +113,7 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "batch": args.batch, "fast_newt": args.fast_newt,
+        "fuse": args.fuse,
         "seconds": args.seconds, "runs": args.runs,
         "wall_ms_per_render": wall_ms / args.runs,
         "device_busy_ms_per_render": busy / args.runs,

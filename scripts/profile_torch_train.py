@@ -2,12 +2,14 @@
 """Where the time of one training step goes on the card (PyTorch port).
 
     python3 scripts/profile_torch_train.py [--batch 8] [--seconds 4] [--runs 5] \
-        [--fused cr|full_lane]
+        [--fused cr|full_lane] [--fuse off|xcr|xfull]
 
 Takes ``Trainer.train_step``s of a seeded random init on a batch of
 ``--batch`` harmonic tones of ``--seconds`` each, with ``NEWT.fused`` set to
 ``--fused`` (``cr``: the control-rate kernels, the default; ``full_lane``:
-the audio-rate kernels), warms up, then traces
+the audio-rate kernels) and, with ``--fuse xcr`` or ``xfull``,
+``NeuralWaveshaping.fuse_exciter`` (and ``fuse_out_mixer``) set: the
+exciter-fused kernels), warms up, then traces
 ``--runs`` steps with ``torch.profiler`` and prints JSON lines: the
 device kernels by total time, and the device's busy and idle share of the
 traced wall time (busy = union of kernel and copy intervals), as
@@ -45,6 +47,7 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=4.0)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--fused", default="cr", choices=["cr", "full_lane"])
+    ap.add_argument("--fuse", default="off", choices=["off", "xcr", "xfull"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -52,6 +55,8 @@ def main() -> int:
     trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)),
                       TrainConfig(), device="cuda")
     trainer.model.newt.fused = args.fused
+    trainer.model.fuse_exciter = args.fuse != "off"
+    trainer.model.fuse_out_mixer = args.fuse == "xfull"
     batch = _tone_batch(_requests(args.batch, args.seconds))
     for _ in range(3):
         trainer.train_step(batch)
@@ -77,6 +82,7 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "batch": args.batch, "fused": args.fused,
+        "fuse": args.fuse,
         "seconds": args.seconds, "runs": args.runs,
         "wall_ms_per_step": wall_ms / args.runs,
         "device_busy_ms_per_step": busy / args.runs,

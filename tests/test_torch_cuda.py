@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels (forward, backward, the
-streaming forward, the audio-rate forward and backward, and the FastNEWT
-lookup) against their plain versions,
-and the model, a training step, a streamed buffer and timbre transfer on
-the card against the same on the CPU.
+streaming forward, the audio-rate forward and backward, the FastNEWT
+lookup, and the exciter-fused forwards and backwards) against their plain
+versions, and the model (also with ``fuse_exciter`` / ``fuse_out_mixer``),
+a training step, a streamed buffer and timbre transfer on the card against
+the same on the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it runs where the card is and JAX is not:
@@ -614,3 +615,203 @@ def test_timbre_transfer_on_the_card(cuda):
         out, speed = timbre_transfer(synth, audio, sr, use_fast_newt=fast)
         assert out.shape == (len(cpu[1]) * 128,) and np.all(np.isfinite(out)) and speed > 0
         assert np.sqrt(np.mean(out**2)) > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# exciter-fused: the xcr and xfull kernels (JAX bank_film_shaper_fused_xcr,
+# bank_newt_fused_xfull) and their backwards, and the model's fused path
+# ---------------------------------------------------------------------------
+def _x_inputs(b, tc, hop, h=101, seed=0):
+    """Wrapped phase and f0 (110 Hz to 1.76 kHz, so the antialias mask cuts
+    real harmonics), offsets, control-rate film, mixer and w_out."""
+    rng = np.random.default_rng(seed)
+    f0 = (110.0 * 2.0 ** rng.uniform(0, 4, (b, tc * hop))).astype(np.float32)
+    phase = np.mod(2 * np.pi * np.cumsum(f0.astype(np.float64), -1) / 16000, 2 * np.pi)
+    arrays = (phase.astype(np.float32), f0, rng.uniform(-np.pi, np.pi, h).astype(np.float32),
+              rng.standard_normal((b, tc, 256)).astype(np.float32),
+              (rng.standard_normal((h, 64)) * 0.1).astype(np.float32),
+              (rng.standard_normal(64) * 0.1).astype(np.float32),
+              (rng.standard_normal(64) * 0.1).astype(np.float32))
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+_X_SHAPES = [(2, 6, 16, 101), (1, 37, 128, 101), (2, 5, 64, 2), (3, 1, 64, 128), (1, 3, 1, 101)]
+
+
+def _x_call(kind, fn_xcr, fn_xfull, phase, f0, off, film_c, w, bias, w_out, shaper, hop, *extra):
+    mixer = {"w": w, "b": bias}
+    h = off.shape[0]
+    if kind == "xcr":
+        return fn_xcr(phase, f0, off, film_c, mixer, shaper, h, 16000.0, hop, *extra)
+    return fn_xfull(phase, f0, off, film_c, mixer, w_out, shaper, h, 16000.0, hop, *extra)
+
+
+@pytest.mark.parametrize("kind", ["xcr", "xfull"])
+@pytest.mark.parametrize("b,tc,hop,h", _X_SHAPES)
+def test_x_kernel_matches_plain(cuda, params, kind, b, tc, hop, h):
+    """The exciter-fused forward against its plain version on the same CUDA
+    tensors, rtol 1e-4, atol 1e-5 (kernel 1's bar); odd Tc, hop 64 and 1,
+    H = 2 and 128, a ragged last pass. One launch per call."""
+    args = tuple(t.to(cuda) for t in _x_inputs(b, tc, hop, h, seed=tc + h))
+    w = _shaper(params, cuda)
+    counter = nf.bank_film_shaper_xcr if kind == "xcr" else nf.bank_newt_xfull
+    before = counter.launches
+    with torch.inference_mode():
+        out = _x_call(kind, nf.bank_film_shaper_xcr, nf.bank_newt_xfull, *args, w, hop)
+        ref = _x_call(kind, nf.bank_film_shaper_xcr_plain, nf.bank_newt_xfull_plain, *args, w, hop)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_xfull_matches_xcr_and_the_output_mix(cuda, params):
+    """xfull plus the output mix's bias against xcr followed by the (64, 1)
+    mixer: rtol 1e-4, atol 1e-5 (the JAX suite's bar)."""
+    phase, f0, off, film_c, w, bias, w_out = (t.to(cuda) for t in _x_inputs(2, 40, 128, seed=3))
+    shaper = _shaper(params, cuda)
+    b_out = torch.tensor([0.25], device=cuda)
+    mixer = {"w": w, "b": bias}
+    with torch.inference_mode():
+        xfull = nf.bank_newt_xfull(phase, f0, off, film_c, mixer, w_out, shaper, 101, 16000.0, 128)
+        xcr = nf.bank_film_shaper_xcr(phase, f0, off, film_c, mixer, shaper, 101, 16000.0, 128)
+        ref = (xcr @ w_out[:, None] + b_out)[..., 0]
+    np.testing.assert_allclose((xfull + b_out).cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["xcr", "xfull"])
+@pytest.mark.parametrize("b,tc,hop,h", _X_SHAPES)
+def test_x_backward_kernel_matches_plain(cuda, params, kind, b, tc, hop, h):
+    """d_film_c, the mixer's d_w and d_b, the 170 planes and (xfull) d_w_out
+    of the CUDA backward against autograd through the plain version; one
+    launch per call; two calls give the same bits."""
+    phase, f0, off, film_c, w, bias, w_out = (t.to(cuda) for t in _x_inputs(b, tc, hop, h, seed=h))
+    shaper = _shaper(params, cuda)
+    packed = nf.pack_weights(shaper)
+    shape = (b, tc * hop) if kind == "xfull" else (b, tc * hop, 64)
+    dy = torch.randn(shape, generator=torch.Generator().manual_seed(tc)).to(cuda)
+    wo = w_out if kind == "xfull" else None
+    counter = nf.bank_film_shaper_xcr if kind == "xcr" else nf.bank_newt_xfull
+    before = counter.bwd_launches
+    args = (phase, f0, off, film_c, w, bias, packed, wo, h, 16000.0, hop, dy)
+    out = nf._launch_backward_x(*args)
+    again = nf._launch_backward_x(*args)
+    mixer = {"w": w, "b": bias}
+    if kind == "xcr":
+        ref = nf.bank_film_shaper_xcr_grad_plain(phase, f0, off, film_c, mixer, shaper, h, 16000.0, hop, dy)
+    else:
+        ref = nf.bank_newt_xfull_grad_plain(phase, f0, off, film_c, mixer, w_out, shaper, h, 16000.0, hop, dy)
+    torch.cuda.synchronize()
+    assert counter.bwd_launches == before + 2 and len(out) == len(ref) == (5 if wo is not None else 4)
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+    for o, r in zip(out, ref):
+        _grad_close(o, r)
+
+
+def test_x_kernels_refuse_what_they_do_not_take(cuda, params):
+    phase, f0, off, film_c, w, bias, w_out = (t.to(cuda) for t in _x_inputs(1, 4, 8))
+    shaper = _shaper(params, cuda)
+    mixer = {"w": w, "b": bias}
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            nf.bank_film_shaper_xcr(phase.double(), f0, off, film_c, mixer, shaper, 101, 16000.0, 8)
+        with pytest.raises(ValueError):
+            nf.bank_film_shaper_xcr(phase, f0, off, film_c.cpu(), mixer, shaper, 101, 16000.0, 8)
+        with pytest.raises(ValueError):
+            nf.bank_newt_xfull(phase, f0, off, film_c, {"w": w.T.contiguous().T, "b": bias}, w_out,
+                               shaper, 101, 16000.0, 8)
+        big = _x_inputs(1, 4, 8, h=129)
+        with pytest.raises(ValueError):
+            nf.bank_film_shaper_xcr(phase, f0, big[2].to(cuda), film_c, {"w": big[4].to(cuda), "b": bias},
+                                    shaper, 129, 16000.0, 8)
+    leaves = {"input_scale": shaper["input_scale"].clone().requires_grad_(), "layers": shaper["layers"]}
+    with torch.no_grad():
+        packed = nf.pack_weights(leaves)
+    with pytest.raises(ValueError):
+        nf.bank_film_shaper_xcr(phase, f0, off, film_c, mixer, leaves, 101, 16000.0, 8, packed=packed)
+
+
+def _x_counts():
+    return (nf.bank_film_shaper_xcr.launches, nf.bank_film_shaper_xcr.bwd_launches,
+            nf.bank_newt_xfull.launches, nf.bank_newt_xfull.bwd_launches,
+            nf.film_shaper_cr.launches, nf.film_shaper_cr.bwd_launches)
+
+
+@pytest.mark.parametrize("fields,expect", [
+    ({"fuse_exciter": True}, (1, 0, 0, 0, 0, 0)),
+    ({"fuse_exciter": True, "fuse_out_mixer": True}, (0, 0, 1, 0, 0, 0)),
+])
+def test_fused_model_on_the_card(cuda, params, fields, expect):
+    """A render with the fields set launches its exciter-fused kernel once
+    and kernel 1 never; it agrees with the unfused render on the card
+    (rtol 1e-4, atol 1e-5) and with the fused render on the CPU (the plain
+    versions) within 1e-3 nRMS. (B, H) offsets take the unfused path."""
+    rng = np.random.default_rng(13)
+    tc = 64
+    f0 = torch.from_numpy(np.geomspace(150, 1500, tc)[None].repeat(2, 0).astype(np.float32))
+    control = torch.from_numpy(rng.standard_normal((2, tc, 2)).astype(np.float32))
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, tc * 128 - 1).astype(np.float32))
+    outs = {}
+    for name, dev, kw in (("fused", cuda, fields), ("unfused", cuda, {}), ("cpu", torch.device("cpu"), fields)):
+        model = NeuralWaveshaping(**kw)
+        model.load_params(params)
+        model.to(dev)
+        before = _x_counts()
+        with torch.inference_mode():
+            y = model(f0.to(dev), control.to(dev), phase_offset=offset.to(dev), noise=noise.to(dev))
+            if name == "fused":
+                assert tuple(a - b for a, b in zip(_x_counts(), before)) == expect
+                model(f0.to(dev), control.to(dev), phase_offset=offset.to(dev)[None].repeat(2, 1),
+                      noise=noise.to(dev))
+                assert tuple(a - b for a, b in zip(_x_counts(), before)) == tuple(
+                    e + (1 if i == 4 else 0) for i, e in enumerate(expect))
+        outs[name] = y.cpu().numpy()
+    np.testing.assert_allclose(outs["fused"], outs["unfused"], rtol=1e-4, atol=1e-5)
+    assert np.sqrt(np.mean((outs["fused"] - outs["cpu"]) ** 2)) / np.sqrt(np.mean(outs["cpu"] ** 2)) <= 1e-3
+
+
+@pytest.mark.parametrize("fields,expect", [
+    ({"fuse_exciter": True}, (1, 1, 0, 0, 0, 0)),
+    ({"fuse_exciter": True, "fuse_out_mixer": True}, (0, 0, 1, 1, 0, 0)),
+])
+def test_fused_training_step_on_the_card_matches_the_cpu(cuda, fields, expect):
+    """One step's loss and gradients with the fields set, card against CPU,
+    from the same seeded weights, batch, offsets and noise: the exciter-fused
+    kernel pair launches once each and kernels 1-2 never; loss within 1e-4
+    relative; every leaf nonzero, within 1e-3 normalised or by the float64
+    witness rule of test_one_training_step_on_the_card_matches_the_cpu."""
+    rng = np.random.default_rng(14)
+    tc = 125
+    f0 = np.geomspace(220.0, 880.0, tc).astype(np.float32)
+    phase = 2 * np.pi * np.cumsum(np.repeat(f0, 128)) / 16000
+    audio = 0.1 * sum(np.sin(k * phase) / k for k in range(1, 11))
+    batch = {
+        "f0": torch.from_numpy(f0[None]),
+        "control": torch.from_numpy(np.stack([(f0 - 440.0) / 200.0, np.zeros(tc)], -1)[None].astype(np.float32)),
+        "audio": torch.from_numpy(audio[None].astype(np.float32)),
+    }
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, tc * 128 - 1).astype(np.float32))
+    base = NeuralWaveshaping(generator=torch.Generator().manual_seed(5), **fields)
+    results = []
+    for dev, dtype in ((cuda, torch.float32), (torch.device("cpu"), torch.float32),
+                       (torch.device("cpu"), torch.float64)):
+        model = copy.deepcopy(base).to(dev, dtype)
+        before = _x_counts()
+        loss = compute_loss(model, {k: v.to(dev, dtype) for k, v in batch.items()},
+                            phase_offset=offset.to(dev, dtype), noise=noise.to(dev, dtype))
+        loss.backward()
+        if dev.type == "cuda":
+            assert tuple(a - b for a, b in zip(_x_counts(), before)) == expect
+        results.append((float(loss.detach()),
+                        {n: p.grad.cpu().double() for n, p in model.named_parameters()}))
+    (card_loss, card), (cpu_loss, cpu), (_, exact) = results
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    assert abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    for name, g in card.items():
+        assert torch.count_nonzero(g) > 0, name
+        if rel(g, cpu[name]) > 1e-3:
+            assert rel(g, exact[name]) <= rel(cpu[name], exact[name]) + 1e-3, name

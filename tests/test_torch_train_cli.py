@@ -84,6 +84,44 @@ def test_a_binding_reaches_newt_fused(cli, binding, expect):
     assert cli.get_model().newt.fused == expect
 
 
+def test_the_bf16_gin_file_stops_at_the_mixed_precision_item(cli):
+    """gin/train/train_newt_bf16.gin binds NeuralWaveshaping.compute_dtype =
+    'bfloat16': validate_config finds every binding a parameter the port
+    takes, and the CLI stops with the NotImplementedError that names
+    ROADMAP.md queue 1 item 2 (mixed precision), not a TypeError."""
+    gin.parse_config_file("gin/train/train_newt_bf16.gin")
+    assert gin.validate_config() == []
+    gin.clear_config()
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        cli.main(["--gin-file", "gin/train/train_newt_bf16.gin", "--dataset-path", "unused",
+                  "--device", "cpu"])
+
+
+@pytest.mark.parametrize("out_mixer", [False, True])
+def test_fuse_bindings_engage_the_fused_path_under_the_recipe(cli, monkeypatch, out_mixer):
+    """-b "NeuralWaveshaping.fuse_exciter = True" (and fuse_out_mixer) reach
+    the CLI's model, and with the recipe's NEWT.fused = 'full_lane_cr' at
+    hop 128 its forward takes the exciter-fused path (one call of the xcr,
+    or the xfull, wrapper)."""
+    from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
+
+    gin.parse_config_file(TRAIN_GIN)
+    gin.parse_config("NeuralWaveshaping.fuse_exciter = True")
+    gin.parse_config(f"NeuralWaveshaping.fuse_out_mixer = {out_mixer}")
+    assert gin.validate_config() == []
+    model = cli.get_model(generator=torch.Generator().manual_seed(0))
+    assert model.fuse_exciter and model.fuse_out_mixer == out_mixer
+    assert model.newt.fused == "full_lane_cr" and model.control_hop == 128
+    calls = []
+    name = "bank_newt_xfull" if out_mixer else "bank_film_shaper_xcr"
+    real = getattr(nf, name)
+    monkeypatch.setattr(nf, name, lambda *a, **k: calls.append(name) or real(*a, **k))
+    with torch.no_grad():
+        audio = model(torch.full((1, 4), 330.0), torch.zeros(1, 4, 2),
+                      generator=torch.Generator().manual_seed(1))
+    assert calls == [name] and audio.shape == (1, 4 * 128) and torch.isfinite(audio).all()
+
+
 def test_a_scoped_binding_reaches_only_the_noise_mlp():
     """``noise_synth/TimeDistributedMLP.*`` sizes the noise branch's MLP and
     no other TimeDistributedMLP (NEWT's FiLM MLP keeps its width), as the
