@@ -54,8 +54,9 @@ exits non-zero:
    one ``Trainer`` step at batch 8 x 4 s hands it (exciter, control-rate
    film and the cotangent dy, caught with hooks), on the same inputs
    with a cotangent that reads only the first half-hop and the last hop
-   (the clamps), and on two made-up shapes (odd Tc=37, hop 64); two calls
-   on the same inputs must give the same bits;
+   (the clamps), and on four made-up shapes (odd Tc=37, hop 64, and hops
+   33 and 300, whose last 32-sample lane-group is partial); two calls on
+   the same inputs must give the same bits;
 7. train_card_vs_cpu, train_fl_card_vs_cpu: one step's loss and gradients
    from the same weights, batch (1 x 2 s), phase offsets and noise, on the
    card (both cr kernels; then, with ``NEWT.fused = "full_lane"``, both
@@ -659,7 +660,8 @@ def train_phases(dev, root, tmp):
     max_err = check_backward("train_step_b8_4s", exc, film_c, dy, weights, packed, hop)
     max_err = max(max_err, check_backward("clamp", exc, film_c, dy_clamp, weights, packed, hop))
     del out, dy_clamp
-    for label, b, tc, h in (("odd_tc", 1, 37, HOP), ("hop_64", 2, 500, 64)):
+    for label, b, tc, h in (("odd_tc", 1, 37, HOP), ("hop_64", 2, 500, 64),
+                            ("hop_33", 2, 40, 33), ("hop_300", 1, 30, 300)):
         e, f = made_up_kernel_inputs(b, tc, h, 10 + tc, dev)
         g = torch.randn(e.shape, generator=torch.Generator().manual_seed(tc)).to(dev)
         max_err = max(max_err, check_backward(label, e, f, g, weights, packed, h))

@@ -6,9 +6,14 @@
 // of the control-rate FiLM gradient.
 //
 // The weights are the packed (170, 64) planes of newt_shaper.cuh, staged in
-// shared memory by the kernel. Each thread owns one (170,) weight-gradient
-// slot in shared memory, channel fastest (my[k * kC] is plane row k of the
-// thread's channel), so a warp's slot accesses are 32 consecutive floats.
+// shared memory by the kernel. shaper_backward gives each thread one (170,)
+// weight-gradient slot in shared memory, channel fastest (my[k * kC] is
+// plane row k of the thread's channel), so a warp's slot accesses are 32
+// consecutive floats: newt_fused_fl_bwd.cu and newt_fused_x_bwd.cu use it.
+// newt_fused_cr_bwd.cu keeps no such slots: its warps are channels and its
+// lanes samples, and it sums the gradients across lanes (its own
+// shaper_backward_lanes); it shares FilmSegment, sum_weight_partials and
+// fold_film_partials.
 //
 // The cosine fit is ops/fastmath.py _COS_EVEN_COEFFS, sharing the sine's
 // range reduction (rintf: round half to even, as jnp.round).

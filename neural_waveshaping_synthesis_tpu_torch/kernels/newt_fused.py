@@ -222,7 +222,6 @@ def _launch_forward(exciter, film_c, weights, hop) -> torch.Tensor:
     return out
 
 
-_ROWS_PER_BLOCK = 4  # kRowsPerBlock of newt_fused_cr_bwd.cu
 _RESIDENT_BLOCKS: Dict[Tuple[str, int], int] = {}  # (query, device index) -> blocks resident at once
 
 
@@ -241,10 +240,17 @@ def _resident_blocks(lib: ctypes.CDLL, query: str, device: torch.device) -> int:
     return _RESIDENT_BLOCKS[key]
 
 
+def _cr_backward_blocks(n_segments: int, resident: int) -> int:
+    """The cr backward's persistent grid: one block per control segment
+    (B*Tc of them; a block holds one segment at a time and strides by the
+    grid), at most ``resident``, the blocks the card holds at once."""
+    return min(n_segments, resident)
+
+
 def _launch_backward(exciter, film_c, weights, dy, hop):
     """-> (d_exciter, d_film_c, d_planes) from ``csrc/newt_fused_cr_bwd.cu``.
     Scratch (per-segment FiLM partials, per-block weight partials) is
-    allocated here: one block per 4 segments, at most what is resident."""
+    allocated here, for :func:`_cr_backward_blocks` blocks."""
     _check(exciter, film_c, weights, hop)
     if dy.shape != exciter.shape or dy.dtype != torch.float32 or dy.device != exciter.device:
         raise ValueError(f"dy must be float32 {tuple(exciter.shape)} on {exciter.device}")
@@ -255,8 +261,8 @@ def _launch_backward(exciter, film_c, weights, dy, hop):
     d_planes = torch.empty_like(weights)
     with torch.cuda.device(exciter.device):
         lib = _lib("newt_fused_cr_bwd", "newt_fused_cr_backward", 9)
-        needed = -(-b * tc // _ROWS_PER_BLOCK)
-        blocks = min(needed, _resident_blocks(lib, "newt_fused_cr_backward_resident_blocks", exciter.device))
+        blocks = _cr_backward_blocks(
+            b * tc, _resident_blocks(lib, "newt_fused_cr_backward_resident_blocks", exciter.device))
         film_part = torch.empty((b * tc, 3, 4 * C), dtype=torch.float32, device=exciter.device)
         w_part = torch.empty((blocks, 170, C), dtype=torch.float32, device=exciter.device)
         stream = torch.cuda.current_stream(exciter.device).cuda_stream
@@ -417,6 +423,9 @@ def _launch_forward_fl(exciter, film_a, weights) -> torch.Tensor:
     return out
 
 
+_FL_ROWS_PER_BLOCK = 4  # kRowsPerBlock of newt_fused_fl_bwd.cu
+
+
 def _launch_backward_fl(exciter, film_a, weights, dy):
     """-> (d_exciter, d_film, d_planes) from ``csrc/newt_fused_fl_bwd.cu``.
     The per-block weight partials are allocated here: one block per 4
@@ -430,7 +439,7 @@ def _launch_backward_fl(exciter, film_a, weights, dy):
     d_planes = torch.empty_like(weights)
     with torch.cuda.device(exciter.device):
         lib = _lib("newt_fused_fl_bwd", "newt_fused_fl_backward", 8, n_ints=2)
-        needed = -(-b * ta // _ROWS_PER_BLOCK)
+        needed = -(-b * ta // _FL_ROWS_PER_BLOCK)
         blocks = min(needed, _resident_blocks(lib, "newt_fused_fl_backward_resident_blocks", exciter.device))
         w_part = torch.empty((blocks, 170, C), dtype=torch.float32, device=exciter.device)
         stream = torch.cuda.current_stream(exciter.device).cuda_stream

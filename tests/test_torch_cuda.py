@@ -171,7 +171,20 @@ def _grad_close(out, ref):
     np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("b,tc,hop", [(2, 6, 16), (1, 37, 128), (2, 5, 10), (1, 3, 1), (3, 1, 64)])
+def _cr_grad_plain_by_clip(exc, film_c, w, hop, dy):
+    """film_shaper_cr_grad_plain one clip at a time (d_planes summed over
+    the clips), so that the largest geometry's autograd fits the card."""
+    parts = [nf.film_shaper_cr_grad_plain(exc[i : i + 1], film_c[i : i + 1], w, hop, dy[i : i + 1])
+             for i in range(exc.shape[0])]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]), sum(p[2] for p in parts)
+
+
+# The kernel's lanes are samples of a segment, 32 at a time, one segment per
+# block: hops below, at and across a multiple of 32 (partial lane-groups),
+# odd B*Tc, and (8, 1000, 128) with more segments than resident blocks.
+@pytest.mark.parametrize("b,tc,hop", [
+    (2, 6, 16), (1, 37, 128), (2, 5, 10), (1, 3, 1), (3, 1, 64),
+    (2, 5, 31), (2, 5, 33), (1, 9, 100), (3, 7, 129), (1, 4, 300), (8, 1000, 128)])
 def test_backward_kernel_matches_plain(cuda, params, b, tc, hop):
     """d_exciter, d_film_c and the 170 weight-gradient planes of the CUDA
     backward against autograd through the plain version; one launch."""
@@ -180,17 +193,19 @@ def test_backward_kernel_matches_plain(cuda, params, b, tc, hop):
     w = _shaper(params, cuda)
     before = nf.film_shaper_cr.bwd_launches
     out = nf._launch_backward(exc, film_c, nf.pack_weights(w), dy, hop)
-    ref = nf.film_shaper_cr_grad_plain(exc, film_c, w, hop, dy)
+    ref = _cr_grad_plain_by_clip(exc, film_c, w, hop, dy)
     torch.cuda.synchronize()
     assert nf.film_shaper_cr.bwd_launches == before + 1
     for o, r in zip(out, ref):
         _grad_close(o, r)
 
 
-def test_backward_kernel_is_deterministic(cuda, params):
-    """Per-block partials summed in a fixed order, no atomics: two calls
-    on the same inputs give the same bits."""
-    exc, film_c = (t.to(cuda) for t in _inputs(2, 50, 128, seed=6))
+@pytest.mark.parametrize("b,tc", [(2, 50), (8, 500)])
+def test_backward_kernel_is_deterministic(cuda, params, b, tc):
+    """Lane sums and per-block partials in a fixed order, no atomics: two
+    calls on the same inputs give the same bits, also at the training
+    step's shape (8 clips of 4 s)."""
+    exc, film_c = (t.to(cuda) for t in _inputs(b, tc, 128, seed=6))
     dy = torch.randn(exc.shape, generator=torch.Generator().manual_seed(7)).to(cuda)
     packed = nf.pack_weights(_shaper(params, cuda))
     first = nf._launch_backward(exc, film_c, packed, dy, 128)

@@ -121,6 +121,20 @@ def test_hopper_gate():
     assert not nf.supports_cr(relu, 128, 1)
 
 
+@pytest.mark.parametrize("segments,resident,blocks", [
+    (8 * 500, 264, 264),  # the training step on an H100: every block strides
+    (21, 264, 21),  # fewer segments than the card holds: one block each
+    (1, 264, 1),
+    (264, 264, 264),
+])
+def test_backward_grid_is_one_block_per_segment_at_most_resident(segments, resident, blocks):
+    """The cr backward's grid: one block per control segment, capped at
+    the blocks resident at once (each block then strides over segments),
+    and never a block without a segment, whose weight partial would be
+    zeros summed for nothing."""
+    assert nf._cr_backward_blocks(segments, resident) == blocks
+
+
 @pytest.mark.parametrize(
     "case",
     ["dtype", "channels", "film_width", "batch", "hop", "contiguity", "weights", "device"],
