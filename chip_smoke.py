@@ -134,7 +134,8 @@ exits non-zero:
    with each field set (counted: its pair once, kernels 1-2 never), its
    backward inputs caught; the backwards against autograd through the plain
    versions (rtol 1e-3, atol 1e-3 * max|plain| per output: d_film, d_w, d_b,
-   the planes, d_w_out) there and on made-up shapes, two calls bit-identical;
+   the planes, d_w_out) there and on made-up shapes (odd Tc, hops 64, 33 and
+   300, H = 2 and 128), two calls bit-identical;
 21. train_fused_card_vs_cpu: phase 7 with each field set: its pair once,
    kernels 1-2 never, loss within 1e-4 relative, the gradient rule;
 22. train_cli_fused: ``scripts/torch_train.py`` with the recipe and both
@@ -1467,7 +1468,8 @@ def exciter_fused_phases(dev, synth, root, tmp, batch_requests, single_requests)
         xfull = kind == "xfull"
         bwd_cases = [("train_step_b8_4s", step_args[kind])]
         for label, b, tc, hop, h in (("odd_tc", 1, 37, HOP, 101), ("hop_64", 2, 50, 64, 101),
-                                     ("h2", 1, 8, HOP, 2), ("h128", 1, 8, HOP, 128)):
+                                     ("h2", 1, 8, HOP, 2), ("h128", 1, 8, HOP, 128),
+                                     ("hop_33", 2, 40, 33, 101), ("hop_300", 1, 30, 300, 101)):
             bwd_cases.append((label, made_up_x_args(b, tc, hop, h, 70 + tc + h, dev, packed, xfull, True)))
         bwd_err[kind] = max(check_x_backward(f"{label}_{kind}", args) for label, args in bwd_cases)
         torch.cuda.empty_cache()

@@ -56,8 +56,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """The library's path, named by a hash of its source, every header in
-    ``csrc/`` (``newt_shaper.cuh``, ``newt_shaper_bwd.cuh`` and
-    ``newt_bank.cuh`` are shared) and the flags."""
+    ``csrc/`` (``newt_shaper.cuh``, ``newt_shaper_bwd.cuh``,
+    ``newt_lanes_bwd.cuh`` and ``newt_bank.cuh`` are shared) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]

@@ -1,6 +1,9 @@
 // The exciter of the exciter-fused kernels newt_fused_x.cu (forward) and
-// newt_fused_x_bwd.cu (backward), float32: one sample's antialiased harmonic
-// bank, built by the 64 threads of that sample, and its H -> 64 mix.
+// newt_fused_x_bwd.cu (backward), float32: one harmonic's sine (bank_sin,
+// both kernels), and for the forward one sample's antialiased harmonic bank,
+// built by the 64 threads of that sample, and its H -> 64 mix. The backward
+// builds a 32-sample bank tile with bank_sin and mixes it in a block-wide
+// product of its own, each output summed in mix's order.
 //
 // The bank is ops/oscillator.py bank_from_wrapped_phase for one sample:
 // harmonic k = 1..H is sin(phase*k + offset[k-1]) by the polynomial sine,

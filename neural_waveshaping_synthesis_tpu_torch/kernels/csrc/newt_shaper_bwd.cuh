@@ -1,19 +1,19 @@
 // The recompute backward of the sine-shaper bank for one (sample, channel),
-// float32: what the backward kernels newt_fused_cr_bwd.cu (control-rate
-// FiLM), newt_fused_fl_bwd.cu (audio-rate FiLM) and newt_fused_x_bwd.cu
-// (exciter-fused) share once each has its FiLM values in registers, the
-// fixed-order sum of their per-block weight-gradient partials, and the fold
-// of the control-rate FiLM gradient.
+// float32, with a gradient slot per thread; and what every backward kernel
+// shares once it has its FiLM values in registers: the sine-and-cosine
+// polynomial, the control-rate FiLM segment, the fixed-order sum of the
+// per-block weight-gradient partials, and the fold of the control-rate FiLM
+// gradient.
 //
 // The weights are the packed (170, 64) planes of newt_shaper.cuh, staged in
 // shared memory by the kernel. shaper_backward gives each thread one (170,)
 // weight-gradient slot in shared memory, channel fastest (my[k * kC] is
 // plane row k of the thread's channel), so a warp's slot accesses are 32
-// consecutive floats: newt_fused_fl_bwd.cu and newt_fused_x_bwd.cu use it.
-// newt_fused_cr_bwd.cu keeps no such slots: its warps are channels and its
-// lanes samples, and it sums the gradients across lanes (its own
-// shaper_backward_lanes); it shares FilmSegment, sum_weight_partials and
-// fold_film_partials.
+// consecutive floats: only newt_fused_fl_bwd.cu (kernel 6) uses it.
+// newt_fused_cr_bwd.cu and newt_fused_x_bwd.cu (kernels 2 and 8) keep no
+// such slots: their warps are channels and their lanes samples, and they sum
+// the gradients across lanes (newt_lanes_bwd.cuh); they share psincos,
+// FilmSegment, sum_weight_partials and fold_film_partials.
 //
 // The cosine fit is ops/fastmath.py _COS_EVEN_COEFFS, sharing the sine's
 // range reduction (rintf: round half to even, as jnp.round).

@@ -240,17 +240,18 @@ def _resident_blocks(lib: ctypes.CDLL, query: str, device: torch.device) -> int:
     return _RESIDENT_BLOCKS[key]
 
 
-def _cr_backward_blocks(n_segments: int, resident: int) -> int:
-    """The cr backward's persistent grid: one block per control segment
-    (B*Tc of them; a block holds one segment at a time and strides by the
-    grid), at most ``resident``, the blocks the card holds at once."""
+def _segment_blocks(n_segments: int, resident: int) -> int:
+    """The persistent grid of the backwards that walk control segments (the
+    cr backward and the exciter-fused one): one block per segment (B*Tc of
+    them; a block holds one segment at a time and strides by the grid), at
+    most ``resident``, the blocks the card holds at once."""
     return min(n_segments, resident)
 
 
 def _launch_backward(exciter, film_c, weights, dy, hop):
     """-> (d_exciter, d_film_c, d_planes) from ``csrc/newt_fused_cr_bwd.cu``.
     Scratch (per-segment FiLM partials, per-block weight partials) is
-    allocated here, for :func:`_cr_backward_blocks` blocks."""
+    allocated here, for :func:`_segment_blocks` blocks."""
     _check(exciter, film_c, weights, hop)
     if dy.shape != exciter.shape or dy.dtype != torch.float32 or dy.device != exciter.device:
         raise ValueError(f"dy must be float32 {tuple(exciter.shape)} on {exciter.device}")
@@ -261,7 +262,7 @@ def _launch_backward(exciter, film_c, weights, dy, hop):
     d_planes = torch.empty_like(weights)
     with torch.cuda.device(exciter.device):
         lib = _lib("newt_fused_cr_bwd", "newt_fused_cr_backward", 9)
-        blocks = _cr_backward_blocks(
+        blocks = _segment_blocks(
             b * tc, _resident_blocks(lib, "newt_fused_cr_backward_resident_blocks", exciter.device))
         film_part = torch.empty((b * tc, 3, 4 * C), dtype=torch.float32, device=exciter.device)
         w_part = torch.empty((blocks, 170, C), dtype=torch.float32, device=exciter.device)
@@ -596,7 +597,6 @@ film_shaper_stream.launches = 0
 # ---------------------------------------------------------------------------
 H_MAX = 128  # the most harmonics the exciter-fused kernels take (JAX's bound)
 _SAMPLES_PER_PASS = 4  # kSamplesPerPass of newt_fused_x.cu
-_X_ROWS_PER_BLOCK = 2  # kRowsPerBlock of newt_fused_x_bwd.cu
 
 
 def supports_xcr(shaper, n_audio: int, n_control: int, n_harmonics: int) -> bool:
@@ -747,8 +747,8 @@ def _launch_backward_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmo
     """``csrc/newt_fused_x_bwd.cu`` -> (d_film_c, d_w, d_b, d_planes) and,
     for xfull (``w_out`` given), d_w_out. The block partials of the summed
     gradients (planes, mixer w, b and w_out in one (rows, C) table) and the
-    per-segment FiLM partials are allocated here: one block per 2 segments,
-    at most what is resident."""
+    per-segment FiLM partials are allocated here, for :func:`_segment_blocks`
+    blocks."""
     _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop)
     xfull = w_out is not None
     out_shape = phase.shape if xfull else (*phase.shape, C)
@@ -765,8 +765,7 @@ def _launch_backward_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmo
              else "newt_fused_xcr_backward_resident_blocks")
     with torch.cuda.device(phase.device):
         lib = _lib("newt_fused_x_bwd", "newt_fused_x_backward", 13, n_ints=5, n_floats=1)
-        needed = -(-bsz * tc // _X_ROWS_PER_BLOCK)
-        blocks = min(needed, _resident_blocks(lib, query, phase.device))
+        blocks = _segment_blocks(bsz * tc, _resident_blocks(lib, query, phase.device))
         film_part = phase.new_empty((bsz * tc, 3, 4 * C))
         part = phase.new_empty((blocks, rows, C))
         stream = torch.cuda.current_stream(phase.device).cuda_stream

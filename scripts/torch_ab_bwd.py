@@ -1,0 +1,248 @@
+#!/usr/bin/env python3
+"""A backward kernel of the port against other CUDA sources with its C
+interface, on the card: kernel 2 (``kernels/csrc/newt_fused_cr_bwd.cu``,
+the default training backward) or kernel 8 (``newt_fused_x_bwd.cu``, the
+exciter-fused backward, xcr and xfull).
+
+    python3 scripts/torch_ab_bwd.py --kernel cr|x OTHER.cu [OTHER.cu ...] [--iters 30]
+
+Builds the checkout's kernel and each OTHER source (nvcc with the port's
+flags and ``-I kernels/csrc``, into ``build/ab_bwd/``) and prints, for each,
+ptxas's report and the SASS opcode counts (cuobjdump) of each backward
+kernel function (kernel 8 has two: xcr and xfull): the whole function, the
+innermost loop that holds every shuffle (in the lane-sum design, one
+channel's pass over 32 samples) and a summary of every loop. Then, on seeded
+random inputs at a training step's shape (B=8, Tc=500, hop 128; H=101 for
+kernel 8) with the run120k_cr shaper, for each case (cr; or xcr and xfull)
+it checks that two calls of each source give the same bits, gives each
+one's largest difference from the checkout's kernel relative to the
+latter's largest value per output, and times all of them in turns (a, b,
+..., ..., b, a) by CUDA-event medians of ``--iters`` calls. One JSON line
+each, with the card's name and power limit. Without a card it exits
+non-zero.
+"""
+import argparse
+import collections
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke as cs  # noqa: E402
+from neural_waveshaping_synthesis_tpu_torch.convert import load_checkpoint  # noqa: E402
+from neural_waveshaping_synthesis_tpu_torch.kernels import _build  # noqa: E402
+from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf  # noqa: E402
+
+OUT = _build.BUILD_DIR / "ab_bwd"
+B, TC, HOP, H = 8, 500, 128, 101
+# one SASS line: address, opcode (after any predicate), a branch's target
+SASS_LINE = re.compile(
+    r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*?(?:0x([0-9a-f]+))?\s*;")
+
+
+def build(name: str, source: Path):
+    """-> (library path, ptxas lines)."""
+    lib = OUT / f"lib{name}.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
+    report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    return lib, report
+
+
+def _fn(dll, symbol, argtypes):
+    fn = getattr(dll, symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def _resident(dll, query, lib):
+    blocks = _fn(dll, query, [])()
+    if blocks <= 0:
+        raise RuntimeError(f"{lib.name}: {query} failed, CUDA error {-blocks}")
+    return blocks
+
+
+def cr_launcher(lib: Path):
+    """-> a function of kernel 2's inputs (exc, film_c, packed, dy) -> its
+    three gradients, launching the library at ``lib`` through kernel 2's C
+    interface (the grid as ``newt_fused._segment_blocks``: any block count
+    strides over every segment, also in a design with several segments per
+    block)."""
+    dll = ctypes.CDLL(str(lib))
+    resident = _resident(dll, "newt_fused_cr_backward_resident_blocks", lib)
+    fn = _fn(dll, "newt_fused_cr_backward", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+    def launch(exc, film_c, packed, dy):
+        b, ta, _ = exc.shape
+        tc = film_c.shape[1]
+        blocks = nf._segment_blocks(b * tc, resident)
+        outs = (torch.empty_like(exc), torch.empty_like(film_c), torch.empty_like(packed))
+        film_part = exc.new_empty((b * tc, 3, 256))
+        w_part = exc.new_empty((blocks, 170, 64))
+        err = fn(exc.data_ptr(), film_c.data_ptr(), packed.data_ptr(), dy.data_ptr(),
+                 *(o.data_ptr() for o in outs), film_part.data_ptr(), w_part.data_ptr(),
+                 b, ta, tc, blocks, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{lib.name} did not launch: CUDA error {err}")
+        return outs
+    return {"cr": launch}
+
+
+def x_launcher(lib: Path):
+    """-> {"xcr": fn, "xfull": fn}: functions of kernel 8's inputs (phase,
+    f0, offsets, film_c, w, b, packed, w_out, dy) -> (d_film_c, the (rows,
+    64) gradient table), launching the library at ``lib`` through kernel 8's
+    C interface with the grid of ``newt_fused._segment_blocks`` (any block
+    count strides over every segment, also in the two-segment blocks of the
+    earlier design)."""
+    dll = ctypes.CDLL(str(lib))
+    resident = {kind: _resident(dll, f"newt_fused_{kind}_backward_resident_blocks", lib)
+                for kind in ("xcr", "xfull")}
+    fn = _fn(dll, "newt_fused_x_backward",
+             [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+
+    def make(kind):
+        def launch(phase, f0, off, film_c, w, bias, packed, w_out, dy):
+            bsz, ta = phase.shape
+            tc = film_c.shape[1]
+            h = off.shape[0]
+            wo = w_out if kind == "xfull" else None
+            rows = 170 + h + 1 + int(wo is not None)
+            blocks = nf._segment_blocks(bsz * tc, resident[kind])
+            d_film, grads = torch.empty_like(film_c), phase.new_empty((rows, 64))
+            film_part, part = phase.new_empty((bsz * tc, 3, 256)), phase.new_empty((blocks, rows, 64))
+            err = fn(phase.data_ptr(), f0.data_ptr(), off.data_ptr(), film_c.data_ptr(), w.data_ptr(),
+                     bias.data_ptr(), packed.data_ptr(), wo.data_ptr() if wo is not None else None,
+                     dy[kind].data_ptr(), d_film.data_ptr(), grads.data_ptr(), film_part.data_ptr(),
+                     part.data_ptr(), bsz, ta, tc, h, blocks, 8000.0,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{lib.name} did not launch: CUDA error {err}")
+            return d_film, grads
+        return launch
+    return {"xcr": make("xcr"), "xfull": make("xfull")}
+
+
+def cr_inputs(rng, dev, packed):
+    exc = (rng.standard_normal((B, TC * HOP, 64)) * 0.5).astype(np.float32)
+    film_c = rng.standard_normal((B, TC, 256)).astype(np.float32)
+    dy = rng.standard_normal((B, TC * HOP, 64)).astype(np.float32)
+    exc, film_c, dy = (torch.from_numpy(a).to(dev) for a in (exc, film_c, dy))
+    return (exc, film_c, packed, dy), ("d_exciter", "d_film_c", "d_planes")
+
+
+def x_inputs(rng, dev, packed):
+    """As ``tests/test_torch_cuda.py`` ``_x_inputs``: wrapped phase and f0
+    (110 Hz to 1.76 kHz, so the antialias mask cuts real harmonics), offsets,
+    film, a 0.1-scaled mixer and w_out; dy for xcr and for xfull."""
+    f0 = (110.0 * 2.0 ** rng.uniform(0, 4, (B, TC * HOP))).astype(np.float32)
+    phase = np.mod(2 * np.pi * np.cumsum(f0.astype(np.float64), -1) / 16000, 2 * np.pi).astype(np.float32)
+    arrays = (phase, f0, rng.uniform(-np.pi, np.pi, H).astype(np.float32),
+              rng.standard_normal((B, TC, 256)).astype(np.float32),
+              (rng.standard_normal((H, 64)) * 0.1).astype(np.float32),
+              (rng.standard_normal(64) * 0.1).astype(np.float32))
+    phase, f0, off, film_c, w, bias = (torch.from_numpy(a).to(dev) for a in arrays)
+    w_out = torch.from_numpy((rng.standard_normal(64) * 0.1).astype(np.float32)).to(dev)
+    dy = {"xcr": torch.from_numpy(rng.standard_normal((B, TC * HOP, 64)).astype(np.float32)).to(dev),
+          "xfull": torch.from_numpy(rng.standard_normal((B, TC * HOP)).astype(np.float32)).to(dev)}
+    return (phase, f0, off, film_c, w, bias, packed, w_out, dy), ("d_film_c", "grads")
+
+
+KERNELS = {"cr": ("newt_fused_cr_bwd.cu", cr_launcher, cr_inputs),
+           "x": ("newt_fused_x_bwd.cu", x_launcher, x_inputs)}
+
+
+def sass_counts(lib: Path) -> dict:
+    """Per backward kernel function: opcode counts of all of it, of the
+    innermost loop (a backward branch's span) that holds every SHFL, and
+    each loop's length with its FFMA, LDS and SHFL counts."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass):
+        title = body.split("\n", 1)[0].strip()
+        if "bwd_kernel" not in title:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2), m.group(3))
+               for m in map(SASS_LINE.match, body.splitlines()) if m]
+        index = {addr: i for i, (addr, _, _) in enumerate(ins)}
+        shfl = [i for i, (_, op, _) in enumerate(ins) if op == "SHFL"]
+        loops = [(index[int(tgt, 16)], i) for i, (addr, op, tgt) in enumerate(ins)
+                 if op == "BRA" and tgt and int(tgt, 16) < addr and int(tgt, 16) in index]
+        fn = {"kernel": collections.Counter(op for _, op, _ in ins).most_common()}
+        holding = [(lo, hi) for lo, hi in loops if shfl and lo <= shfl[0] and shfl[-1] <= hi]
+        if holding:
+            lo, hi = min(holding, key=lambda span: span[1] - span[0])
+            loop = collections.Counter(op for _, op, _ in ins[lo:hi + 1])
+            fn["loop"] = {"instructions": hi + 1 - lo, "ops": loop.most_common()}
+        fn["loops"] = []
+        for lo, hi in sorted(loops):
+            ops = collections.Counter(op for _, op, _ in ins[lo:hi + 1])
+            fn["loops"].append({"span": [lo, hi], "instructions": hi + 1 - lo,
+                                **{op: ops[op] for op in ("FFMA", "LDS", "SHFL", "BAR")}})
+        out[title] = fn
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("others", nargs="+", type=Path, help="CUDA sources with the kernel's C interface")
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="cr")
+    ap.add_argument("--iters", type=int, default=30)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_ab_bwd: needs a CUDA card", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    OUT.mkdir(parents=True, exist_ok=True)
+    source, launcher, make_inputs = KERNELS[args.kernel]
+    sources = {"current": _build.CSRC / source}
+    sources.update((p.stem, p) for p in args.others)
+    launch = {}
+    for name, src in sources.items():
+        lib, report = build(f"{args.kernel}_{name}", src)
+        print(json.dumps({"source": str(src), "name": name, "ptxas": report,
+                          "sass": sass_counts(lib)}), flush=True)
+        launch[name] = launcher(lib)
+
+    dev = torch.device("cuda")
+    shaper = load_checkpoint(cs.CKPT)[0]["newt"]["shaping_fn"]
+    packed = nf.pack_weights({"input_scale": shaper["input_scale"].to(dev),
+                              "layers": [{k: v.to(dev) for k, v in layer.items()}
+                                         for layer in shaper["layers"]]})
+    inputs, outputs = make_inputs(np.random.default_rng(0), dev, packed)
+    for case in launch["current"]:
+        ref = launch["current"][case](*inputs)
+        for name, fns in launch.items():
+            first, second = fns[case](*inputs), fns[case](*inputs)
+            torch.cuda.synchronize()
+            print(json.dumps({"case": case, "name": name,
+                              "bit_identical_repeat": all(map(torch.equal, first, second)),
+                              "max_rel_diff_vs_current": {
+                                  k: float((o - r).abs().max() / r.abs().max())
+                                  for k, o, r in zip(outputs, first, ref)}}), flush=True)
+        order = list(launch) + list(launch)[::-1]
+        ms = collections.defaultdict(list)
+        for name in order:
+            ms[name].append(cs.cuda_median_ms(lambda: launch[name][case](*inputs), n=args.iters))
+        print(json.dumps({"card": smi, "case": case, "B": B, "Tc": TC, "hop": HOP,
+                          "H": H if args.kernel == "x" else None, "order": order, "ms": ms}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

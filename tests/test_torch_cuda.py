@@ -650,7 +650,13 @@ def _x_inputs(b, tc, hop, h=101, seed=0):
     return tuple(torch.from_numpy(a) for a in arrays)
 
 
-_X_SHAPES = [(2, 6, 16, 101), (1, 37, 128, 101), (2, 5, 64, 2), (3, 1, 64, 128), (1, 3, 1, 101)]
+# (B, Tc, hop, H). The backward's lanes are samples of a segment, 32 at a
+# time, one segment per block: hops across a multiple of 32 (partial lane
+# groups), odd B*Tc, H = 2, 101 and 128, and 300 segments, more than the
+# blocks resident on an H100 (132).
+_X_SHAPES = [(2, 6, 16, 101), (1, 37, 128, 101), (2, 5, 64, 2), (3, 1, 64, 128), (1, 3, 1, 101),
+             (2, 5, 31, 101), (2, 5, 33, 128), (1, 9, 100, 2), (3, 7, 129, 101), (1, 4, 300, 128),
+             (2, 150, 33, 101)]
 
 
 def _x_call(kind, fn_xcr, fn_xfull, phase, f0, off, film_c, w, bias, w_out, shaper, hop, *extra):
@@ -720,6 +726,22 @@ def test_x_backward_kernel_matches_plain(cuda, params, kind, b, tc, hop, h):
     assert all(torch.equal(a, c) for a, c in zip(out, again))
     for o, r in zip(out, ref):
         _grad_close(o, r)
+
+
+@pytest.mark.parametrize("kind", ["xcr", "xfull"])
+def test_x_backward_kernel_is_deterministic(cuda, params, kind):
+    """Lane sums, per-chunk mixer products and per-block partials in a fixed
+    order, no atomics: two calls give the same bits at the training step's
+    shape (8 clips of 4 s, H = 101)."""
+    phase, f0, off, film_c, w, bias, w_out = (t.to(cuda) for t in _x_inputs(8, 500, 128, seed=9))
+    packed = nf.pack_weights(_shaper(params, cuda))
+    shape = (8, 500 * 128) if kind == "xfull" else (8, 500 * 128, 64)
+    dy = torch.randn(shape, generator=torch.Generator().manual_seed(10)).to(cuda)
+    args = (phase, f0, off, film_c, w, bias, packed, w_out if kind == "xfull" else None, 101,
+            16000.0, 128, dy)
+    first = nf._launch_backward_x(*args)
+    second = nf._launch_backward_x(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_x_kernels_refuse_what_they_do_not_take(cuda, params):

@@ -8,6 +8,9 @@ launch checks and NEWT's dispatch and packing. The card's own cases (the CUDA ke
 the plain version) are in tests/test_torch_cuda.py, which imports no JAX
 so that it runs on a machine with a card and no JAX.
 """
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -132,7 +135,40 @@ def test_backward_grid_is_one_block_per_segment_at_most_resident(segments, resid
     the blocks resident at once (each block then strides over segments),
     and never a block without a segment, whose weight partial would be
     zeros summed for nothing."""
-    assert nf._cr_backward_blocks(segments, resident) == blocks
+    assert nf._segment_blocks(segments, resident) == blocks
+
+
+@pytest.mark.parametrize("b,tc,blocks", [
+    (8, 500, 132),  # the training step on an H100, one 16-warp block per SM
+    (1, 37, 37),  # odd B*Tc: no block holds two segments at once
+    (3, 1, 3),
+    (7, 19, 132),  # 133 segments, one more than the card holds: block 0 takes two
+])
+def test_exciter_fused_backward_grid_is_one_block_per_segment(monkeypatch, b, tc, blocks):
+    """The exciter-fused backward's launcher walks control segments as the
+    cr backward's does (lanes are a segment's samples): one block per
+    segment, capped at the blocks resident at once (132 here), no longer one
+    block per two segments. The library is a stand-in that records the grid
+    it is handed, so the launcher runs here on CPU tensors."""
+    launched = []
+
+    class Lib:
+        def newt_fused_x_backward(self, *args):
+            launched.append(args)
+            return 0
+
+    monkeypatch.setattr(nf, "_lib", lambda *a, **k: Lib())
+    monkeypatch.setattr(nf, "_resident_blocks", lambda lib, query, device: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: types.SimpleNamespace(cuda_stream=0))
+    hop, h = 2, 101
+    phase = torch.zeros(b, tc * hop)
+    args = (phase, phase.clone(), torch.zeros(h), torch.zeros(b, tc, 256), torch.zeros(h, 64),
+            torch.zeros(64), torch.zeros(170, 64), torch.zeros(64), h, 16000.0, hop,
+            torch.zeros(b, tc * hop))
+    grads = nf._launch_backward_x(*args)
+    assert len(launched) == 1 and len(grads) == 5
+    assert launched[0][13:18] == (b, tc * hop, tc, h, blocks)  # B, Ta, Tc, H, blocks
 
 
 @pytest.mark.parametrize(
