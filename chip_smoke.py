@@ -35,8 +35,10 @@ exits non-zero:
 5a. kernel_stream: the stream kernel against its plain version
    (rtol=1e-4, atol=1e-5) on the inputs ``StreamingSynth.step`` hands it
    at 1024-sample buffers (K=8), caught with hooks at batch 1 and 256,
-   and on made-up K=1, K=3 and hop 64; its FiLM ramp bit for bit against
-   ``segment_interp``; a 3 + 5 frame split bit-identical to one buffer;
+   and on made-up K=1, K=3, hop 64, hop 5 (B*Ta = 15) and hop 33 (B=3,
+   K=5); two calls bit-identical; its FiLM ramp bit for bit against
+   ``segment_interp``; a K//2 + rest frame split bit-identical to one
+   buffer;
 5b. stream: ``PipelinedStreamer(device="cuda")`` at batch 1 and 256, depth
    4, over 64 buffers (4.1 s): finite, not silent, exactly one stream
    kernel launch per push and no launch of the offline kernels, and
@@ -465,7 +467,10 @@ def stream_phases(dev, synth, cpu_synth):
 
     # 5a. the stream kernel on the inputs the step hands it, and made-up shapes
     cases = [(f"step_b{b}", *stream_kernel_inputs(ss, *on_card[b], spec, b)) for b in STREAM_BATCHES]
-    for label, b, k, hop in (("k1", 2, 1, HOP), ("k3", 2, 3, HOP), ("hop_64", 2, STREAM_K, 64)):
+    # hop 5 (B*Ta = 15) and hop 33 (B = 3, K = 5): groups of samples that
+    # straddle segments and buffers, and a ragged last group
+    for label, b, k, hop in (("k1", 2, 1, HOP), ("k3", 2, 3, HOP), ("hop_64", 2, STREAM_K, 64),
+                             ("hop_5", 1, 3, 5), ("hop_33", 3, 5, 33)):
         exc, film_c = made_up_kernel_inputs(b, k, hop, 40 + k, dev)
         prev = torch.randn((b, 256), generator=torch.Generator().manual_seed(k)).to(dev)
         cases.append((label, exc, prev, film_c))
@@ -477,6 +482,7 @@ def stream_phases(dev, synth, cpu_synth):
         with torch.inference_mode():
             out = nf.film_shaper_stream(exc, prev, film_c, weights, hop, packed=packed)
             ref = nf.film_shaper_stream_plain(exc, prev, film_c, weights, hop)
+            repeat = torch.equal(out, nf.film_shaper_stream(exc, prev, film_c, weights, hop, packed=packed))
             film_z, prev_z = film_c.clone(), prev.clone()
             film_z[..., 128:192] = 0.0
             prev_z[..., 128:192] = 0.0
@@ -494,8 +500,10 @@ def stream_phases(dev, synth, cpu_synth):
         emit({"phase": "kernel_stream", "name": "film_shaper_fused_stream", "case": label, "B": b,
               "K": k, "hop": hop, "max_abs_err": err, "rtol": RTOL, "atol": ATOL,
               "ramp_elements_not_bit_exact": n_diff,
-              "split_bit_identical": split if cut > 0 else None})
+              "split_bit_identical": split if cut > 0 else None, "bit_identical_repeat": repeat})
         np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL, err_msg=label)
+        if not repeat:
+            raise RuntimeError(f"{label}: two stream kernel calls gave different bits")
         if n_diff:
             raise RuntimeError(f"{label}: the in-kernel FiLM ramp is not bit-exact")
         if cut > 0 and not split:

@@ -29,12 +29,28 @@
 // bound of ~0.19 ms set by the 67 TFLOP/s f32 rate. At one stream the
 // kernel is a few microseconds and the launch dominates.
 //
-// What the design does about it: the cr kernel's. One thread per (sample,
-// channel), channels fastest, so exciter, film and output accesses of a
-// warp are 128-byte coalesced; the 170 x 64 weight planes in shared memory;
-// a grid of what fits on the card at once striding over the samples, so
-// each block stages the weights once. The (B, Ta, 256) audio-rate film never
-// exists: the ramp is computed in registers.
+// What the design does about it. A thread owns channel c and kS = 4
+// consecutive samples (a group); lanes are channels, so each sample's
+// exciter, film and output accesses of a warp are 128-byte coalesced. The
+// weights sit in shared memory as the channel-major rows that the lane-sum
+// backwards read (newt_shaper.cuh, kLd = 172 floats a channel), and
+// newt::shaper_n reads each of them once for the group's four samples, four
+// at a time (43 ld.shared.v4 per group, conflict-free), which then run as
+// four independent chains. The group's sample, buffer and frame indices are
+// divided out once and stepped from sample to sample. A grid of what fits on
+// the card at once strides over the groups, so each block stages the
+// weights once. The (B, Ta, 256) audio-rate film never exists: the ramp is
+// computed in registers.
+//
+// Registers set the pace. With plain loads the compiler hoists all 170
+// weights out of the group loop (they do not change in it) into registers:
+// one thread per (sample, channel) took 206 registers, one 8-warp block per
+// SM, and issued at under half the card's rate; four samples under a
+// register cap spilled them instead. The volatile loads of lds4/lds8 stay in
+// the loop: 80 registers, three 256-thread blocks (24 warps) per SM. The
+// choices (1, 2, 3, 4 or 8 samples a thread; 2, 3 or 4 blocks; scalar loads
+// of the (170, 64) planes, this layout or one of its own) were timed in turns
+// by scripts/torch_ab_bwd.py --kernel stream (PERF.md §6, kernel 3).
 //
 // Where the numbers would trip, and what holds them:
 //  * The ramp is bit-exact to segment_interp: t is ONE IEEE f32 division of
@@ -42,7 +58,13 @@
 //    would make division approximate), and start + (end - start) * t is
 //    written with __fsub_rn/__fmul_rn/__fadd_rn so that nvcc's default FMA
 //    contraction cannot fuse it. Note the form differs from the cr kernel's
-//    left*(1-w) + right*w: the two round differently.
+//    left*(1-w) + right*w: the two round differently. Each sample takes its
+//    own frame pair and its own division, also in a group that straddles a
+//    segment or a buffer.
+//  * A sample's bits do not depend on its place in a group (shaper_n treats
+//    every slot alike), so two buffers give the bits of one at any cut. The
+//    ragged last group (B*Ta not a multiple of kS) computes its missing
+//    samples from zeros and stores nothing for them: no other code path.
 //  * Index arithmetic: samples are counted in 32-bit ints (the wrapper
 //    refuses B*Ta > 2^30), element and film offsets in 64-bit.
 #include <cuda_runtime.h>
@@ -52,49 +74,65 @@
 namespace {
 
 using newt::kC;
-using newt::kRows;
 
-constexpr int kThreads = 256;  // 4 samples x 64 channels per block pass
-constexpr int kSamplesPerPass = kThreads / kC;
-constexpr int kFilm = 4 * kC;  // floats per FiLM frame
+constexpr int kThreads = 256;
+constexpr int kGroupsPerPass = kThreads / kC;  // 4 groups of kS samples per block pass
+constexpr int kS = 4;                          // samples per thread (a group)
+constexpr int kFilm = 4 * kC;                  // floats per FiLM frame
 
 __device__ __forceinline__ float ramp_exact(float start, float end, float t) {
   return __fadd_rn(start, __fmul_rn(__fsub_rn(end, start), t));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 film_shaper_stream_kernel(const float* __restrict__ exciter,
                           const float* __restrict__ prev_film,
                           const float* __restrict__ film,
                           const float* __restrict__ weights,
-                          float* __restrict__ out, int n_samples, int ta, int k,
-                          int hop) {
-  __shared__ float sw[kRows * kC];
-  newt::stage_weights(sw, weights, kThreads);
+                          float* __restrict__ out, int n_samples, int k, int hop) {
+  __shared__ __align__(16) float sw[kC * newt::kLd];
+  newt::stage_weight_rows(sw, weights, kThreads);
   __syncthreads();
 
   const int c = threadIdx.x % kC;
   const float den = static_cast<float>(hop);
-  const int stride = gridDim.x * kSamplesPerPass;
+  const int n_groups = (n_samples + kS - 1) / kS;
+  const int stride = gridDim.x * kGroupsPerPass;
 
-  for (int s = blockIdx.x * kSamplesPerPass + threadIdx.x / kC; s < n_samples;
-       s += stride) {
-    const int b = s / ta;
-    const int t = s - b * ta;
-    const int m = t / hop;
-    const float w = __fdiv_rn(static_cast<float>(t - m * hop + 1), den);
-
-    const float* fe = film + (static_cast<long long>(b) * k + m) * kFilm + c;
-    const float* fs = m == 0 ? prev_film + static_cast<long long>(b) * kFilm + c
-                             : fe - kFilm;
-    const float g_in = ramp_exact(fs[0], fe[0], w);
-    const float b_in = ramp_exact(fs[kC], fe[kC], w);
-    const float g_out = ramp_exact(fs[2 * kC], fe[2 * kC], w);
-    const float b_out = ramp_exact(fs[3 * kC], fe[3 * kC], w);
-
-    const long long e = static_cast<long long>(s) * kC + c;
-    const float y = newt::shaper(g_in * exciter[e] + b_in, sw, c);
-    out[e] = g_out * y + b_out;
+  for (int g = blockIdx.x * kGroupsPerPass + threadIdx.x / kC; g < n_groups; g += stride) {
+    const int s0 = g * kS;
+    // frame f = s / hop counts the B*K frames of all buffers in a row
+    const int f = s0 / hop;
+    int o = s0 - f * hop;
+    int b = f / k;
+    int m = f - b * k;
+    float x[kS], g_out[kS], b_out[kS], y[kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      x[i] = g_out[i] = b_out[i] = 0.0f;
+      if (s0 + i < n_samples) {
+        const float w = __fdiv_rn(static_cast<float>(o + 1), den);
+        const float* fe = film + (static_cast<long long>(b) * k + m) * kFilm + c;
+        const float* fs = m == 0 ? prev_film + static_cast<long long>(b) * kFilm + c
+                                 : fe - kFilm;
+        const float g_in = ramp_exact(fs[0], fe[0], w);
+        const float b_in = ramp_exact(fs[kC], fe[kC], w);
+        g_out[i] = ramp_exact(fs[2 * kC], fe[2 * kC], w);
+        b_out[i] = ramp_exact(fs[3 * kC], fe[3 * kC], w);
+        x[i] = g_in * exciter[static_cast<long long>(s0 + i) * kC + c] + b_in;
+      }
+      if (++o == hop) {
+        o = 0;
+        if (++m == k) {
+          m = 0;
+          ++b;
+        }
+      }
+    }
+    newt::shaper_n<kS>(x, sw, c, y);
+#pragma unroll
+    for (int i = 0; i < kS; ++i)
+      if (s0 + i < n_samples) out[static_cast<long long>(s0 + i) * kC + c] = g_out[i] * y[i] + b_out[i];
   }
 }
 
@@ -121,18 +159,19 @@ extern "C" int newt_fused_stream_resident_blocks() {
 // weights (170, 64) and out (B, Ta, 64): contiguous float32 on the current
 // device, Ta = K*hop, n_samples = B*Ta; `blocks` as
 // newt_fused_stream_resident_blocks says. Launches min(blocks, what the
-// samples need) blocks on `stream` and returns cudaGetLastError() (0 =
-// launched).
+// groups of kS samples need) blocks on `stream` and returns
+// cudaGetLastError() (0 = launched). ta is implied by k and hop; the
+// interface keeps it.
 extern "C" int newt_fused_stream_forward(const float* exciter, const float* prev_film,
                                          const float* film, const float* weights,
                                          float* out, int n_samples, int ta, int k,
                                          int hop, int blocks, void* stream) {
   if (n_samples <= 0) return 0;
   if (blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long needed =
-      (static_cast<long long>(n_samples) + kSamplesPerPass - 1) / kSamplesPerPass;
-  const int grid = static_cast<int>(needed < blocks ? needed : blocks);
+  const int n_groups = (n_samples + kS - 1) / kS;
+  const int needed = (n_groups + kGroupsPerPass - 1) / kGroupsPerPass;
+  const int grid = needed < blocks ? needed : blocks;
   film_shaper_stream_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      exciter, prev_film, film, weights, out, n_samples, ta, k, hop);
+      exciter, prev_film, film, weights, out, n_samples, k, hop);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,12 +4,13 @@
 // samples, lane l holding sample l of a chunk, and sums the weight gradients
 // across its lanes instead of keeping a gradient slot per thread.
 //
-//  * Weights as broadcasts: a channel-major copy of the packed planes in
-//    shared memory, one row of 170 per channel padded to kLd = 172 (16-B
-//    aligned), in an order where every 8-wide group starts on 16 bytes
-//    (row_pos). All lanes of a warp read the same address, 4 weights per
-//    ld.shared.v4: 79 loads per 32 samples (43 in the recompute, 36 in the
-//    chain rule).
+//  * Weights as broadcasts: the channel-major rows of newt_shaper.cuh (kLd,
+//    row_pos, lds4/lds8; the forward shaper_n reads them too). All lanes of
+//    a warp read the same address, 4 weights per ld.shared.v4: 79 loads per
+//    32 samples (43 in the recompute, 36 in the chain rule). In a row, the
+//    six lane-sum groups below are positions 0-31, 32-63, 64-95, 96-127,
+//    128-159 and 160-169; kernel 8 keeps its mixer bias and output-mix
+//    weight gradients in the padding, 170 and 171.
 //  * Weight-gradient sums across lanes: the 170 per-sample terms form six
 //    groups of 32 (w3 in two, w2 in two; b3, w4, b2, b1; w1, scale, b4 and up
 //    to 22 terms of the caller's). Each group is summed over the 32 lanes by
@@ -32,60 +33,9 @@
 namespace newt {
 
 constexpr int kLanes = 32;
-constexpr int kLd = 172;         // a channel's row of 170, padded to 16 bytes
 constexpr int kTileLd = kC + 1;  // a staging tile's row, padded
 constexpr int kFilmSlots = 12;   // FilmSegment's (3, 4) cotangent slots
-// Positions in a channel's row, for the weights and the gradient table: the
-// six lane-sum groups are 0-31, 32-63, 64-95, 96-127, 128-159 and 160-169;
-// 170 and 171 are padding (kernel 8 keeps its mixer bias and output-mix
-// weight gradients there).
-constexpr int kPW3 = 0;    // w3 (64), u*8+v
-constexpr int kPW2 = 64;   // w2 (64), u*8+v
-constexpr int kPB3 = 128;  // b3 (8)
-constexpr int kPW4 = 136;  // w4 (8)
-constexpr int kPB2 = 144;  // b2 (8)
-constexpr int kPB1 = 152;  // b1 (8)
-constexpr int kPW1 = 160;  // w1 (8)
-constexpr int kPScale = 168;
-constexpr int kPB4 = 169;
 constexpr int kLastTerms = 10;  // weight terms of the last group: w1, scale, b4
-
-// position in a channel's row of packed plane row k (newt_shaper.cuh order)
-__device__ __forceinline__ int row_pos(int k) {
-  if (k == newt::kScale) return kPScale;
-  if (k < newt::kB1) return kPW1 + (k - newt::kW1);
-  if (k < newt::kW2) return kPB1 + (k - newt::kB1);
-  if (k < newt::kB2) return kPW2 + (k - newt::kW2);
-  if (k < newt::kW3) return kPB2 + (k - newt::kB2);
-  if (k < newt::kB3) return kPW3 + (k - newt::kW3);
-  if (k < newt::kW4) return kPB3 + (k - newt::kB3);
-  if (k < newt::kB4) return kPW4 + (k - newt::kW4);
-  return kPB4;
-}
-
-// The shared-memory (32-bit) address of `p`, and the byte offset of weight
-// position `pos` in a row.
-__device__ __forceinline__ unsigned smem_addr(const float* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__host__ __device__ constexpr unsigned woff(int pos) { return 4u * pos; }
-
-// One 16-B shared load from a 32-bit shared address (one base register per
-// channel, constant offsets). volatile: the compiler re-reads the weights
-// where the chain rule needs them again instead of holding 170 in registers.
-__device__ __forceinline__ float4 lds4(unsigned a) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(a));
-  return v;
-}
-
-__device__ __forceinline__ void lds8(unsigned addr, float out[kW]) {
-  const float4 a = lds4(addr), b = lds4(addr + 16);
-  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
-  out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
-}
 
 // One butterfly step on v[0 .. 2*kOff): lanes with bit kOff set keep the
 // upper kOff values and add their partner's, the others the lower.

@@ -1,8 +1,10 @@
 // The learned sine-shaper bank of one (sample, channel), float32: what the
-// forward kernels newt_fused_cr.cu (offline FiLM upsample),
-// newt_fused_stream.cu (streaming FiLM ramp), newt_fused_fl.cu (audio-rate
-// FiLM) and newt_fused_x.cu (exciter-fused) share once each has its four
-// FiLM values in registers; and the control-rate FiLM lerp (film_at) of
+// forward kernels newt_fused_cr.cu (offline FiLM upsample), newt_fused_fl.cu
+// (audio-rate FiLM) and newt_fused_x.cu (exciter-fused) share once each has
+// its four FiLM values in registers (shaper); the same for S samples of one
+// channel, each weight read once for all S, from a channel-major copy of
+// the weights that the lane-sum backwards read too (shaper_n,
+// newt_fused_stream.cu); and the control-rate FiLM lerp (film_at) of
 // newt_fused_cr.cu and newt_fused_x.cu.
 //
 // The weights are the packed (170, 64) planes of kernels/newt_fused.py
@@ -125,6 +127,133 @@ __device__ __forceinline__ float shaper(float x, const float* sw, int c) {
 #pragma unroll
   for (int u = 1; u < kW; ++u) acc += h1[u] * sw[(kW4 + u) * kC + c];
   return psin(acc + sw[kB4 * kC + c]);
+}
+
+// The channel-major copy of the weights that shaper_n reads, and the
+// lane-sum backwards (newt_lanes_bwd.cuh) too: in shared memory, one row of
+// the 170 weights per channel, padded to kLd = 172 floats (16-B aligned), in
+// an order where every 8-wide group starts on 16 bytes (row_pos), read 4
+// weights per ld.shared.v4. With lanes as channels (shaper_n) the 8 channels
+// of a quarter-warp start 12 banks apart (172 mod 32), so each 16-B load
+// touches 32 distinct banks; with lanes as samples (the backwards) all lanes
+// read one address, a broadcast. 170 and 171 are padding.
+constexpr int kLd = 172;   // a channel's row of 170, padded to 16 bytes
+constexpr int kPW3 = 0;    // w3 (64), u*8+v
+constexpr int kPW2 = 64;   // w2 (64), u*8+v
+constexpr int kPB3 = 128;  // b3 (8)
+constexpr int kPW4 = 136;  // w4 (8)
+constexpr int kPB2 = 144;  // b2 (8)
+constexpr int kPB1 = 152;  // b1 (8)
+constexpr int kPW1 = 160;  // w1 (8)
+constexpr int kPScale = 168;
+constexpr int kPB4 = 169;
+
+// position in a channel's row of packed plane row k (newt_shaper.cuh order)
+__device__ __forceinline__ int row_pos(int k) {
+  if (k == newt::kScale) return kPScale;
+  if (k < newt::kB1) return kPW1 + (k - newt::kW1);
+  if (k < newt::kW2) return kPB1 + (k - newt::kB1);
+  if (k < newt::kB2) return kPW2 + (k - newt::kW2);
+  if (k < newt::kW3) return kPB2 + (k - newt::kB2);
+  if (k < newt::kB3) return kPW3 + (k - newt::kW3);
+  if (k < newt::kW4) return kPB3 + (k - newt::kB3);
+  if (k < newt::kB4) return kPW4 + (k - newt::kW4);
+  return kPB4;
+}
+
+// The shared-memory (32-bit) address of `p`, and the byte offset of weight
+// position `pos` in a row.
+__device__ __forceinline__ unsigned smem_addr(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__host__ __device__ constexpr unsigned woff(int pos) { return 4u * pos; }
+
+// One 16-B shared load from a 32-bit shared address (one base register per
+// channel, constant offsets). volatile: the compiler reads the weights where
+// they are used (again where the chain rule needs them; in every pass of a
+// kernel's loop) instead of holding 170 in registers.
+__device__ __forceinline__ float4 lds4(unsigned a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void lds8(unsigned addr, float out[kW]) {
+  const float4 a = lds4(addr), b = lds4(addr + 16);
+  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
+  out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
+}
+
+// Copies the (kRows, kC) weight planes into the channel-major rows (kC,
+// kLd) at sw (16-B aligned); the caller synchronises the block afterwards.
+__device__ __forceinline__ void stage_weight_rows(float* sw, const float* __restrict__ weights,
+                                                  int n_threads) {
+  for (int i = threadIdx.x; i < kRows * kC; i += n_threads) {
+    const int k = i / kC;
+    sw[(i - k * kC) * kLd + row_pos(k)] = weights[i];
+  }
+}
+
+// One 8 -> 8 sine layer for S samples: o[v] = psin(sum_u h[u] w(u, v) + b[v]),
+// the weights from channel rows at shared addresses w_addr (w(u, v) at u*8+v)
+// and b_addr. u runs outermost, so each weight row w(u, 0..7) is two 16-B
+// loads, and each sum still runs over u = 0..7 in shaper's order.
+template <int S>
+__device__ __forceinline__ void sine_layer_n(const float (&h)[kW][S], unsigned w_addr,
+                                             unsigned b_addr, float (&o)[kW][S]) {
+  float w[kW];
+  lds8(w_addr, w);
+#pragma unroll
+  for (int v = 0; v < kW; ++v)
+#pragma unroll
+    for (int i = 0; i < S; ++i) o[v][i] = h[0][i] * w[v];
+#pragma unroll
+  for (int u = 1; u < kW; ++u) {
+    lds8(w_addr + woff(u * kW), w);
+#pragma unroll
+    for (int v = 0; v < kW; ++v)
+#pragma unroll
+      for (int i = 0; i < S; ++i) o[v][i] += h[u][i] * w[v];
+  }
+  lds8(b_addr, w);
+#pragma unroll
+  for (int v = 0; v < kW; ++v)
+#pragma unroll
+    for (int i = 0; i < S; ++i) o[v][i] = psin(o[v][i] + w[v]);
+}
+
+// shaper for S samples of channel c at once: y[i] = shaper(x[i], ...), with
+// the weights in the channel-major rows at sw (stage_weight_rows). Each
+// weight is read from shared memory once for all S samples (43 ld.shared.v4
+// per S samples), and the S samples' layers interleave, so a thread runs S
+// independent chains. Every sample takes shaper's operations in shaper's
+// order, the same for each i, so a sample's bits do not depend on its slot.
+template <int S>
+__device__ __forceinline__ void shaper_n(const float (&x)[S], const float* sw, int c,
+                                         float (&y)[S]) {
+  const unsigned a = smem_addr(sw) + woff(c * kLd);
+  float h1[kW][S], h2[kW][S], w[kW], b[kW];
+  const float4 tail = lds4(a + woff(kPScale));  // scale, b4
+  lds8(a + woff(kPW1), w);
+  lds8(a + woff(kPB1), b);
+#pragma unroll
+  for (int v = 0; v < kW; ++v)
+#pragma unroll
+    for (int i = 0; i < S; ++i) h1[v][i] = psin((x[i] * tail.x) * w[v] + b[v]);
+  sine_layer_n<S>(h1, a + woff(kPW2), a + woff(kPB2), h2);
+  sine_layer_n<S>(h2, a + woff(kPW3), a + woff(kPB3), h1);  // h1 now holds layer 3
+  lds8(a + woff(kPW4), w);
+  float acc[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) acc[i] = h1[0][i] * w[0];
+#pragma unroll
+  for (int u = 1; u < kW; ++u)
+#pragma unroll
+    for (int i = 0; i < S; ++i) acc[i] += h1[u][i] * w[u];
+#pragma unroll
+  for (int i = 0; i < S; ++i) y[i] = psin(acc[i] + tail.y);
 }
 
 }  // namespace newt

@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
-"""A backward kernel of the port against other CUDA sources with its C
-interface, on the card: kernel 2 (``kernels/csrc/newt_fused_cr_bwd.cu``,
-the default training backward) or kernel 8 (``newt_fused_x_bwd.cu``, the
-exciter-fused backward, xcr and xfull).
+"""A kernel of the port against other CUDA sources with its C interface, on
+the card: kernel 2 (``kernels/csrc/newt_fused_cr_bwd.cu``, the default
+training backward), kernel 8 (``newt_fused_x_bwd.cu``, the exciter-fused
+backward, xcr and xfull) or kernel 3 (``newt_fused_stream.cu``, the
+streaming forward).
 
-    python3 scripts/torch_ab_bwd.py --kernel cr|x OTHER.cu [OTHER.cu ...] [--iters 30]
+    python3 scripts/torch_ab_bwd.py --kernel cr|x|stream OTHER.cu [OTHER.cu ...] [--iters 30]
 
 Builds the checkout's kernel and each OTHER source (nvcc with the port's
 flags and ``-I kernels/csrc``, into ``build/ab_bwd/``) and prints, for each,
-ptxas's report and the SASS opcode counts (cuobjdump) of each backward
-kernel function (kernel 8 has two: xcr and xfull): the whole function, the
+ptxas's report and the SASS opcode counts (cuobjdump) of each kernel
+function (kernel 8 has two: xcr and xfull): the whole function, the
 innermost loop that holds every shuffle (in the lane-sum design, one
-channel's pass over 32 samples) and a summary of every loop. Then, on seeded
-random inputs at a training step's shape (B=8, Tc=500, hop 128; H=101 for
-kernel 8) with the run120k_cr shaper, for each case (cr; or xcr and xfull)
-it checks that two calls of each source give the same bits, gives each
-one's largest difference from the checkout's kernel relative to the
-latter's largest value per output, and times all of them in turns (a, b,
-..., ..., b, a) by CUDA-event medians of ``--iters`` calls. One JSON line
-each, with the card's name and power limit. Without a card it exits
-non-zero.
+channel's pass over 32 samples; for the stream kernel, which has no
+shuffles, its longest loop: one pass over a group of samples) and a summary
+of every loop. Then, on seeded random inputs with the run120k_cr shaper, at
+a training step's shape (B=8, Tc=500, hop 128; H=101 for kernel 8) or, for
+the stream kernel, at 256 streams of 1024-sample buffers (B=256, K=8, hop
+128), for each case (cr; xcr and xfull; or stream) it checks that two calls
+of each source give the same bits, gives each one's largest difference from
+the checkout's kernel relative to the latter's largest value per output,
+and times all of them in turns (a, b, ..., ..., b, a) by CUDA-event medians
+of ``--iters`` calls. One JSON line each, with the card's name and power
+limit. Without a card it exits non-zero.
 """
 import argparse
 import collections
@@ -43,21 +46,29 @@ from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf  # n
 
 OUT = _build.BUILD_DIR / "ab_bwd"
 B, TC, HOP, H = 8, 500, 128, 101
+STREAM_B, STREAM_K = 256, 8
 # one SASS line: address, opcode (after any predicate), a branch's target
 SASS_LINE = re.compile(
     r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*?(?:0x([0-9a-f]+))?\s*;")
 
 
-def build(name: str, source: Path):
-    """-> (library path, ptxas lines)."""
-    lib = OUT / f"lib{name}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
-    report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    return lib, report
+def build(sources: dict) -> dict:
+    """{name: source} -> {name: (library path, ptxas lines)}, one nvcc
+    process per source, all started together."""
+    jobs = {}
+    for name, source in sources.items():
+        lib = OUT / f"lib{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(source)]
+        jobs[name] = (lib, source, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                    text=True))
+    built = {}
+    for name, (lib, source, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {source}:\n{log}")
+        built[name] = lib, [ln.strip() for ln in log.splitlines()
+                            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    return built
 
 
 def _fn(dll, symbol, argtypes):
@@ -159,21 +170,57 @@ def x_inputs(rng, dev, packed):
     return (phase, f0, off, film_c, w, bias, packed, w_out, dy), ("d_film_c", "grads")
 
 
-KERNELS = {"cr": ("newt_fused_cr_bwd.cu", cr_launcher, cr_inputs),
-           "x": ("newt_fused_x_bwd.cu", x_launcher, x_inputs)}
+def stream_launcher(lib: Path):
+    """-> {"stream": fn}: a function of kernel 3's inputs (exciter,
+    prev_film, film_c, packed) -> (out,), launching the library at ``lib``
+    through kernel 3's C interface with the grid the library reports."""
+    dll = ctypes.CDLL(str(lib))
+    resident = _resident(dll, "newt_fused_stream_resident_blocks", lib)
+    fn = _fn(dll, "newt_fused_stream_forward", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+    def launch(exc, prev, film_c, packed):
+        b, ta, _ = exc.shape
+        k = film_c.shape[1]
+        out = torch.empty_like(exc)
+        err = fn(exc.data_ptr(), prev.data_ptr(), film_c.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                 b * ta, ta, k, ta // k, resident, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{lib.name} did not launch: CUDA error {err}")
+        return (out,)
+    return {"stream": launch}
 
 
-def sass_counts(lib: Path) -> dict:
-    """Per backward kernel function: opcode counts of all of it, of the
-    innermost loop (a backward branch's span) that holds every SHFL, and
-    each loop's length with its FFMA, LDS and SHFL counts."""
+def stream_inputs(rng, dev, packed):
+    """As ``chip_smoke.py``'s made-up stream cases: a 0.5-scaled exciter,
+    normal carried and buffer FiLM frames."""
+    exc = (rng.standard_normal((STREAM_B, STREAM_K * HOP, 64)) * 0.5).astype(np.float32)
+    prev = rng.standard_normal((STREAM_B, 256)).astype(np.float32)
+    film_c = rng.standard_normal((STREAM_B, STREAM_K, 256)).astype(np.float32)
+    exc, prev, film_c = (torch.from_numpy(a).to(dev) for a in (exc, prev, film_c))
+    return (exc, prev, film_c, packed), ("out",)
+
+
+# --kernel -> (source, SASS function-name mark, launcher, inputs, shape printed)
+KERNELS = {"cr": ("newt_fused_cr_bwd.cu", "bwd_kernel", cr_launcher, cr_inputs,
+                  {"B": B, "Tc": TC, "hop": HOP}),
+           "x": ("newt_fused_x_bwd.cu", "bwd_kernel", x_launcher, x_inputs,
+                 {"B": B, "Tc": TC, "hop": HOP, "H": H}),
+           "stream": ("newt_fused_stream.cu", "stream_kernel", stream_launcher, stream_inputs,
+                      {"B": STREAM_B, "K": STREAM_K, "hop": HOP})}
+
+
+def sass_counts(lib: Path, mark: str) -> dict:
+    """Per kernel function whose name holds ``mark``: opcode counts of all
+    of it, of the innermost loop (a backward branch's span) that holds every
+    SHFL (without SHFL: the longest loop), and each loop's length with its
+    FFMA, LDS and SHFL counts."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     out = {}
     for body in re.split(r"\n\s*Function : ", sass):
         title = body.split("\n", 1)[0].strip()
-        if "bwd_kernel" not in title:
+        if mark not in title:
             continue
         ins = [(int(m.group(1), 16), m.group(2), m.group(3))
                for m in map(SASS_LINE.match, body.splitlines()) if m]
@@ -182,9 +229,13 @@ def sass_counts(lib: Path) -> dict:
         loops = [(index[int(tgt, 16)], i) for i, (addr, op, tgt) in enumerate(ins)
                  if op == "BRA" and tgt and int(tgt, 16) < addr and int(tgt, 16) in index]
         fn = {"kernel": collections.Counter(op for _, op, _ in ins).most_common()}
-        holding = [(lo, hi) for lo, hi in loops if shfl and lo <= shfl[0] and shfl[-1] <= hi]
-        if holding:
-            lo, hi = min(holding, key=lambda span: span[1] - span[0])
+        if shfl:
+            holding = [(lo, hi) for lo, hi in loops if lo <= shfl[0] and shfl[-1] <= hi]
+            chosen = min(holding, key=lambda span: span[1] - span[0]) if holding else None
+        else:
+            chosen = max(loops, key=lambda span: span[1] - span[0]) if loops else None
+        if chosen:
+            lo, hi = chosen
             loop = collections.Counter(op for _, op, _ in ins[lo:hi + 1])
             fn["loop"] = {"instructions": hi + 1 - lo, "ops": loop.most_common()}
         fn["loops"] = []
@@ -208,14 +259,15 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     OUT.mkdir(parents=True, exist_ok=True)
-    source, launcher, make_inputs = KERNELS[args.kernel]
+    source, mark, launcher, make_inputs, shape = KERNELS[args.kernel]
     sources = {"current": _build.CSRC / source}
     sources.update((p.stem, p) for p in args.others)
     launch = {}
+    built = build({f"{args.kernel}_{name}": src for name, src in sources.items()})
     for name, src in sources.items():
-        lib, report = build(f"{args.kernel}_{name}", src)
+        lib, report = built[f"{args.kernel}_{name}"]
         print(json.dumps({"source": str(src), "name": name, "ptxas": report,
-                          "sass": sass_counts(lib)}), flush=True)
+                          "sass": sass_counts(lib, mark)}), flush=True)
         launch[name] = launcher(lib)
 
     dev = torch.device("cuda")
@@ -238,9 +290,7 @@ def main() -> int:
         ms = collections.defaultdict(list)
         for name in order:
             ms[name].append(cs.cuda_median_ms(lambda: launch[name][case](*inputs), n=args.iters))
-        print(json.dumps({"card": smi, "case": case, "B": B, "Tc": TC, "hop": HOP,
-                          "H": H if args.kernel == "x" else None, "order": order, "ms": ms}),
-              flush=True)
+        print(json.dumps({"card": smi, "case": case, **shape, "order": order, "ms": ms}), flush=True)
     return 0
 
 

@@ -451,23 +451,30 @@ def _stream_inputs(b, k, hop, seed=0):
     return exc, prev, film_c
 
 
-@pytest.mark.parametrize("b,k,hop", [(2, 1, 128), (2, 3, 128), (1, 8, 128), (2, 4, 64)])
+@pytest.mark.parametrize("b,k,hop", [(2, 1, 128), (2, 3, 128), (1, 8, 128), (2, 4, 64),
+                                     (1, 3, 5), (2, 4, 3), (2, 5, 33), (3, 3, 129), (256, 1, 128)])
 def test_stream_kernel_matches_plain(cuda, params, b, k, hop):
     """Stream kernel vs its plain version on the same CUDA tensors, rtol
-    1e-4, atol 1e-5; K = 1 and odd K (which the TPU gate refused) and hop
-    64 included. One launch per call."""
+    1e-4, atol 1e-5, and two calls give the same bits; K = 1 and odd K
+    (which the TPU gate refused) and hop 64 included. The kernel shapes
+    several samples per thread, so also: B*Ta not a multiple of that
+    (B = 1, K = 3, hop 5), a hop below it (hop 3), groups across a segment
+    and a buffer boundary (hops 33 and 129) and K = 1 at 256 streams. One
+    launch per call."""
     exc, prev, film_c = (t.to(cuda) for t in _stream_inputs(b, k, hop, seed=k))
     w = _shaper(params, cuda)
     before = nf.film_shaper_stream.launches
     with torch.inference_mode():
         out = nf.film_shaper_stream(exc, prev, film_c, w, hop)
         ref = nf.film_shaper_stream_plain(exc, prev, film_c, w, hop)
+        again = nf.film_shaper_stream(exc, prev, film_c, w, hop)
     torch.cuda.synchronize()
-    assert nf.film_shaper_stream.launches == before + 1
+    assert nf.film_shaper_stream.launches == before + 2
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    assert torch.equal(out, again)
 
 
-@pytest.mark.parametrize("k,hop", [(8, 128), (3, 5)])
+@pytest.mark.parametrize("k,hop", [(8, 128), (3, 5), (4, 3)])
 def test_stream_kernel_ramp_bit_exact(cuda, params, k, hop):
     """With gamma_out = 0 the output is the kernel's in-register beta_out
     ramp, which must equal segment_interp on the CPU bit for bit."""
@@ -479,10 +486,12 @@ def test_stream_kernel_ramp_bit_exact(cuda, params, k, hop):
     assert torch.equal(out.cpu(), segment_interp(prev, film_c, hop)[..., 192:])
 
 
-def test_stream_kernel_split_is_bit_identical(cuda, params):
+@pytest.mark.parametrize("hop", [128, 33])
+def test_stream_kernel_split_is_bit_identical(cuda, params, hop):
     """Two buffers (3 + 5 frames, the second carrying the first's last
-    frame) give the bits of one 8-frame buffer."""
-    hop, cut = 128, 3
+    frame) give the bits of one 8-frame buffer; at hop 33 the cut (99
+    samples) is not a multiple of the samples a thread shapes at once."""
+    cut = 3
     exc, prev, film_c = (t.to(cuda) for t in _stream_inputs(2, 8, hop, seed=2))
     w = _shaper(params, cuda)
     with torch.inference_mode():
