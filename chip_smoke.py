@@ -114,7 +114,9 @@ exits non-zero:
    render's control-rate FiLM against it (rtol 1e-5, atol 2e-6);
 16. kernel_fl_bwd: the audio-rate backward against autograd through the
    plain version (rtol 1e-3, atol 1e-3 * max|plain|) on the CLI step's
-   inputs and made-up shapes; two calls bit-identical;
+   inputs and made-up shapes (odd B*Ta, a ragged last 32-sample chunk,
+   fewer samples than one chunk, chunks across clip boundaries, the
+   full_lane_cr fallback's 130 samples); two calls bit-identical;
 17. timing_fl: medians of 20 after warm-up (CUDA events): both audio-rate
    kernels and their plain versions with bounds, and in turns (cr,
    full_lane, full_lane, cr) the training step, its peak memory and the
@@ -949,9 +951,12 @@ def audio_rate_phases(dev, synth, root, tmp):
     np.testing.assert_allclose(fl_out.cpu().numpy(), cr_out.cpu().numpy(), rtol=1e-5, atol=2e-6)
     del fl_out, cr_out, cases
 
-    # 16. the backward kernel on the CLI step's inputs and made-up shapes
+    # 16. the backward kernel on the CLI step's inputs and made-up shapes: a
+    # ragged last chunk of 32 samples, fewer samples than one chunk, chunks
+    # that cross clip boundaries (samples 47 and 94 of 3 x 47)
     bwd_cases = [("cli_train_step", *step_bwd[0])]
-    for label, b, ta in (("odd_rows", 3, 333), ("ragged_block", 2, 1025), ("full_lane_cr_fallback", 1, 130)):
+    for label, b, ta in (("odd_rows", 3, 333), ("ragged_block", 2, 1025), ("full_lane_cr_fallback", 1, 130),
+                         ("under_one_chunk", 1, 31), ("chunks_across_clips", 3, 47)):
         e = torch.from_numpy((rng.standard_normal((b, ta, 64)) * 0.5).astype(np.float32)).to(dev)
         f = torch.from_numpy(rng.standard_normal((b, ta, 256)).astype(np.float32)).to(dev)
         g = torch.from_numpy(rng.standard_normal((b, ta, 64)).astype(np.float32)).to(dev)

@@ -19,8 +19,8 @@ from .bucketing import pad_to_quantum
 
 def extract_f0_with_crepe(*args, **kwargs):
     raise NotImplementedError(
-        "the CREPE extractor is not ported (models/crepe.py, ROADMAP.md queue 1 "
-        "item 11); use f0_extractor='yin'"
+        "the CREPE extractor is not ported (models/crepe.py, ROADMAP.md queue 1, "
+        "Preprocessing); use f0_extractor='yin'"
     )
 
 

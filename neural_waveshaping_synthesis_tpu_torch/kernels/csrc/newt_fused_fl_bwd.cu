@@ -17,48 +17,98 @@
 //   d_planes (170, 64): each weight plane's gradient summed in f32 over all
 //     B*Ta samples.
 //
-// What bounds it on an H100: arithmetic. Per (sample, channel) it redoes
-// the forward with a cosine beside each of the 25 sines and runs the chain
-// rule with the 170 weight-gradient multiply-adds: 1,691 operations (an
-// FMA as two) against 44 bytes moved (exciter, FiLM, dy in; d_exciter,
-// d_film out). As in kernel 2 (newt_fused_cr_bwd.cu), the 170 shared-memory
-// read-modify-writes of the gradient sums per (sample, channel) are the
-// likelier limit of this first version.
+// What bounds it on an H100: instruction issue, as kernel 2
+// (newt_fused_cr_bwd.cu), whose recompute and chain rule it runs. Per
+// (sample, channel) that is 1,691 operations (an FMA as two) against 44
+// bytes moved (exciter, FiLM, dy in; d_exciter, d_film out): 0.83 ms of
+// arithmetic and 0.43 ms of traffic at B*Ta = 512,000. Per 32 (sample,
+// channel) pairs a warp's pass is 1,529 SASS instructions (678 FFMA, 212
+// FMUL, 130 FADD, 25 FRND; 171 SHFL and 174 FSEL of the lane sums; 88
+// shared loads, the weights' ld.shared.v4 broadcasts and the tiles' reads;
+// 11 shared stores): 1.50 ms at one instruction a cycle per scheduler and
+// 1.98 GHz; it runs at ~2.2 ms (PERF.md).
 //
-// Design, kernel 2's without its FiLM fold:
-//  * Persistent grid (what fits on the card at once) of 256-thread blocks:
-//    4 rows of 64 channels, each row striding over the samples by the
-//    grid's row count. The recompute and chain rule are
-//    newt_shaper_bwd.cuh, shared with kernel 2.
-//  * Weight-gradient sums: each thread has an exclusive (170,) slot in
-//    shared memory, (4, 170, 64) f32 = 174 KB beside the 43.5 KB of weight
-//    planes (dynamic shared memory, one block per SM); a warp's slot
-//    accesses are 32 consecutive floats, conflict-free.
+// Design, kernel 2's lanes as samples without its FiLM segment and fold:
+//  * Lanes are samples, a warp is a channel. A persistent grid (what fits on
+//    the card at once) of 16-warp blocks walks the flat sample index in
+//    chunks of 32 samples, one chunk per block at a time, strided by the
+//    grid. The FiLM is per sample, so a chunk may cross a clip boundary.
+//    Each warp owns 4 fixed channels and runs them in turn, lane l holding
+//    sample 32j + l. Lanes past B*Ta recompute with a zero exciter, FiLM and
+//    cotangent: every term they add is an exact zero, and they write nothing.
+//  * Weights as warp-uniform broadcasts and the 170 weight-gradient terms
+//    summed across lanes into a per-block (64, 172) gradient table:
+//    newt_lanes_bwd.cuh (shared with kernels 2 and 8). The last group holds
+//    only the 10 terms of w1, scale and b4, summed over 16 term slots by
+//    newt::lane_sum16.
+//  * Coalesced, double-buffered tiles: each chunk's exciter and dy (32, 64)
+//    and FiLM (32, 256) are staged in shared memory by the block with
+//    coalesced 4-byte cp.async copies, rows padded to 65 and 257 floats, so a
+//    warp's column read (32 samples of one channel) hits 32 banks. d_exciter
+//    goes back into the exciter tile and the four FiLM cotangents into the
+//    FiLM tile in place (each lane overwrites only its own four slots, after
+//    reading them). Two buffers: while the warps work on chunk j in one,
+//    the block stores chunk j - grid's results from the other with coalesced
+//    stores and starts the copies of chunk j + grid into it, so the loads
+//    are in flight during the arithmetic (one block per SM has no other
+//    block to hide them behind).
 //  * Cross-block sums (the TPU accumulated into one resident block across
 //    its sequential grid; Hopper blocks run in parallel, in no order):
 //    deterministic per-block partials plus a second pass, no atomics, so two
-//    calls give the same bits. Each block writes its 4 slots summed in row
-//    order as one (170, 64) partial; newt::sum_weight_partials adds the
-//    partials in block order.
-//  * The FiLM cotangents need no fold: each sample's four are its own, and
-//    go straight to d_film with coalesced stores.
+//    calls give the same bits. Each block writes its table as one (170, 64)
+//    partial in plane order; newt::sum_weight_partials adds the partials in
+//    block order.
+//  * Occupancy: weights and gradient table 88,064 B, two buffers of the
+//    exciter and dy tiles (16,640 B) and the FiLM tile (32,896 B): 187,136 B,
+//    one 16-warp block per SM, at most 128 registers a thread. Measured
+//    against synchronous staging in one buffer and against two 8-warp blocks
+//    per SM that take a chunk's channels in two halves (PERF.md).
 //
-// Exactness: no --use_fast_math; rintf for the range reduction. Samples are
-// counted in 32-bit ints (the wrapper refuses B*Ta > 2^30), offsets in
-// 64-bit.
+// Exactness: no --use_fast_math; rintf for the range reduction; the
+// recompute's sums in newt_lanes_bwd.cuh's order. The weight-gradient sums
+// run in another order than the plain version's, so d_planes differs from it
+// by rounding. Samples are counted in 32-bit ints (the wrapper refuses
+// B*Ta > 2^30), offsets in 64-bit.
 #include <cuda_runtime.h>
 
-#include "newt_shaper_bwd.cuh"
+#include "newt_lanes_bwd.cuh"
 
 namespace {
 
 using newt::kC;
+using newt::kLanes;
+using newt::kLastTerms;
+using newt::kLd;
 using newt::kPlane;
+using newt::kPW1;
+using newt::kTileLd;
+using newt::lane_sum16;
+using newt::row_pos;
+using newt::shaper_backward_lanes;
+using newt::smem_addr;
+using newt::woff;
 
-constexpr int kRowsPerBlock = 4;
-constexpr int kThreads = kRowsPerBlock * kC;
-// weight planes + one weight-gradient slot per thread
-constexpr size_t kSmemBytes = static_cast<size_t>(1 + kRowsPerBlock) * kPlane * sizeof(float);
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * kLanes;
+constexpr int kChanPerWarp = kC / kWarps;
+constexpr int kFilm = 4 * kC;          // a sample's FiLM row
+constexpr int kFilmLd = kFilm + 1;     // the FiLM tile's row, padded
+// weights and gradient table (64, 172) each; two buffers of the exciter and
+// dy tiles (32, 65) each and the FiLM tile (32, 257)
+constexpr int kBuf = 2 * kLanes * kTileLd + kLanes * kFilmLd;
+constexpr size_t kSmemBytes = static_cast<size_t>(2 * kC * kLd + 2 * kBuf) * sizeof(float);
+
+// a 4-byte asynchronous copy global -> shared (ordered after this thread's
+// earlier reads of dst), and its group fences
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
 
 __global__ void __launch_bounds__(kThreads, 1)
 film_shaper_fl_bwd_kernel(const float* __restrict__ exciter,
@@ -68,38 +118,98 @@ film_shaper_fl_bwd_kernel(const float* __restrict__ exciter,
                           float* __restrict__ d_exciter,
                           float* __restrict__ d_film,
                           float* __restrict__ w_part, int n_samples) {
-  extern __shared__ float smem[];
-  float* sw = smem;            // (170, 64) weight planes
-  float* acc = smem + kPlane;  // (4, 170, 64) weight-gradient sums
-  for (int i = threadIdx.x; i < kPlane; i += kThreads) sw[i] = weights[i];
-  for (int i = threadIdx.x; i < kRowsPerBlock * kPlane; i += kThreads) acc[i] = 0.0f;
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);  // (64, 172) weights
+  float* sg = sw + kC * kLd;                     // (64, 172) weight-gradient sums
+  float* tiles = sg + kC * kLd;                  // two buffers of (se, sdy, sf)
+  for (int i = threadIdx.x; i < kC * kLd; i += kThreads) sw[i] = sg[i] = 0.0f;
   __syncthreads();
-
-  const int c = threadIdx.x % kC;
-  const int r = threadIdx.x / kC;
-  float* my = acc + r * kPlane + c;  // my[k * kC]: plane row k of my slot
-
-  for (int s = blockIdx.x * kRowsPerBlock + r; s < n_samples;
-       s += gridDim.x * kRowsPerBlock) {
-    const long long e = static_cast<long long>(s) * kC + c;
-    const long long f = static_cast<long long>(s) * (4 * kC) + c;
-    const float g_in = film[f], b_in = film[f + kC], g_out = film[f + 2 * kC];
-    const float xin = exciter[e];
-    const float x = g_in * xin + b_in;
-    const float g = dy[e];
-    float y, dx;
-    newt::shaper_backward(x, g * g_out, sw, c, my, &y, &dx);
-    d_exciter[e] = dx * g_in;
-    d_film[f] = dx * xin;
-    d_film[f + kC] = dx;
-    d_film[f + 2 * kC] = g * y;
-    d_film[f + 3 * kC] = g;
+  for (int i = threadIdx.x; i < kPlane; i += kThreads) {
+    const int k = i / kC;
+    sw[(i - k * kC) * kLd + row_pos(k)] = weights[i];
   }
 
-  __syncthreads();
+  const unsigned sw_addr = smem_addr(sw);
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int n_chunk = (n_samples + kLanes - 1) / kLanes;
+  auto rows_of = [&](int j) { return j < n_chunk ? min(kLanes, n_samples - j * kLanes) : 0; };
+  // Writes back the tiles of buf (wb_rows samples from sample wb: d_exciter,
+  // d_film) and starts the copies of ld_rows samples from sample ld into
+  // them. Each thread reads an element before its own copy overwrites it.
+  auto stage = [&](float* buf, long long wb, int wb_rows, long long ld, int ld_rows) {
+    float* se = buf;
+    float* sdy = se + kLanes * kTileLd;
+    float* sf = sdy + kLanes * kTileLd;
+    for (int i = threadIdx.x; i < kLanes * kC; i += kThreads) {
+      const int t = (i / kC) * kTileLd + i % kC;
+      if (i < wb_rows * kC) d_exciter[wb * kC + i] = se[t];
+      if (i < ld_rows * kC) {
+        cp_async4(se + t, exciter + ld * kC + i);
+        cp_async4(sdy + t, dy + ld * kC + i);
+      }
+    }
+    for (int i = threadIdx.x; i < kLanes * kFilm; i += kThreads) {
+      const int t = (i / kFilm) * kFilmLd + i % kFilm;
+      if (i < wb_rows * kFilm) d_film[wb * kFilm + i] = sf[t];
+      if (i < ld_rows * kFilm) cp_async4(sf + t, film + ld * kFilm + i);
+    }
+    cp_async_commit();
+  };
+  int cur = 0;
+  long long pend = 0;  // the first sample of the other buffer's tiles, not yet written back
+  int pend_rows = 0;
+  stage(tiles, 0, 0, static_cast<long long>(blockIdx.x) * kLanes, rows_of(blockIdx.x));
+
+  for (int j = blockIdx.x; j < n_chunk; j += gridDim.x) {
+    const int jn = j + gridDim.x;
+    stage(tiles + (cur ^ 1) * kBuf, pend, pend_rows, static_cast<long long>(jn) * kLanes,
+          rows_of(jn));
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float* se = tiles + cur * kBuf;
+    float* sdy = se + kLanes * kTileLd;
+    float* row = sdy + kLanes * kTileLd + lane * kFilmLd;
+    const int rows = rows_of(j);
+    const bool active = lane < rows;
+    for (int q = 0; q < kChanPerWarp; ++q) {
+      const int c = warp * kChanPerWarp + q;
+      const float g_in = active ? row[c] : 0.0f;
+      const float b_in = active ? row[kC + c] : 0.0f;
+      const float g_out = active ? row[2 * kC + c] : 0.0f;
+      const float xin = active ? se[lane * kTileLd + c] : 0.0f;
+      const float g = active ? sdy[lane * kTileLd + c] : 0.0f;
+      const float x = g_in * xin + b_in;
+      float y, dx, t[16];
+      shaper_backward_lanes(x, g * g_out, sw_addr + woff(c * kLd), sg + c * kLd, lane, t, &y,
+                            &dx);
+      if (active) {
+        se[lane * kTileLd + c] = dx * g_in;
+        // FiLM cotangents (d gamma_in, d beta_in, d gamma_out, d beta_out)
+        row[c] = dx * xin;
+        row[kC + c] = dx;
+        row[2 * kC + c] = g * y;
+        row[3 * kC + c] = g;
+      }
+#pragma unroll
+      for (int k = kLastTerms; k < 16; ++k) t[k] = 0.0f;
+      const float s = lane_sum16(t, lane);
+      if (lane < kLastTerms) sg[c * kLd + kPW1 + lane] += s;
+    }
+    __syncthreads();
+    pend = static_cast<long long>(j) * kLanes;
+    pend_rows = rows;
+    cur ^= 1;
+  }
+
+  cp_async_wait<0>();
+  stage(tiles + (cur ^ 1) * kBuf, pend, pend_rows, 0, 0);
   float* out = w_part + static_cast<long long>(blockIdx.x) * kPlane;
-  for (int i = threadIdx.x; i < kPlane; i += kThreads)
-    out[i] = ((acc[i] + acc[kPlane + i]) + acc[2 * kPlane + i]) + acc[3 * kPlane + i];
+  for (int i = threadIdx.x; i < kPlane; i += kThreads) {
+    const int k = i / kC;
+    out[i] = sg[(i - k * kC) * kLd + row_pos(k)];
+  }
 }
 
 }  // namespace
@@ -107,9 +217,9 @@ film_shaper_fl_bwd_kernel(const float* __restrict__ exciter,
 // The number of backward blocks resident on the current device at once
 // (SMs x blocks per SM); it also allows the kernel its dynamic shared
 // memory there, so call it once per device before the first launch. The
-// caller launches min(this, ceil(B*Ta / 4)) blocks and sizes the
-// (blocks, 170, 64) weight partials with it. Returns -(CUDA error) on
-// failure.
+// caller launches min(this, ceil(B*Ta / 32)) blocks (one 32-sample chunk
+// per block at a time) and sizes the (blocks, 170, 64) weight partials with
+// it. Returns -(CUDA error) on failure.
 extern "C" int newt_fused_fl_backward_resident_blocks() {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);

@@ -1,8 +1,9 @@
 // The recompute backward of the sine-shaper bank with lanes as samples,
-// float32: what the backwards newt_fused_cr_bwd.cu (kernel 2) and
-// newt_fused_x_bwd.cu (kernel 8) share. A warp runs one channel over 32
-// samples, lane l holding sample l of a chunk, and sums the weight gradients
-// across its lanes instead of keeping a gradient slot per thread.
+// float32: what the backwards newt_fused_cr_bwd.cu (kernel 2),
+// newt_fused_fl_bwd.cu (kernel 6) and newt_fused_x_bwd.cu (kernel 8) share.
+// A warp runs one channel over 32 samples, lane l holding sample l of a
+// chunk, and sums the weight gradients across its lanes instead of keeping a
+// gradient slot per thread.
 //
 //  * Weights as broadcasts: the channel-major rows of newt_shaper.cuh (kLd,
 //    row_pos, lds4/lds8; the forward shaper_n reads them too). All lanes of
@@ -23,9 +24,10 @@
 //    shaper_backward_lanes sums the first five groups and leaves the last
 //    group's 10 weight terms to the caller, which adds its own terms (the
 //    FiLM slots, and kernel 8's mixer bias and output-mix weight) before
-//    lane_sum.
+//    lane_sum; kernel 6 adds none and sums 16 slots with lane_sum16.
 //
-// Exactness: the recompute's sums run in newt::shaper_backward's order.
+// Exactness: the recompute's sums run layer by layer, each over the input
+// rows in ascending order, as the plain version sums h @ w.
 #pragma once
 
 #include "newt_shaper_bwd.cuh"
@@ -59,6 +61,18 @@ __device__ __forceinline__ float lane_sum(float (&v)[kLanes], int lane) {
   return v[0];
 }
 
+// -> in lane l, the sum of v[l & 15] over the warp's 32 lanes, in a fixed
+// order: a group of 16 terms (the last group, when the caller adds none of
+// its own) in 16 shuffles, not lane_sum's 31. Lanes l and l ^ 16 add the
+// same two halves, so they hold the same bits.
+__device__ __forceinline__ float lane_sum16(float (&v)[16], int lane) {
+  fold<8>(v, lane & 8);
+  fold<4>(v, lane & 4);
+  fold<2>(v, lane & 2);
+  fold<1>(v, lane & 1);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
+}
+
 // The weight gradient of rows kU0..kU0+3 of an 8x8 layer, dp[v] * h[u],
 // summed over the lanes into g (32 positions, row kU0+i at 8i): lane_sum
 // without most of its selects. Each lane lays out its 32 terms with row i at
@@ -90,7 +104,7 @@ __device__ __forceinline__ void add_outer(const float h[kW], const float dp[kW],
 }
 
 // An 8 -> 8 sine layer: hn, cn = sin, cos of (h @ w + bias), with w's row u
-// at shared address w + woff(8u); the sums in newt::shaper_backward's order.
+// at shared address w + woff(8u); each output summed over rows u ascending.
 __device__ __forceinline__ void layer(const float h[kW], unsigned w, unsigned bias, float hn[kW],
                                       float cn[kW]) {
   float acc[kW], row[kW];
@@ -121,10 +135,14 @@ __device__ __forceinline__ void layer_back(const float dp[kW], unsigned w, float
   }
 }
 
-// newt::shaper_backward for the warp's 32 samples of one channel: wa is the
-// shared address of the channel's weight row, gc its gradient row. Sums the first five groups'
-// terms over the lanes into gc and leaves this lane's terms of the last group
-// (w1, scale, b4) in `last`, for the caller to sum with its own terms.
+// The recompute of the shaper (keeping its activations and sine
+// derivatives) and the chain rule of JAX _bwd_core from ds, the cotangent of
+// the shaper's output (dy * gamma_out), for the warp's 32 samples of one
+// channel: wa is the shared address of the channel's weight row, gc its
+// gradient row. Returns the shaper's output in *y (for d gamma_out) and the
+// cotangent of x in *dx. Sums the first five groups' terms over the lanes
+// into gc and leaves this lane's terms of the last group (w1, scale, b4) in
+// `last`, for the caller to sum with its own terms.
 __device__ __forceinline__ void shaper_backward_lanes(float x, float ds, unsigned wa, float* gc,
                                                       int lane, float last[kLastTerms], float* y,
                                                       float* dx) {

@@ -1,19 +1,10 @@
-// The recompute backward of the sine-shaper bank for one (sample, channel),
-// float32, with a gradient slot per thread; and what every backward kernel
-// shares once it has its FiLM values in registers: the sine-and-cosine
-// polynomial, the control-rate FiLM segment, the fixed-order sum of the
-// per-block weight-gradient partials, and the fold of the control-rate FiLM
-// gradient.
-//
-// The weights are the packed (170, 64) planes of newt_shaper.cuh, staged in
-// shared memory by the kernel. shaper_backward gives each thread one (170,)
-// weight-gradient slot in shared memory, channel fastest (my[k * kC] is
-// plane row k of the thread's channel), so a warp's slot accesses are 32
-// consecutive floats: only newt_fused_fl_bwd.cu (kernel 6) uses it.
-// newt_fused_cr_bwd.cu and newt_fused_x_bwd.cu (kernels 2 and 8) keep no
-// such slots: their warps are channels and their lanes samples, and they sum
-// the gradients across lanes (newt_lanes_bwd.cuh); they share psincos,
-// FilmSegment, sum_weight_partials and fold_film_partials.
+// What every backward kernel shares once it has its FiLM values in
+// registers, float32: the sine-and-cosine polynomial, the control-rate FiLM
+// segment, the fixed-order sum of the per-block weight-gradient partials,
+// and the fold of the control-rate FiLM gradient. The backwards
+// newt_fused_cr_bwd.cu, newt_fused_fl_bwd.cu and newt_fused_x_bwd.cu
+// (kernels 2, 6 and 8) run the shaper's recompute and chain rule with lanes
+// as samples (newt_lanes_bwd.cuh) on the weights of newt_shaper.cuh.
 //
 // The cosine fit is ops/fastmath.py _COS_EVEN_COEFFS, sharing the sine's
 // range reduction (rintf: round half to even, as jnp.round).
@@ -58,86 +49,6 @@ __device__ __forceinline__ void psincos(float x, float* sn, float* cs) {
   q = q * s + kK1;
   q = q * s + kK0;
   *cs = q;
-}
-
-// For x = gamma_in * exciter + beta_in of channel c: recomputes the shaper
-// (keeping its activations and sine derivatives), then runs the chain rule
-// of JAX _bwd_core from ds, the cotangent of the shaper's output (dy *
-// gamma_out). Adds this sample's 170 weight-plane gradients into the
-// thread's slot `my`; returns the shaper's output in *y (for d gamma_out)
-// and the cotangent of x in *dx.
-__device__ __forceinline__ void shaper_backward(float x, float ds, const float* sw, int c,
-                                                float* my, float* y, float* dx) {
-  const float scale = sw[kScale * kC + c];
-  const float h0 = x * scale;
-  float h1[kW], c1[kW], h2[kW], c2[kW], h3[kW], c3[kW];
-#pragma unroll
-  for (int v = 0; v < kW; ++v)
-    psincos(h0 * sw[(kW1 + v) * kC + c] + sw[(kB1 + v) * kC + c], &h1[v], &c1[v]);
-#pragma unroll
-  for (int v = 0; v < kW; ++v) {
-    float acc2 = h1[0] * sw[(kW2 + v) * kC + c];
-#pragma unroll
-    for (int u = 1; u < kW; ++u) acc2 += h1[u] * sw[(kW2 + u * kW + v) * kC + c];
-    psincos(acc2 + sw[(kB2 + v) * kC + c], &h2[v], &c2[v]);
-  }
-#pragma unroll
-  for (int v = 0; v < kW; ++v) {
-    float acc3 = h2[0] * sw[(kW3 + v) * kC + c];
-#pragma unroll
-    for (int u = 1; u < kW; ++u) acc3 += h2[u] * sw[(kW3 + u * kW + v) * kC + c];
-    psincos(acc3 + sw[(kB3 + v) * kC + c], &h3[v], &c3[v]);
-  }
-  float acc4 = h3[0] * sw[kW4 * kC + c];
-#pragma unroll
-  for (int u = 1; u < kW; ++u) acc4 += h3[u] * sw[(kW4 + u) * kC + c];
-  float c4;
-  psincos(acc4 + sw[kB4 * kC + c], y, &c4);
-
-  const float dp4 = ds * c4;
-  my[kB4 * kC] += dp4;
-  float dp[kW], dh[kW];
-#pragma unroll
-  for (int u = 0; u < kW; ++u) {
-    my[(kW4 + u) * kC] += dp4 * h3[u];
-    dp[u] = dp4 * sw[(kW4 + u) * kC + c] * c3[u];  // dp3
-  }
-#pragma unroll
-  for (int u = 0; u < kW; ++u) {
-    float d = 0.0f;
-#pragma unroll
-    for (int v = 0; v < kW; ++v) {
-      my[(kW3 + u * kW + v) * kC] += dp[v] * h2[u];
-      d += dp[v] * sw[(kW3 + u * kW + v) * kC + c];
-    }
-    dh[u] = d;  // dh2
-  }
-#pragma unroll
-  for (int v = 0; v < kW; ++v) {
-    my[(kB3 + v) * kC] += dp[v];
-    dp[v] = dh[v] * c2[v];  // dp2
-  }
-#pragma unroll
-  for (int u = 0; u < kW; ++u) {
-    float d = 0.0f;
-#pragma unroll
-    for (int v = 0; v < kW; ++v) {
-      my[(kW2 + u * kW + v) * kC] += dp[v] * h1[u];
-      d += dp[v] * sw[(kW2 + u * kW + v) * kC + c];
-    }
-    dh[u] = d;  // dh1
-  }
-  float dh0 = 0.0f;
-#pragma unroll
-  for (int v = 0; v < kW; ++v) {
-    my[(kB2 + v) * kC] += dp[v];
-    const float dp1 = dh[v] * c1[v];
-    my[(kB1 + v) * kC] += dp1;
-    my[(kW1 + v) * kC] += dp1 * h0;
-    dh0 += dp1 * sw[(kW1 + v) * kC + c];
-  }
-  my[kScale * kC] += dh0 * x;
-  *dx = dh0 * scale;
 }
 
 // The control-rate FiLM of one segment (clip, frame m) of hop samples, for the

@@ -28,7 +28,9 @@ FiLM already upsampled, (B, Ta, 4C): :func:`film_shaper_fl_plain` and
 :func:`film_shaper_fl` its wrapper, which launches ``csrc/newt_fused_fl.cu``
 on CUDA tensors and, for a gradient, ``csrc/newt_fused_fl_bwd.cu`` through
 :class:`_FilmShaperFL`; ``film_shaper_fl.launches`` and
-``film_shaper_fl.bwd_launches`` count them.
+``film_shaper_fl.bwd_launches`` count them. The backward walks the samples
+in 32-sample chunks, lanes as samples as in the cr backward, so a chunk may
+cross a clip boundary (:func:`_chunk_blocks` is its grid).
 
 The streaming counterpart (JAX ``film_shaper_fused_stream``) ramps the
 FiLM from the carried frame of the previous buffer to each new frame over
@@ -424,13 +426,21 @@ def _launch_forward_fl(exciter, film_a, weights) -> torch.Tensor:
     return out
 
 
-_FL_ROWS_PER_BLOCK = 4  # kRowsPerBlock of newt_fused_fl_bwd.cu
+_CHUNK = 32  # samples per chunk of newt_fused_fl_bwd.cu: a warp's lanes
+
+
+def _chunk_blocks(n_samples: int, resident: int) -> int:
+    """The persistent grid of the audio-rate backward, which walks the flat
+    sample index in 32-sample chunks (a block holds one chunk at a time and
+    strides by the grid): one block per chunk, at most ``resident``, the
+    blocks the card holds at once."""
+    return min(-(-n_samples // _CHUNK), resident)
 
 
 def _launch_backward_fl(exciter, film_a, weights, dy):
     """-> (d_exciter, d_film, d_planes) from ``csrc/newt_fused_fl_bwd.cu``.
-    The per-block weight partials are allocated here: one block per 4
-    samples, at most what is resident."""
+    The per-block weight partials are allocated here, for
+    :func:`_chunk_blocks` blocks."""
     _check_fl(exciter, film_a, weights)
     if dy.shape != exciter.shape or dy.dtype != torch.float32 or dy.device != exciter.device:
         raise ValueError(f"dy must be float32 {tuple(exciter.shape)} on {exciter.device}")
@@ -440,8 +450,8 @@ def _launch_backward_fl(exciter, film_a, weights, dy):
     d_planes = torch.empty_like(weights)
     with torch.cuda.device(exciter.device):
         lib = _lib("newt_fused_fl_bwd", "newt_fused_fl_backward", 8, n_ints=2)
-        needed = -(-b * ta // _FL_ROWS_PER_BLOCK)
-        blocks = min(needed, _resident_blocks(lib, "newt_fused_fl_backward_resident_blocks", exciter.device))
+        blocks = _chunk_blocks(
+            b * ta, _resident_blocks(lib, "newt_fused_fl_backward_resident_blocks", exciter.device))
         w_part = torch.empty((blocks, 170, C), dtype=torch.float32, device=exciter.device)
         stream = torch.cuda.current_stream(exciter.device).cuda_stream
         err = lib.newt_fused_fl_backward(

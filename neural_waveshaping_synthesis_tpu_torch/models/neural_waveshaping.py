@@ -10,7 +10,7 @@
     sum --> learned reverb --> audio (B, Ta)
 
 float32 throughout: ``compute_dtype`` takes only ``"float32"`` (the JAX
-default) until mixed precision is ported (ROADMAP.md queue 1 item 2).
+default) until mixed precision is ported (ROADMAP.md queue 1, Mixed precision).
 
 ``fuse_exciter`` and ``fuse_out_mixer`` (both off by default, as in JAX)
 fold the harmonic bank and the 101 -> 64 mixer, and with
@@ -65,7 +65,7 @@ class NeuralWaveshaping(nn.Module):
     embedding, harmonic mixer, NEWT, noise MLP, reverb.
 
     ``compute_dtype`` other than ``"float32"`` raises ``NotImplementedError``
-    (mixed precision, ROADMAP.md queue 1 item 2, is not ported), so the
+    (ROADMAP.md queue 1, Mixed precision, is not ported), so the
     repo's ``gin/train/train_newt_bf16.gin`` stops there. ``fuse_exciter`` /
     ``fuse_out_mixer`` are the JAX fields of the same names; like every
     parameter here they bind from gin (``-b "NeuralWaveshaping.fuse_exciter
@@ -85,7 +85,7 @@ class NeuralWaveshaping(nn.Module):
         if compute_dtype != "float32":
             raise NotImplementedError(
                 f"NeuralWaveshaping.compute_dtype = {compute_dtype!r}: mixed precision is not "
-                "ported yet (ROADMAP.md queue 1 item 2); only 'float32' runs"
+                "ported yet (ROADMAP.md queue 1, Mixed precision); only 'float32' runs"
             )
         self.control_hop = control_hop
         self.sample_rate = sample_rate

@@ -9,7 +9,7 @@ metric names (``train/loss``, ``train/lr``, ``train/steps_per_sec``,
   CSVLogger     — append-only ``metrics.csv``, and audio snapshots as wavs
                   in ``audio/`` beside it.
 
-The JAX ``WandbLogger`` is not ported (ROADMAP.md queue 1 item 7).
+The JAX ``WandbLogger`` is not ported (ROADMAP.md queue 1, Training runtime).
 """
 import csv
 import os

@@ -53,7 +53,7 @@ class TrainConfig:
     """The JAX ``TrainConfig`` fields that mean something here, with its
     defaults (the reference recipe, ``gin/train/train_newt.gin``).
     ``data_parallel`` over one card is a mesh of one; over more it is not
-    ported yet, and the Trainer raises (ROADMAP.md queue 1 item 10)."""
+    ported yet, and the Trainer raises (ROADMAP.md queue 1, Multi-GPU)."""
 
     learning_rate: float = 1e-3
     lr_decay: float = 0.9
@@ -179,7 +179,7 @@ class Trainer:
             if cfg.data_parallel and torch.cuda.device_count() > 1:
                 raise NotImplementedError(
                     f"TrainConfig.data_parallel over {torch.cuda.device_count()} cards is "
-                    "not ported yet (ROADMAP.md queue 1 item 10, multi-GPU); make one card "
+                    "not ported yet (ROADMAP.md queue 1, Multi-GPU); make one card "
                     "visible or set TrainConfig.data_parallel = False"
                 )
             torch.backends.cuda.matmul.allow_tf32 = False

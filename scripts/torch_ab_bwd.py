@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """A kernel of the port against other CUDA sources with its C interface, on
 the card: kernel 2 (``kernels/csrc/newt_fused_cr_bwd.cu``, the default
-training backward), kernel 8 (``newt_fused_x_bwd.cu``, the exciter-fused
-backward, xcr and xfull) or kernel 3 (``newt_fused_stream.cu``, the
-streaming forward).
+training backward), kernel 6 (``newt_fused_fl_bwd.cu``, the audio-rate
+backward), kernel 8 (``newt_fused_x_bwd.cu``, the exciter-fused backward,
+xcr and xfull) or kernel 3 (``newt_fused_stream.cu``, the streaming
+forward).
 
-    python3 scripts/torch_ab_bwd.py --kernel cr|x|stream OTHER.cu [OTHER.cu ...] [--iters 30]
+    python3 scripts/torch_ab_bwd.py --kernel cr|fl|x|stream OTHER.cu [OTHER.cu ...] [--iters 30]
 
 Builds the checkout's kernel and each OTHER source (nvcc with the port's
 flags and ``-I kernels/csrc``, into ``build/ab_bwd/``) and prints, for each,
@@ -15,9 +16,10 @@ innermost loop that holds every shuffle (in the lane-sum design, one
 channel's pass over 32 samples; for the stream kernel, which has no
 shuffles, its longest loop: one pass over a group of samples) and a summary
 of every loop. Then, on seeded random inputs with the run120k_cr shaper, at
-a training step's shape (B=8, Tc=500, hop 128; H=101 for kernel 8) or, for
-the stream kernel, at 256 streams of 1024-sample buffers (B=256, K=8, hop
-128), for each case (cr; xcr and xfull; or stream) it checks that two calls
+a training step's shape (B=8, Tc=500, hop 128; H=101 for kernel 8; for
+kernel 6 the ``full_lane`` step's B=8, Ta=64000) or, for the stream kernel,
+at 256 streams of 1024-sample buffers (B=256, K=8, hop 128), for each case
+(cr; fl; xcr and xfull; or stream) it checks that two calls
 of each source give the same bits, gives each one's largest difference from
 the checkout's kernel relative to the latter's largest value per output,
 and times all of them in turns (a, b, ..., ..., b, a) by CUDA-event medians
@@ -46,6 +48,7 @@ from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf  # n
 
 OUT = _build.BUILD_DIR / "ab_bwd"
 B, TC, HOP, H = 8, 500, 128, 101
+FL_TA = 64000
 STREAM_B, STREAM_K = 256, 8
 # one SASS line: address, opcode (after any predicate), a branch's target
 SASS_LINE = re.compile(
@@ -110,6 +113,30 @@ def cr_launcher(lib: Path):
     return {"cr": launch}
 
 
+def fl_launcher(lib: Path):
+    """-> {"fl": fn}: a function of kernel 6's inputs (exc, film_a, packed,
+    dy) -> its three gradients, launching the library at ``lib`` through
+    kernel 6's C interface (the grid as ``newt_fused._chunk_blocks``: any
+    block count strides over every sample, also in the earlier design of 4
+    samples per block)."""
+    dll = ctypes.CDLL(str(lib))
+    resident = _resident(dll, "newt_fused_fl_backward_resident_blocks", lib)
+    fn = _fn(dll, "newt_fused_fl_backward", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+    def launch(exc, film_a, packed, dy):
+        b, ta, _ = exc.shape
+        blocks = nf._chunk_blocks(b * ta, resident)
+        outs = (torch.empty_like(exc), torch.empty_like(film_a), torch.empty_like(packed))
+        w_part = exc.new_empty((blocks, 170, 64))
+        err = fn(exc.data_ptr(), film_a.data_ptr(), packed.data_ptr(), dy.data_ptr(),
+                 *(o.data_ptr() for o in outs), w_part.data_ptr(), b * ta, blocks,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{lib.name} did not launch: CUDA error {err}")
+        return outs
+    return {"fl": launch}
+
+
 def x_launcher(lib: Path):
     """-> {"xcr": fn, "xfull": fn}: functions of kernel 8's inputs (phase,
     f0, offsets, film_c, w, b, packed, w_out, dy) -> (d_film_c, the (rows,
@@ -151,6 +178,16 @@ def cr_inputs(rng, dev, packed):
     dy = rng.standard_normal((B, TC * HOP, 64)).astype(np.float32)
     exc, film_c, dy = (torch.from_numpy(a).to(dev) for a in (exc, film_c, dy))
     return (exc, film_c, packed, dy), ("d_exciter", "d_film_c", "d_planes")
+
+
+def fl_inputs(rng, dev, packed):
+    """As ``chip_smoke.py``'s made-up audio-rate cases: a 0.5-scaled
+    exciter, a normal audio-rate FiLM and dy."""
+    exc = (rng.standard_normal((B, FL_TA, 64)) * 0.5).astype(np.float32)
+    film_a = rng.standard_normal((B, FL_TA, 256)).astype(np.float32)
+    dy = rng.standard_normal((B, FL_TA, 64)).astype(np.float32)
+    exc, film_a, dy = (torch.from_numpy(a).to(dev) for a in (exc, film_a, dy))
+    return (exc, film_a, packed, dy), ("d_exciter", "d_film", "d_planes")
 
 
 def x_inputs(rng, dev, packed):
@@ -203,6 +240,7 @@ def stream_inputs(rng, dev, packed):
 # --kernel -> (source, SASS function-name mark, launcher, inputs, shape printed)
 KERNELS = {"cr": ("newt_fused_cr_bwd.cu", "bwd_kernel", cr_launcher, cr_inputs,
                   {"B": B, "Tc": TC, "hop": HOP}),
+           "fl": ("newt_fused_fl_bwd.cu", "bwd_kernel", fl_launcher, fl_inputs, {"B": B, "Ta": FL_TA}),
            "x": ("newt_fused_x_bwd.cu", "bwd_kernel", x_launcher, x_inputs,
                  {"B": B, "Tc": TC, "hop": HOP, "H": H}),
            "stream": ("newt_fused_stream.cu", "stream_kernel", stream_launcher, stream_inputs,

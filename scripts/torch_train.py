@@ -73,9 +73,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.restore_checkpoint:
-        raise NotImplementedError("resume is not ported yet (ROADMAP.md queue 1 item 7)")
+        raise NotImplementedError("resume is not ported yet (ROADMAP.md queue 1, Training runtime)")
     if args.with_wandb:
-        raise NotImplementedError("wandb logging is not ported (ROADMAP.md queue 1 item 7)")
+        raise NotImplementedError("wandb logging is not ported (ROADMAP.md queue 1, Training runtime)")
     for path in args.gin_file:
         gin.parse_config_file(path)
     for binding in args.gin_binding:

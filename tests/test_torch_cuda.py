@@ -316,7 +316,9 @@ def _fl_inputs(b, ta, seed=0):
     return exc, film_a
 
 
-_FL_SHAPES = [(2, 96), (1, 37), (3, 333), (1, 1), (2, 1025)]  # odd B*Ta, ragged blocks
+# odd B*Ta, ragged chunks, under one chunk, a chunk across clips, more chunks
+# than resident blocks
+_FL_SHAPES = [(2, 96), (1, 37), (3, 333), (1, 1), (2, 1025), (1, 31), (3, 47), (3, 1500)]
 
 
 @pytest.mark.parametrize("b,ta", _FL_SHAPES)
@@ -348,11 +350,12 @@ def test_fl_kernel_matches_the_cr_kernel_on_the_upsampled_film(cuda, params, tc,
     np.testing.assert_allclose(fl.cpu().numpy(), cr.cpu().numpy(), rtol=1e-5, atol=2e-6)
 
 
-@pytest.mark.parametrize("b,ta", _FL_SHAPES)
+@pytest.mark.parametrize("b,ta", _FL_SHAPES + [(8, 64000)])
 def test_fl_backward_kernel_matches_plain(cuda, params, b, ta):
     """d_exciter, d_film and the 170 weight-gradient planes of the
     audio-rate backward against autograd through the plain version; one
-    launch; two calls give the same bits."""
+    launch; two calls give the same bits, also at the full_lane training
+    step's shape (8, 64000)."""
     exc, film_a = (t.to(cuda) for t in _fl_inputs(b, ta, seed=ta + 1))
     dy = torch.randn(exc.shape, generator=torch.Generator().manual_seed(ta)).to(cuda)
     w = _shaper(params, cuda)

@@ -367,7 +367,7 @@ def test_the_fields_bind_from_gin():
         assert (model.fuse_exciter, model.fuse_out_mixer) == (True, True)
     finally:
         gin.clear_config()
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
         NeuralWaveshaping(compute_dtype="bfloat16")
 
 

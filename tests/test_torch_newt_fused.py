@@ -138,6 +138,19 @@ def test_backward_grid_is_one_block_per_segment_at_most_resident(segments, resid
     assert nf._segment_blocks(segments, resident) == blocks
 
 
+@pytest.mark.parametrize("samples,resident,blocks", [
+    (8 * 64000, 132, 132),  # the full_lane training step on an H100: every block strides
+    (37, 132, 2),  # a ragged last chunk
+    (1, 132, 1),
+    (132 * 32 + 1, 132, 132),  # one chunk more than the card holds: block 0 takes two
+])
+def test_fl_backward_grid_is_one_block_per_chunk_at_most_resident(samples, resident, blocks):
+    """The audio-rate backward's grid: one block per 32-sample chunk of the
+    flat sample index, capped at the blocks resident at once (each block
+    then strides over chunks), and never a block without a chunk."""
+    assert nf._chunk_blocks(samples, resident) == blocks
+
+
 @pytest.mark.parametrize("b,tc,blocks", [
     (8, 500, 132),  # the training step on an H100, one 16-warp block per SM
     (1, 37, 37),  # odd B*Tc: no block holds two segments at once

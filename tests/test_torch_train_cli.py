@@ -88,11 +88,11 @@ def test_the_bf16_gin_file_stops_at_the_mixed_precision_item(cli):
     """gin/train/train_newt_bf16.gin binds NeuralWaveshaping.compute_dtype =
     'bfloat16': validate_config finds every binding a parameter the port
     takes, and the CLI stops with the NotImplementedError that names
-    ROADMAP.md queue 1 item 2 (mixed precision), not a TypeError."""
+    ROADMAP.md queue 1, Mixed precision, not a TypeError."""
     gin.parse_config_file("gin/train/train_newt_bf16.gin")
     assert gin.validate_config() == []
     gin.clear_config()
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
         cli.main(["--gin-file", "gin/train/train_newt_bf16.gin", "--dataset-path", "unused",
                   "--device", "cpu"])
 
@@ -228,6 +228,6 @@ def test_data_parallel_over_several_cards_raises(monkeypatch):
     naming the roadmap item (checked before anything touches a card)."""
     monkeypatch.setattr(trainer_module, "resolve_device", torch.device)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1, Multi-GPU"):
         Trainer(NeuralWaveshaping(), TrainConfig(), device="cuda")
     assert Trainer(NeuralWaveshaping(), TrainConfig(), device="cpu").cfg.data_parallel
