@@ -21,7 +21,8 @@ exits non-zero:
    hooks in one forward of the served model per request set: the served
    batch (4 requests padded to 1024 frames), the single request and the
    timed batch of 8 (512 frames each); then two made-up shapes the TPU
-   gate refused (odd Tc=37, hop=64);
+   gate refused (odd Tc=37, hop=64) and one where a thread's group of 4
+   samples straddles two clips (B=3, Tc=1, hop 3);
 4. serve: ``Synthesizer.from_checkpoint(..., device="cuda")`` renders a
    batch of four requests (2, 4, 4 and 7 s) and one 4-s request; the
    outputs must be finite and not silent, and every render must have
@@ -132,8 +133,12 @@ exits non-zero:
 19. kernel_xcr, kernel_xfull: the exciter-fused forwards against their plain
    versions (rtol 1e-4, atol 1e-5) on the inputs the renders hand them
    (caught by wrapping ``newt_fused._launch_forward_x``) at batch 8 and 1 x
-   4 s, then made-up odd Tc = 37, hop 64, H = 2 and 128, f0 up to ~2 kHz and a
-   ragged last pass; xfull plus the bias against xcr and NEWT's mixer;
+   4 s, then made-up odd Tc = 37, hop 64, H = 2 and 128, f0 up to ~2 kHz, a
+   ragged last pass and groups of 4 samples across clips (B=3, Tc=1, hop
+   3); xfull plus the bias against xcr and NEWT's mixer; kernel_x_film_lerp:
+   with gamma_out = 0 xcr's output is its FiLM's beta_out lerp, bit for bit
+   ``linear_upsample`` on the CPU, on the renders' inputs and the straddling
+   shape;
 20. kernel_xcr_bwd, kernel_xfull_bwd: one ``Trainer`` step at batch 8 x 4 s
    with each field set (counted: its pair once, kernels 1-2 never), its
    backward inputs caught; the backwards against autograd through the plain
@@ -1283,6 +1288,22 @@ def check_x(label, args):
     return err
 
 
+def check_x_film_lerp(label, args):
+    """xcr with the film's gamma_out planes zeroed: its output is the
+    in-kernel beta_out lerp (0 * y + beta_out is exact), bit for bit
+    ``linear_upsample`` on the CPU."""
+    film_z = args[3].clone()
+    film_z[..., 128:192] = 0.0
+    with torch.inference_mode():
+        lerp = nf._launch_forward_x(*args[:3], film_z, *args[4:]).cpu()
+    expect = linear_upsample(film_z.cpu(), args[0].shape[1])[..., 192:]
+    n_diff = int((lerp != expect).sum())
+    emit({"phase": "kernel_x_film_lerp", "case": label, "B": args[0].shape[0],
+          "Tc": film_z.shape[1], "hop": args[10], "elements_not_bit_exact": n_diff})
+    if n_diff:
+        raise RuntimeError(f"{label}: the exciter-fused kernel's FiLM interpolation is not bit-exact")
+
+
 def check_x_backward(label, args):
     """Exciter-fused backward kernel vs autograd through the plain version,
     every output, and two calls bit-identical -> max abs error."""
@@ -1435,12 +1456,17 @@ def exciter_fused_phases(dev, synth, root, tmp, batch_requests, single_requests)
         xfull = kind == "xfull"
         for label, b, tc, hop, h in (("odd_tc", 1, 37, HOP, 101), ("hop_64", 2, 50, 64, 101),
                                      ("h2", 2, 8, HOP, 2), ("h128", 2, 8, HOP, 128),
-                                     ("ragged_block", 1, 37, 5, 101)):
+                                     ("ragged_block", 1, 37, 5, 101), ("straddle", 3, 1, 3, 101)):
             cases.append((f"{label}_{kind}", made_up_x_args(b, tc, hop, h, 50 + tc + h, dev, packed, xfull)))
     fwd_err = {"xcr": 0.0, "xfull": 0.0}
     for label, args in cases:
         kind = "xfull" if args[7] is not None else "xcr"
         fwd_err[kind] = max(fwd_err[kind], check_x(label, args))
+    # with gamma_out = 0 xcr's output is its in-register beta_out lerp, which
+    # must equal linear_upsample on the CPU bit for bit
+    for label, args in cases:
+        if args[7] is None and label.startswith(("render", "straddle")):
+            check_x_film_lerp(label, args)
     # xfull plus the output mix's bias against xcr followed by NEWT's mixer
     xcr_args = renders[("xcr", "render_b8_4s")]
     newt = synth.model.newt
@@ -1653,7 +1679,8 @@ def main() -> int:
              ("serve_single", *main_path_kernel_inputs(synth, single)),
              ("timed_batch8", *main_path_kernel_inputs(synth, timed["batch8_4s"])),
              ("odd_tc", *made_up_kernel_inputs(1, 37, HOP, 1, dev)),
-             ("hop_64", *made_up_kernel_inputs(2, 500, 64, 2, dev))]
+             ("hop_64", *made_up_kernel_inputs(2, 500, 64, 2, dev)),
+             ("straddle", *made_up_kernel_inputs(3, 1, 3, 3, dev))]
     max_err = 0.0
     for label, exc, film_c in cases:
         b, ta, _ = exc.shape

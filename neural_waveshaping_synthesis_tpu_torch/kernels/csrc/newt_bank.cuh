@@ -1,9 +1,10 @@
 // The exciter of the exciter-fused kernels newt_fused_x.cu (forward) and
 // newt_fused_x_bwd.cu (backward), float32: one harmonic's sine (bank_sin,
-// both kernels), and for the forward one sample's antialiased harmonic bank,
-// built by the 64 threads of that sample, and its H -> 64 mix. The backward
-// builds a 32-sample bank tile with bank_sin and mixes it in a block-wide
-// product of its own, each output summed in mix's order.
+// both kernels), and for the forward the antialiased harmonic bank of a
+// group of S consecutive samples, built by the group's 64 threads into a
+// shared (H, S) tile, and its H -> 64 mix. The backward builds a 32-sample
+// bank tile with bank_sin and mixes it in a block-wide product of its own,
+// each output summed in mix's order.
 //
 // The bank is ops/oscillator.py bank_from_wrapped_phase for one sample:
 // harmonic k = 1..H is sin(phase*k + offset[k-1]) by the polynomial sine,
@@ -38,28 +39,76 @@ __device__ __forceinline__ float bank_sin(float phase, float k, float offset) {
   return r * p;
 }
 
-// Thread c of a sample's 64 writes harmonics c+1 and c+65 of that sample
-// into row[c] and row[c + 64]: zero past n_harm and where f0*k >= half_sr.
-// off_lo / off_hi are offsets[c] and offsets[c + 64] (0 past n_harm).
-__device__ __forceinline__ void fill_bank_row(float* row, float phase, float f0,
-                                              float off_lo, float off_hi, int c,
-                                              int n_harm, float half_sr) {
+// S floats (S a multiple of 4) from / to shared memory at p, 16-B aligned,
+// as S/4 16-byte accesses.
+template <int S>
+__device__ __forceinline__ void sts_n(float* p, const float (&v)[S]) {
+  static_assert(S % 4 == 0, "16-byte accesses");
+#pragma unroll
+  for (int q = 0; q < S; q += 4)
+    *reinterpret_cast<float4*>(p + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+}
+
+template <int S>
+__device__ __forceinline__ void lds_n(const float* p, float (&v)[S]) {
+  static_assert(S % 4 == 0, "16-byte accesses");
+#pragma unroll
+  for (int q = 0; q < S; q += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p + q);
+    v[q] = a.x, v[q + 1] = a.y, v[q + 2] = a.z, v[q + 3] = a.w;
+  }
+}
+
+// Thread c of a group writes harmonics c+1 and c+65 of the group's S samples
+// s0 .. s0+S-1 into rows c and c+64 of its (kMaxHarmonics, S) tile (a
+// sample fastest, one 16-B store per row at S = 4): zero past n_harm, where
+// f0*k >= half_sr, and for samples at or past n_samples (their f0 taken as
+// half_sr). off_lo / off_hi are offsets[c] and offsets[c + 64] (0 past
+// n_harm).
+template <int S>
+__device__ __forceinline__ void fill_bank_tile(float* tile, const float* __restrict__ phase,
+                                               const float* __restrict__ f0, int s0,
+                                               int n_samples, float off_lo, float off_hi, int c,
+                                               int n_harm, float half_sr) {
+  float ph[S], hz[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const bool in = s0 + i < n_samples;
+    ph[i] = in ? phase[s0 + i] : 0.0f;
+    hz[i] = in ? f0[s0 + i] : half_sr;
+  }
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int k = c + 1 + j * kC;
     const float kf = static_cast<float>(k);
-    const bool live = k <= n_harm && __fmul_rn(f0, kf) < half_sr;
-    row[c + j * kC] = live ? bank_sin(phase, kf, j ? off_hi : off_lo) : 0.0f;
+    float v[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const bool live = k <= n_harm && __fmul_rn(hz[i], kf) < half_sr;
+      v[i] = live ? bank_sin(ph[i], kf, j ? off_hi : off_lo) : 0.0f;
+    }
+    sts_n<S>(tile + (c + j * kC) * S, v);
   }
 }
 
-// Channel c of the harmonic mixer for one bank row: sum over k < n_harm of
-// row[k] * w[k, c] (w staged channel fastest), then + bias, as x @ w + b.
-__device__ __forceinline__ float mix(const float* row, const float* w, int c, int n_harm,
-                                     float bias) {
-  float acc = 0.0f;
-  for (int k = 0; k < n_harm; ++k) acc += row[k] * w[k * kC + c];
-  return acc + bias;
+// Channel c of the harmonic mixer for the S samples of a bank tile: out[i] =
+// sum over k < n_harm of tile[k][i] * w[k, c] (w staged channel fastest),
+// then + bias, as x @ w + b. Per k one read of w[k, c] and one broadcast read
+// of the tile's row k serve S multiply-adds.
+template <int S>
+__device__ __forceinline__ void mix(const float* tile, const float* w, int c, int n_harm,
+                                    float bias, float (&out)[S]) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) out[i] = 0.0f;
+  for (int k = 0; k < n_harm; ++k) {
+    const float wk = w[k * kC + c];
+    float r[S];
+    lds_n<S>(tile + k * S, r);
+#pragma unroll
+    for (int i = 0; i < S; ++i) out[i] += r[i] * wk;
+  }
+#pragma unroll
+  for (int i = 0; i < S; ++i) out[i] += bias;
 }
 
 }  // namespace newt

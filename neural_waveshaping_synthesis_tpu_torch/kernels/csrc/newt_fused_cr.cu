@@ -23,18 +23,28 @@
 // stay in L2). At 67 TFLOP/s f32 and 3.35 TB/s that is ~90 FLOP per byte
 // against a ridge of ~20: FP32 ALU throughput bounds it.
 //
-// What the design does about it: one thread per (sample, channel), channels
-// fastest, so a warp's exciter loads, output stores and film loads are
-// 128-byte coalesced and nothing but the result goes back to memory. The
-// nine weight planes (170 x 64 f32, 43.5 KB) sit in shared memory in the
-// pack_weights channel-fastest layout, so a warp's weight reads hit 32
-// distinct banks; the shaper itself is newt_shaper.cuh, shared with the
-// streaming kernel newt_fused_stream.cu. Blocks stride over the samples
-// (grid = what fits on the card at once), so each block stages the weights
-// once. The FiLM
-// interpolation is done in registers: the (B, Ta, 256) audio-rate film
-// never exists. Not yet done (later work): reusing each shared-memory
-// weight read for several samples, packed f32x2 FMA.
+// What the design does about it: kernel 3's (newt_fused_stream.cu). A thread
+// owns channel c and kS = 4 consecutive samples of the flat (B, Ta) index (a
+// group); lanes are channels, so each sample's exciter, film and output
+// accesses of a warp are 128-byte coalesced and nothing but the result goes
+// back to memory. The weights sit in shared memory as the channel-major rows
+// (newt_shaper.cuh, kLd = 172 floats a channel), and
+// newt::film_shaper_cr_n, the group routine kernel 7 (newt_fused_x.cu) runs
+// too, lerps each sample's FiLM in registers (the (B, Ta, 256) audio-rate
+// film never exists) and runs newt::shaper_n, which reads each weight once
+// for the group's four samples (43 ld.shared.v4 per group, conflict-free).
+// A grid of what fits on the card at once strides over the groups, so each
+// block stages the weights once.
+//
+// Registers set the pace. One thread per (sample, channel) with plain loads
+// let the compiler hoist all 170 weights out of the sample loop into 207
+// registers: one 8-warp block per SM, 29-30 % of the bound. The volatile
+// loads of lds4/lds8 stay in the loop, and __launch_bounds__(256, 3) asks for
+// three 256-thread blocks (24 warps) per SM, as kernel 3 runs: 80 registers
+// and a few spilled bytes. Two samples a thread (76 registers, no spills)
+// ran slower in turns (scripts/torch_cr_fwd_variants.py; PERF.md §6, kernel
+// 1). Not yet done: packed f32x2 FMA, one FiLM frame load per group where
+// its samples share a segment.
 //
 // Where the numbers would trip, and what holds them:
 //  * FiLM interpolation is bit-exact to linear_upsample (newt::film_at in
@@ -46,7 +56,13 @@
 //    (first half-hop of a clip copies frame 0) is folded in as w = 0 between
 //    two copies of frame 0, which gives frame 0 exactly; the tail clamp is a
 //    lerp between two copies of the last frame, as in linear_upsample.
-//  * The polynomial sine: see newt_shaper.cuh.
+//    Each sample of a group takes its own frame pair and division, also in a
+//    group that straddles two segments or two clips.
+//  * The polynomial sine: see newt_shaper.cuh. shaper_n takes every sample
+//    through newt::shaper's operations in its order, so a sample's bits do
+//    not depend on its slot in a group. The ragged last group (B*Ta not a
+//    multiple of kS) computes its missing samples from zeros and stores
+//    nothing for them.
 //  * Index arithmetic: samples are counted in 32-bit ints (the wrapper
 //    refuses B*Ta > 2^30, so the strided index cannot overflow), element
 //    and film offsets in 64-bit.
@@ -57,32 +73,35 @@
 namespace {
 
 using newt::kC;
-using newt::kRows;
 
-constexpr int kThreads = 256;  // 4 samples x 64 channels per block pass
-constexpr int kSamplesPerPass = kThreads / kC;
+constexpr int kThreads = 256;
+constexpr int kGroupsPerPass = kThreads / kC;  // 4 groups of kS samples per block pass
+constexpr int kS = 4;                          // samples per thread (a group)
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 film_shaper_cr_kernel(const float* __restrict__ exciter,
                       const float* __restrict__ film,
                       const float* __restrict__ weights,
                       float* __restrict__ out, int n_samples, int ta, int tc,
                       int hop) {
-  __shared__ float sw[kRows * kC];
-  newt::stage_weights(sw, weights, kThreads);
+  __shared__ __align__(16) float sw[kC * newt::kLd];
+  newt::stage_weight_rows(sw, weights, kThreads);
   __syncthreads();
 
   const int c = threadIdx.x % kC;
-  const int stride = gridDim.x * kSamplesPerPass;
+  const int n_groups = (n_samples + kS - 1) / kS;
+  const int stride = gridDim.x * kGroupsPerPass;
 
-  for (int s = blockIdx.x * kSamplesPerPass + threadIdx.x / kC; s < n_samples;
-       s += stride) {
-    const int b = s / ta;
-    float f[4];  // gamma_in, beta_in, gamma_out, beta_out
-    newt::film_at(film + static_cast<long long>(b) * tc * (4 * kC), s - b * ta, hop, tc, c, f);
-    const long long e = static_cast<long long>(s) * kC + c;
-    const float y = newt::shaper(f[0] * exciter[e] + f[1], sw, c);
-    out[e] = f[2] * y + f[3];
+  for (int g = blockIdx.x * kGroupsPerPass + threadIdx.x / kC; g < n_groups; g += stride) {
+    const int s0 = g * kS;
+    float x[kS], y[kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i)
+      x[i] = s0 + i < n_samples ? exciter[static_cast<long long>(s0 + i) * kC + c] : 0.0f;
+    newt::film_shaper_cr_n<kS>(x, film, s0, n_samples, ta, tc, hop, sw, c, y);
+#pragma unroll
+    for (int i = 0; i < kS; ++i)
+      if (s0 + i < n_samples) out[static_cast<long long>(s0 + i) * kC + c] = y[i];
   }
 }
 
@@ -104,8 +123,8 @@ extern "C" int newt_fused_cr_forward(const float* exciter, const float* film,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, film_shaper_cr_kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long needed =
-      (static_cast<long long>(n_samples) + kSamplesPerPass - 1) / kSamplesPerPass;
+  const long long n_groups = (static_cast<long long>(n_samples) + kS - 1) / kS;
+  const long long needed = (n_groups + kGroupsPerPass - 1) / kGroupsPerPass;
   const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(needed < resident ? needed : resident);
   film_shaper_cr_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

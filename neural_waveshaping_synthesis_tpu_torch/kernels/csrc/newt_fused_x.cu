@@ -16,7 +16,7 @@
 //             to [0, tau));
 //   exc     = sum_k bank[k] * w[k-1, c] + b[c];
 //   pre     = kernel 1's chain on exc (newt_fused_cr.cu: the FiLM lerp at
-//             control rate, FiLM, newt::shaper, FiLM);
+//             control rate, FiLM, the shaper, FiLM);
 //   xcr:   out[b, t, c] = pre;   xfull: out[b, t] = sum_c pre * w_out[c]
 //          (the output mix's bias is added outside, as in JAX).
 //
@@ -28,23 +28,48 @@
 // reach device memory. At 67 TFLOP/s the bound is ~1,000 operations per
 // element, ~0.50 ms at 8 x 4 s.
 //
-// Design: kernel 1's layout, one thread per (sample, channel), channels
-// fastest, 256 threads = 4 samples per pass, a persistent grid (what is
-// resident) striding over the samples. Per pass the 64 threads of a sample
-// compute its H <= 128 harmonics together, two each, into a shared (4, 128)
-// bank; after a barrier each thread mixes its channel from the bank row
-// (a broadcast read) and the mixer, staged in shared memory channel fastest
-// (conflict-free), then runs the chain. The pass loop's trip count is the
-// same for every thread of the block and the work is guarded, so every
-// thread reaches every barrier on the ragged last pass. xfull reduces each
-// sample's 64 products in a fixed order: a shuffle tree in each of its two
-// warps, then warp 0 + warp 1 through shared memory. Shared memory: 43.5 KB
-// of shaper planes + 32 KB of mixer + 2 KB of bank (dynamic, above 48 KB).
+// Design: kernel 1's group (newt_fused_cr.cu), fed by a bank tile. A block's
+// 64-thread groups each own kS = 4 consecutive samples of the flat (B, Ta)
+// index a pass, thread c channel c of them; a persistent grid (what is
+// resident) strides over the groups. Per pass a group
+//   1. builds its samples' H <= 128 harmonics into a shared (128, kS) tile,
+//      thread c harmonics c+1 and c+65 of each sample (newt::fill_bank_tile,
+//      one 16-B store a row);
+//   2. meets at its own named barrier (bar.sync 1 + group, 64 threads): no
+//      group waits for another;
+//   3. mixes channel c for its kS samples (newt::mix): per harmonic one read
+//      of the mixer, staged channel fastest (conflict-free), and one
+//      broadcast 16-B read of the tile's row serve kS multiply-adds;
+//   4. runs newt::film_shaper_cr_n, kernel 1's routine: the control-rate
+//      FiLM lerp, FiLM, newt::shaper_n (each weight read once for the kS
+//      samples from the channel-major rows) and FiLM;
+//   5. xcr stores its kS outputs; xfull reduces each sample's 64 products in
+//      a fixed order, a shuffle tree in each of the group's two warps (kS
+//      trees of 5 shuffles), then warp 0 + warp 1 through shared memory after
+//      a second group barrier.
+// A group's second barrier (xcr's right after the mix) also tells it that
+// the tile is read, so the next pass may write it: two barriers a pass. The
+// parent ran one thread per (sample, channel) with a block barrier twice per
+// 4 samples, and read the 170 weights and the 101-float bank row and mixer
+// column as scalars for every pair: ~374 shared-memory instructions per 32
+// pairs, now ~95 wavefronts.
 //
-// Exactness: the bank as newt_bank.cuh says; the FiLM lerp is kernel 1's
-// newt::film_at (one __fdiv_rn weight, an uncontracted lerp, the head clamp
-// as w = 0); no --use_fast_math. Samples are counted in 32-bit ints (the
-// wrapper refuses B*Ta > 2^30), element offsets in 64-bit.
+// Geometry: 384-thread blocks (six groups) sharing one staged copy of the
+// weights and the mixer, two blocks (24 warps) per SM: 44,032 B of shaper
+// rows + 32 KB of mixer + 12 KB of tiles (89,280 B, dynamic, above 48 KB)
+// a block, and __launch_bounds__(384, 2) holds a thread to 80 registers.
+// Timed in turns against 256-thread blocks (two per SM, 127 registers) and
+// 512-thread ones (two per SM, 64 registers and spills), 8 samples a
+// thread, two tiles a group by pass (one barrier a pass for xcr; level) and
+// a channel-major mixer read 4 harmonics a load
+// (scripts/torch_cr_fwd_variants.py; PERF.md §6, kernel 7).
+//
+// Exactness: the bank as newt_bank.cuh says, the mix in x @ w + b's order (k
+// ascending, then + bias), the FiLM lerp kernel 1's newt::film_at (one
+// __fdiv_rn weight per sample, an uncontracted lerp, the head clamp as w =
+// 0); no --use_fast_math. A sample's bits do not depend on its slot in a
+// group. Samples are counted in 32-bit ints (the wrapper refuses B*Ta >
+// 2^30), element offsets in 64-bit.
 #include <cuda_runtime.h>
 
 #include "newt_bank.cuh"
@@ -53,66 +78,72 @@ namespace {
 
 using newt::kC;
 using newt::kMaxHarmonics;
-using newt::kRows;
 
-constexpr int kThreads = 256;  // 4 samples x 64 channels per pass
-constexpr int kSamplesPerPass = kThreads / kC;
-constexpr int kWarps = kThreads / 32;
-// shaper planes, mixer, the pass's bank rows, xfull's per-warp sums
+constexpr int kThreads = 384;
+constexpr int kGroups = kThreads / kC;  // 64-thread groups a block
+constexpr int kS = 4;                   // samples a group holds (a thread: kS of its channel)
+constexpr int kTile = kMaxHarmonics * kS;
+// shaper rows, mixer, a bank tile and xfull's (2 warps, kS) sums a group
 constexpr size_t kSmemBytes =
-    static_cast<size_t>(kRows * kC + kMaxHarmonics * kC + kSamplesPerPass * kMaxHarmonics +
-                        kWarps) * sizeof(float);
+    static_cast<size_t>(kC * newt::kLd + kMaxHarmonics * kC + kGroups * kTile +
+                        kGroups * 2 * kS) * sizeof(float);
+
+// the 64 threads of group g meet (barrier 1 + g; 0 is __syncthreads')
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" : : "r"(1 + g), "n"(kC) : "memory");
+}
 
 template <bool kOutMix>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 bank_film_shaper_x_kernel(const float* __restrict__ phase, const float* __restrict__ f0,
                           const float* __restrict__ offsets, const float* __restrict__ film,
                           const float* __restrict__ mixer_w, const float* __restrict__ mixer_b,
                           const float* __restrict__ weights, const float* __restrict__ w_out,
                           float* __restrict__ out, int n_samples, int ta, int tc, int hop,
                           int n_harm, float half_sr) {
-  extern __shared__ float smem[];
-  float* sw = smem;                                         // (170, 64) shaper planes
-  float* smw = sw + kRows * kC;                             // (H, 64) mixer w
-  float* sbank = smw + kMaxHarmonics * kC;                  // (4, 128) bank rows
-  float* swarp = sbank + kSamplesPerPass * kMaxHarmonics;   // (8,) output-mix sums
-  newt::stage_weights(sw, weights, kThreads);
+  extern __shared__ __align__(16) float smem[];
+  float* sw = smem;                            // (64, kLd) shaper rows
+  float* smw = sw + kC * newt::kLd;            // (H, 64) mixer w
+  float* stiles = smw + kMaxHarmonics * kC;    // (kGroups, 128, kS) bank tiles
+  float* ssums = stiles + kGroups * kTile;      // (kGroups, 2, kS) xfull warp sums
+  newt::stage_weight_rows(sw, weights, kThreads);
   for (int i = threadIdx.x; i < n_harm * kC; i += kThreads) smw[i] = mixer_w[i];
   __syncthreads();
 
   const int c = threadIdx.x % kC;
-  const int row = threadIdx.x / kC;
-  float* bank = sbank + row * kMaxHarmonics;
+  const int grp = threadIdx.x / kC;
   const float off_lo = c < n_harm ? offsets[c] : 0.0f;
   const float off_hi = c + kC < n_harm ? offsets[c + kC] : 0.0f;
   const float bias = mixer_b[c];
   const float wo = kOutMix ? w_out[c] : 0.0f;
-  const int stride = gridDim.x * kSamplesPerPass;
+  const int n_groups = (n_samples + kS - 1) / kS;
+  const int stride = gridDim.x * kGroups;
+  float* tile = stiles + grp * kTile;
+  float* sums = ssums + grp * 2 * kS;
 
-  for (int base = blockIdx.x * kSamplesPerPass; base < n_samples; base += stride) {
-    const int s = base + row;
-    const bool active = s < n_samples;
-    if (active) newt::fill_bank_row(bank, phase[s], f0[s], off_lo, off_hi, c, n_harm, half_sr);
-    __syncthreads();
-
-    float pre = 0.0f;
-    if (active) {
-      const float exc = newt::mix(bank, smw, c, n_harm, bias);
-      const int b = s / ta;
-      float f[4];  // gamma_in, beta_in, gamma_out, beta_out, as kernel 1
-      newt::film_at(film + static_cast<long long>(b) * tc * (4 * kC), s - b * ta, hop, tc, c, f);
-      const float y = newt::shaper(f[0] * exc + f[1], sw, c);
-      pre = f[2] * y + f[3];
-      if (!kOutMix) out[static_cast<long long>(s) * kC + c] = pre;
-    }
-    if (kOutMix) {  // every lane of the block takes part; a warp is one sample's
-      float v = pre * wo;
+  for (int g = blockIdx.x * kGroups + grp; g < n_groups; g += stride) {
+    const int s0 = g * kS;
+    newt::fill_bank_tile<kS>(tile, phase, f0, s0, n_samples, off_lo, off_hi, c, n_harm, half_sr);
+    group_sync(grp);
+    float exc[kS], y[kS];
+    newt::mix<kS>(tile, smw, c, n_harm, bias, exc);
+    if (!kOutMix) group_sync(grp);  // the tile is read: the next pass may write it
+    newt::film_shaper_cr_n<kS>(exc, film, s0, n_samples, ta, tc, hop, sw, c, y);
+    if (!kOutMix) {
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (threadIdx.x % 32 == 0) swarp[threadIdx.x / 32] = v;
+      for (int i = 0; i < kS; ++i)
+        if (s0 + i < n_samples) out[static_cast<long long>(s0 + i) * kC + c] = y[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        float v = y[i] * wo;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (c % 32 == 0) sums[(c / 32) * kS + i] = v;
+      }
+      group_sync(grp);  // the sums are written and the tile read
+      if (c < kS && s0 + c < n_samples) out[s0 + c] = sums[c] + sums[kS + c];
     }
-    __syncthreads();  // the bank rows and per-warp sums are read; the next pass may write
-    if (kOutMix && active && c == 0) out[s] = swarp[2 * row] + swarp[2 * row + 1];
   }
 }
 
@@ -139,11 +170,11 @@ int resident_blocks() {
 // The number of forward blocks resident on the current device at once (SMs
 // x blocks per SM), for xcr and for xfull; each also allows its kernel the
 // dynamic shared memory there, so call it once per device before the first
-// launch. The caller launches min(this, ceil(B*Ta / 4)) blocks. Returns
-// -(CUDA error) on failure.
+// launch. The caller launches min(this, ceil(B*Ta / 24)) blocks (24 samples
+// a block pass: kernels/newt_fused.py _SAMPLES_PER_PASS). Returns -(CUDA
+// error) on failure.
 extern "C" int newt_fused_xcr_resident_blocks() { return resident_blocks<false>(); }
 extern "C" int newt_fused_xfull_resident_blocks() { return resident_blocks<true>(); }
-
 // phase, f0 (B, Ta) with the phase wrapped to [0, tau); offsets (H,); film
 // (B, Tc, 256) at control rate; mixer_w (H, 64), mixer_b (64,); weights
 // (170, 64); w_out (64,) for xfull or null for xcr; out (B, Ta) for xfull,

@@ -1,11 +1,12 @@
-// The learned sine-shaper bank of one (sample, channel), float32: what the
-// forward kernels newt_fused_cr.cu (offline FiLM upsample), newt_fused_fl.cu
-// (audio-rate FiLM) and newt_fused_x.cu (exciter-fused) share once each has
-// its four FiLM values in registers (shaper); the same for S samples of one
-// channel, each weight read once for all S, from a channel-major copy of
-// the weights that the lane-sum backwards read too (shaper_n,
-// newt_fused_stream.cu); and the control-rate FiLM lerp (film_at) of
-// newt_fused_cr.cu and newt_fused_x.cu.
+// The learned sine-shaper bank of one (sample, channel), float32, as the
+// audio-rate forward newt_fused_fl.cu runs it once it has its four FiLM
+// values in registers (shaper); the same for S samples of one channel, each
+// weight read once for all S, from a channel-major copy of the weights that
+// the lane-sum backwards read too (shaper_n, newt_fused_stream.cu); and the
+// control-rate chain around it that newt_fused_cr.cu (offline FiLM upsample)
+// and newt_fused_x.cu (exciter-fused) share: the FiLM lerp of one sample
+// (film_at) and of a group of S consecutive samples, FiLM, shaper_n, FiLM
+// (film_shaper_cr_n).
 //
 // The weights are the packed (170, 64) planes of kernels/newt_fused.py
 // pack_weights, channel fastest (the JAX pack_weights layout), staged in
@@ -71,16 +72,16 @@ __device__ __forceinline__ float lerp_exact(float left, float right, float w,
 }
 
 // The four FiLM values (gamma_in, beta_in, gamma_out, beta_out) of channel c
-// at audio sample t of a clip, from the clip's (tc, 4*kC) control-rate
-// frames at `clip`: linear_upsample's align_corners=False lerp between two
-// frames. The weight is ONE IEEE division of exact integers, (2o+1 +- hop) /
-// (2*hop) (__fdiv_rn; the build does not use --use_fast_math); the head
-// clamp (the first half-hop copies frame 0) is a lerp of weight 0 between
-// two copies of frame 0, the tail clamp one between two copies of the last.
-__device__ __forceinline__ void film_at(const float* clip, int t, int hop, int tc, int c,
+// at audio sample t = m*hop + o of a clip, from the clip's (tc, 4*kC)
+// control-rate frames at `clip`: linear_upsample's align_corners=False lerp
+// between two frames. The weight is ONE IEEE division of exact integers,
+// (2o+1 +- hop) / (2*hop) (__fdiv_rn; the build does not use
+// --use_fast_math); the head clamp (the first half-hop copies frame 0) is a
+// lerp of weight 0 between two copies of frame 0, the tail clamp one between
+// two copies of the last.
+__device__ __forceinline__ void film_at(const float* clip, int m, int o, int hop, int tc, int c,
                                         float film[4]) {
-  const int m = t / hop;
-  const int two_o1 = 2 * (t - m * hop) + 1;
+  const int two_o1 = 2 * o + 1;
   const bool lo = two_o1 < hop;
   const int f_left = lo ? max(m - 1, 0) : m;
   const int f_right = lo ? m : min(m + 1, tc - 1);
@@ -254,6 +255,49 @@ __device__ __forceinline__ void shaper_n(const float (&x)[S], const float* sw, i
     for (int i = 0; i < S; ++i) acc[i] += h1[u][i] * w[u];
 #pragma unroll
   for (int i = 0; i < S; ++i) y[i] = psin(acc[i] + tail.y);
+}
+
+// The control-rate chain of S consecutive samples s0 .. s0+S-1 of the flat
+// (B, Ta) sample index and channel c, a thread's group in kernels 1 and 7:
+// y[i] = gamma_out * shaper(gamma_in * exc[i] + beta_in) + beta_out, the
+// FiLM at sample s0+i from the (B, tc, 4*kC) control-rate `film` (film_at),
+// the shaper shaper_n's, on the channel-major rows at sw. The clip, frame and
+// in-frame offset are divided out once (s0 < n_samples) and stepped from
+// sample to sample, across a frame's and a clip's end too (a group may
+// straddle two clips: B*Ta need not be a multiple of S). Each sample keeps
+// film_at's own frame pair and division. Samples at or past n_samples run on
+// zeros; the caller stores nothing for them.
+template <int S>
+__device__ __forceinline__ void film_shaper_cr_n(const float (&exc)[S], const float* film, int s0,
+                                                 int n_samples, int ta, int tc, int hop,
+                                                 const float* sw, int c, float (&y)[S]) {
+  const int b = s0 / ta;
+  const int t = s0 - b * ta;
+  int m = t / hop;
+  int o = t - m * hop;
+  const float* clip = film + static_cast<long long>(b) * tc * (4 * kC);
+  float x[S], g_out[S], b_out[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    x[i] = g_out[i] = b_out[i] = 0.0f;
+    if (s0 + i < n_samples) {
+      float f[4];  // gamma_in, beta_in, gamma_out, beta_out
+      film_at(clip, m, o, hop, tc, c, f);
+      x[i] = f[0] * exc[i] + f[1];
+      g_out[i] = f[2];
+      b_out[i] = f[3];
+    }
+    if (++o == hop) {
+      o = 0;
+      if (++m == tc) {
+        m = 0;
+        clip += static_cast<long long>(tc) * (4 * kC);
+      }
+    }
+  }
+  shaper_n<S>(x, sw, c, y);
+#pragma unroll
+  for (int i = 0; i < S; ++i) y[i] = g_out[i] * y[i] + b_out[i];
 }
 
 }  // namespace newt

@@ -606,7 +606,7 @@ film_shaper_stream.launches = 0
 # with NEWT's C -> 1 output mix as well (JAX bank_newt_fused_xfull)
 # ---------------------------------------------------------------------------
 H_MAX = 128  # the most harmonics the exciter-fused kernels take (JAX's bound)
-_SAMPLES_PER_PASS = 4  # kSamplesPerPass of newt_fused_x.cu
+_SAMPLES_PER_PASS = 24  # samples a block pass of newt_fused_x.cu: kGroups * kS
 
 
 def supports_xcr(shaper, n_audio: int, n_control: int, n_harmonics: int) -> bool:

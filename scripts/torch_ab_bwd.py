@@ -3,28 +3,30 @@
 the card: kernel 2 (``kernels/csrc/newt_fused_cr_bwd.cu``, the default
 training backward), kernel 6 (``newt_fused_fl_bwd.cu``, the audio-rate
 backward), kernel 8 (``newt_fused_x_bwd.cu``, the exciter-fused backward,
-xcr and xfull) or kernel 3 (``newt_fused_stream.cu``, the streaming
-forward).
+xcr and xfull), kernel 3 (``newt_fused_stream.cu``, the streaming forward),
+kernel 1 (``newt_fused_cr.cu``, the control-rate forward) or kernel 7
+(``newt_fused_x.cu``, the exciter-fused forwards, xcr and xfull).
 
-    python3 scripts/torch_ab_bwd.py --kernel cr|fl|x|stream OTHER.cu [OTHER.cu ...] [--iters 30]
+    python3 scripts/torch_ab_bwd.py --kernel cr|fl|x|stream|cr_fwd|x_fwd OTHER.cu [OTHER.cu ...] [--iters 30]
 
 Builds the checkout's kernel and each OTHER source (nvcc with the port's
 flags and ``-I kernels/csrc``, into ``build/ab_bwd/``) and prints, for each,
 ptxas's report and the SASS opcode counts (cuobjdump) of each kernel
-function (kernel 8 has two: xcr and xfull): the whole function, the
+function (kernels 7 and 8 have two: xcr and xfull): the whole function, the
 innermost loop that holds every shuffle (in the lane-sum design, one
-channel's pass over 32 samples; for the stream kernel, which has no
-shuffles, its longest loop: one pass over a group of samples) and a summary
-of every loop. Then, on seeded random inputs with the run120k_cr shaper, at
-a training step's shape (B=8, Tc=500, hop 128; H=101 for kernel 8; for
-kernel 6 the ``full_lane`` step's B=8, Ta=64000) or, for the stream kernel,
-at 256 streams of 1024-sample buffers (B=256, K=8, hop 128), for each case
-(cr; fl; xcr and xfull; or stream) it checks that two calls
-of each source give the same bits, gives each one's largest difference from
-the checkout's kernel relative to the latter's largest value per output,
-and times all of them in turns (a, b, ..., ..., b, a) by CUDA-event medians
-of ``--iters`` calls. One JSON line each, with the card's name and power
-limit. Without a card it exits non-zero.
+channel's pass over 32 samples; in kernel 7's xfull, a group's pass) or,
+without shuffles, the longest loop (the forwards' pass over a group of
+samples) and a summary of every loop. Then, on seeded random inputs with the
+run120k_cr shaper, at a training step's shape (B=8, Tc=500, hop 128; H=101
+for kernel 8; for kernel 6 the ``full_lane`` step's B=8, Ta=64000), for the
+stream kernel at 256 streams of 1024-sample buffers (B=256, K=8, hop 128),
+and for kernels 1 and 7 at a batch-8 render's (B=8, Tc=512, hop 128; H=101),
+for each case (cr; fl; xcr and xfull; stream; cr_fwd; or xcr and xfull) it
+checks that two calls of each source give the same bits, gives each one's
+largest difference from the checkout's kernel relative to the latter's
+largest value per output, and times all of them in turns (a, b, ..., ...,
+b, a) by CUDA-event medians of ``--iters`` calls. One JSON line each, with
+the card's name and power limit. Without a card it exits non-zero.
 """
 import argparse
 import collections
@@ -49,6 +51,7 @@ from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf  # n
 OUT = _build.BUILD_DIR / "ab_bwd"
 B, TC, HOP, H = 8, 500, 128, 101
 FL_TA = 64000
+FWD_TC = 512  # a batch-8 render's padded frames: the forwards' shape in chip_smoke.py
 STREAM_B, STREAM_K = 256, 8
 # one SASS line: address, opcode (after any predicate), a branch's target
 SASS_LINE = re.compile(
@@ -190,20 +193,23 @@ def fl_inputs(rng, dev, packed):
     return (exc, film_a, packed, dy), ("d_exciter", "d_film", "d_planes")
 
 
-def x_inputs(rng, dev, packed):
+def x_inputs(rng, dev, packed, tc=TC, backward=True):
     """As ``tests/test_torch_cuda.py`` ``_x_inputs``: wrapped phase and f0
     (110 Hz to 1.76 kHz, so the antialias mask cuts real harmonics), offsets,
-    film, a 0.1-scaled mixer and w_out; dy for xcr and for xfull."""
-    f0 = (110.0 * 2.0 ** rng.uniform(0, 4, (B, TC * HOP))).astype(np.float32)
+    film, a 0.1-scaled mixer and w_out; for the backward dy for xcr and for
+    xfull."""
+    f0 = (110.0 * 2.0 ** rng.uniform(0, 4, (B, tc * HOP))).astype(np.float32)
     phase = np.mod(2 * np.pi * np.cumsum(f0.astype(np.float64), -1) / 16000, 2 * np.pi).astype(np.float32)
     arrays = (phase, f0, rng.uniform(-np.pi, np.pi, H).astype(np.float32),
-              rng.standard_normal((B, TC, 256)).astype(np.float32),
+              rng.standard_normal((B, tc, 256)).astype(np.float32),
               (rng.standard_normal((H, 64)) * 0.1).astype(np.float32),
               (rng.standard_normal(64) * 0.1).astype(np.float32))
     phase, f0, off, film_c, w, bias = (torch.from_numpy(a).to(dev) for a in arrays)
     w_out = torch.from_numpy((rng.standard_normal(64) * 0.1).astype(np.float32)).to(dev)
-    dy = {"xcr": torch.from_numpy(rng.standard_normal((B, TC * HOP, 64)).astype(np.float32)).to(dev),
-          "xfull": torch.from_numpy(rng.standard_normal((B, TC * HOP)).astype(np.float32)).to(dev)}
+    if not backward:
+        return (phase, f0, off, film_c, w, bias, packed, w_out), ("out",)
+    dy = {"xcr": torch.from_numpy(rng.standard_normal((B, tc * HOP, 64)).astype(np.float32)).to(dev),
+          "xfull": torch.from_numpy(rng.standard_normal((B, tc * HOP)).astype(np.float32)).to(dev)}
     return (phase, f0, off, film_c, w, bias, packed, w_out, dy), ("d_film_c", "grads")
 
 
@@ -237,6 +243,67 @@ def stream_inputs(rng, dev, packed):
     return (exc, prev, film_c, packed), ("out",)
 
 
+def cr_fwd_launcher(lib: Path):
+    """-> {"cr_fwd": fn}: a function of kernel 1's inputs (exciter, film_c,
+    packed) -> (out,), launching the library at ``lib`` through kernel 1's
+    C interface (the library sizes its own grid)."""
+    dll = ctypes.CDLL(str(lib))
+    fn = _fn(dll, "newt_fused_cr_forward", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+    def launch(exc, film_c, packed):
+        b, ta, _ = exc.shape
+        tc = film_c.shape[1]
+        out = torch.empty_like(exc)
+        err = fn(exc.data_ptr(), film_c.data_ptr(), packed.data_ptr(), out.data_ptr(), b * ta, ta, tc,
+                 ta // tc, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{lib.name} did not launch: CUDA error {err}")
+        return (out,)
+    return {"cr_fwd": launch}
+
+
+def cr_fwd_inputs(rng, dev, packed):
+    """As ``chip_smoke.py``'s made-up control-rate cases: a 0.5-scaled
+    exciter and a normal control-rate FiLM, at a batch-8 render's shape."""
+    exc = (rng.standard_normal((B, FWD_TC * HOP, 64)) * 0.5).astype(np.float32)
+    film_c = rng.standard_normal((B, FWD_TC, 256)).astype(np.float32)
+    exc, film_c = (torch.from_numpy(a).to(dev) for a in (exc, film_c))
+    return (exc, film_c, packed), ("out",)
+
+
+def x_fwd_launcher(lib: Path):
+    """-> {"xcr": fn, "xfull": fn}: functions of kernel 7's inputs (phase,
+    f0, offsets, film_c, w, b, packed, w_out) -> (out,), launching the
+    library at ``lib`` through kernel 7's C interface on the blocks it
+    reports resident (any block count strides over every sample, whatever
+    the samples a block pass)."""
+    dll = ctypes.CDLL(str(lib))
+    resident = {kind: _resident(dll, f"newt_fused_{kind}_resident_blocks", lib) for kind in ("xcr", "xfull")}
+    fn = _fn(dll, "newt_fused_x_forward",
+             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+
+    def make(kind):
+        def launch(phase, f0, off, film_c, w, bias, packed, w_out):
+            bsz, ta = phase.shape
+            tc = film_c.shape[1]
+            wo = w_out if kind == "xfull" else None
+            out = phase.new_empty((bsz, ta) if wo is not None else (bsz, ta, 64))
+            err = fn(phase.data_ptr(), f0.data_ptr(), off.data_ptr(), film_c.data_ptr(), w.data_ptr(),
+                     bias.data_ptr(), packed.data_ptr(), wo.data_ptr() if wo is not None else None,
+                     out.data_ptr(), bsz * ta, ta, tc, ta // tc, off.shape[0], resident[kind], 8000.0,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{lib.name} did not launch: CUDA error {err}")
+            return (out,)
+        return launch
+    return {"xcr": make("xcr"), "xfull": make("xfull")}
+
+
+def x_fwd_inputs(rng, dev, packed):
+    """:func:`x_inputs` at a batch-8 render's shape, without dy."""
+    return x_inputs(rng, dev, packed, tc=FWD_TC, backward=False)
+
+
 # --kernel -> (source, SASS function-name mark, launcher, inputs, shape printed)
 KERNELS = {"cr": ("newt_fused_cr_bwd.cu", "bwd_kernel", cr_launcher, cr_inputs,
                   {"B": B, "Tc": TC, "hop": HOP}),
@@ -244,7 +311,11 @@ KERNELS = {"cr": ("newt_fused_cr_bwd.cu", "bwd_kernel", cr_launcher, cr_inputs,
            "x": ("newt_fused_x_bwd.cu", "bwd_kernel", x_launcher, x_inputs,
                  {"B": B, "Tc": TC, "hop": HOP, "H": H}),
            "stream": ("newt_fused_stream.cu", "stream_kernel", stream_launcher, stream_inputs,
-                      {"B": STREAM_B, "K": STREAM_K, "hop": HOP})}
+                      {"B": STREAM_B, "K": STREAM_K, "hop": HOP}),
+           "cr_fwd": ("newt_fused_cr.cu", "film_shaper_cr_kernel", cr_fwd_launcher, cr_fwd_inputs,
+                      {"B": B, "Tc": FWD_TC, "hop": HOP}),
+           "x_fwd": ("newt_fused_x.cu", "bank_film_shaper_x_kernel", x_fwd_launcher, x_fwd_inputs,
+                     {"B": B, "Tc": FWD_TC, "hop": HOP, "H": H})}
 
 
 def sass_counts(lib: Path, mark: str) -> dict:
@@ -321,6 +392,7 @@ def main() -> int:
             torch.cuda.synchronize()
             print(json.dumps({"case": case, "name": name,
                               "bit_identical_repeat": all(map(torch.equal, first, second)),
+                              "bit_identical_vs_current": all(map(torch.equal, first, ref)),
                               "max_rel_diff_vs_current": {
                                   k: float((o - r).abs().max() / r.abs().max())
                                   for k, o, r in zip(outputs, first, ref)}}), flush=True)

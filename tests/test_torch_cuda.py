@@ -63,11 +63,13 @@ def _inputs(b, tc, hop, seed=0):
     return exc, film_c
 
 
-@pytest.mark.parametrize("b,tc,hop", [(2, 6, 16), (1, 37, 128), (2, 5, 10), (1, 3, 1), (3, 1, 64)])
+@pytest.mark.parametrize("b,tc,hop", [(2, 6, 16), (1, 37, 128), (2, 5, 10), (1, 3, 1), (3, 1, 64),
+                                      (3, 1, 3)])
 def test_kernel_matches_plain(cuda, params, b, tc, hop):
     """Kernel vs plain version on the same CUDA tensors, rtol=1e-4,
     atol=1e-5 (the JAX suite's kernel-vs-chain tolerance); odd Tc and
-    hops the TPU gate refused included. One launch per call."""
+    hops the TPU gate refused included, and 3-sample clips, where a
+    thread's group of 4 samples straddles two clips. One launch per call."""
     exc, film_c = (t.to(cuda) for t in _inputs(b, tc, hop))
     w = _shaper(params, cuda)
     before = nf.film_shaper_cr.launches
@@ -79,7 +81,7 @@ def test_kernel_matches_plain(cuda, params, b, tc, hop):
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("tc,hop", [(6, 16), (37, 128), (5, 5)])
+@pytest.mark.parametrize("tc,hop", [(6, 16), (37, 128), (5, 5), (1, 3)])
 def test_kernel_film_interpolation_bit_exact(cuda, params, tc, hop):
     """With gamma_out = 0 the kernel's output is its in-register beta_out
     lerp (0*y + beta_out is exact), which must equal linear_upsample —
@@ -665,10 +667,11 @@ def _x_inputs(b, tc, hop, h=101, seed=0):
 # (B, Tc, hop, H). The backward's lanes are samples of a segment, 32 at a
 # time, one segment per block: hops across a multiple of 32 (partial lane
 # groups), odd B*Tc, H = 2, 101 and 128, and 300 segments, more than the
-# blocks resident on an H100 (132).
+# blocks resident on an H100 (132). The forward's threads hold groups of 4
+# consecutive samples: 3-sample clips make groups straddle two clips.
 _X_SHAPES = [(2, 6, 16, 101), (1, 37, 128, 101), (2, 5, 64, 2), (3, 1, 64, 128), (1, 3, 1, 101),
              (2, 5, 31, 101), (2, 5, 33, 128), (1, 9, 100, 2), (3, 7, 129, 101), (1, 4, 300, 128),
-             (2, 150, 33, 101)]
+             (2, 150, 33, 101), (3, 1, 3, 101)]
 
 
 def _x_call(kind, fn_xcr, fn_xfull, phase, f0, off, film_c, w, bias, w_out, shaper, hop, *extra):
@@ -695,6 +698,21 @@ def test_x_kernel_matches_plain(cuda, params, kind, b, tc, hop, h):
     torch.cuda.synchronize()
     assert counter.launches == before + 1
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,tc,hop", [(2, 6, 16), (1, 37, 128), (3, 1, 3)])
+def test_x_kernel_film_interpolation_bit_exact(cuda, params, b, tc, hop):
+    """With gamma_out = 0 the xcr kernel's output is its in-register
+    beta_out lerp (0*y + beta_out is exact), which must equal
+    linear_upsample on the CPU bit for bit, as kernel 1's does; also where
+    a group of 4 samples straddles two clips."""
+    phase, f0, off, film_c, w, bias, _ = _x_inputs(b, tc, hop, seed=tc + hop)
+    film_c[..., 128:192] = 0.0
+    args = tuple(t.to(cuda) for t in (phase, f0, off, film_c, w, bias))
+    with torch.inference_mode():
+        out = _x_call("xcr", nf.bank_film_shaper_xcr, None, *args, None, _shaper(params, cuda), hop)
+    ref = linear_upsample(film_c, tc * hop)[..., 192:]
+    assert torch.equal(out.cpu(), ref)
 
 
 def test_xfull_matches_xcr_and_the_output_mix(cuda, params):

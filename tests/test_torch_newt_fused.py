@@ -184,6 +184,38 @@ def test_exciter_fused_backward_grid_is_one_block_per_segment(monkeypatch, b, tc
     assert launched[0][13:18] == (b, tc * hop, tc, h, blocks)  # B, Ta, Tc, H, blocks
 
 
+@pytest.mark.parametrize("b,tc,hop,blocks", [
+    (8, 512, 128, 264),  # a batch-8 render on an H100, two blocks per SM: every block strides
+    (2, 8, 16, 11),  # 256 samples, 24 a block pass
+    (1, 37, 5, 8),  # 185 samples: a ragged last pass
+    (3, 1, 3, 1),  # 9 samples, groups across clips: one block
+])
+def test_exciter_fused_forward_grid_is_one_block_per_pass(monkeypatch, b, tc, hop, blocks):
+    """The exciter-fused forward's launcher: one block per pass of 24
+    samples (six 64-thread groups of 4 consecutive samples), capped at the
+    blocks resident at once (264 here), so no block is launched without a
+    group. The library is a stand-in that records the grid it is handed."""
+    launched = []
+
+    class Lib:
+        def newt_fused_x_forward(self, *args):
+            launched.append(args)
+            return 0
+
+    monkeypatch.setattr(nf, "_lib", lambda *a, **k: Lib())
+    monkeypatch.setattr(nf, "_resident_blocks", lambda lib, query, device: 264)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: types.SimpleNamespace(cuda_stream=0))
+    h = 101
+    phase = torch.zeros(b, tc * hop)
+    out = nf._launch_forward_x(phase, phase.clone(), torch.zeros(h), torch.zeros(b, tc, 256),
+                               torch.zeros(h, 64), torch.zeros(64), torch.zeros(170, 64), None, h,
+                               16000.0, hop)
+    assert len(launched) == 1 and out.shape == (b, tc * hop, 64)
+    # B*Ta, Ta, Tc, hop, H, blocks
+    assert launched[0][9:15] == (b * tc * hop, tc * hop, tc, hop, h, blocks)
+
+
 @pytest.mark.parametrize(
     "case",
     ["dtype", "channels", "film_width", "batch", "hop", "contiguity", "weights", "device"],
