@@ -80,7 +80,9 @@ exits non-zero:
    on the (table, x) the FastNEWT path hands it, caught by a hook on the
    launch in a 4-s ``timbre_transfer`` and in a batch-8 x 4-s FastNEWT
    render, then on made-up x beyond both table edges, the exact grid
-   points, S = 256 and a row count that is not a multiple of the block;
+   points, S = 256, a row count that is not a multiple of a block's 16
+   rows and a contiguous view at storage offset 1; each case reports the
+   kernel's path, which must be vec4 but for the view (scalar);
 11. timbre_transfer: the repo's 4-s 16-kHz wav and a 2-s 330-Hz tone
    written as a 44.1-kHz int16 stereo wav (so that the resampler and the
    downmix run), each through ``timbre_transfer`` with and without FastNEWT
@@ -111,8 +113,10 @@ exits non-zero:
    1e-4, atol 1e-5) on the inputs the path hands it (caught by wrapping
    its launch): ``full_lane`` renders at batch 1 and 8 x 4 s, the CLI's
    first step, the ``"full_lane_cr"`` fallback at Ta=130, Tc=4; then
-   made-up odd B*Ta and a ragged last block; and kernel 1 on the batch-8
-   render's control-rate FiLM against it (rtol 1e-5, atol 2e-6);
+   made-up odd B*Ta and a ragged last block, each reporting whether it is
+   bit-identical to the plain version; and kernel 1 on the batch-8 render's
+   control-rate FiLM against it (rtol 1e-5, atol 2e-6, with its bit
+   identity);
 16. kernel_fl_bwd: the audio-rate backward against autograd through the
    plain version (rtol 1e-3, atol 1e-3 * max|plain|) on the CLI step's
    inputs and made-up shapes (odd B*Ta, a ragged last 32-sample chunk,
@@ -809,7 +813,8 @@ def check_fl(label, exc, film_a, packed):
     out, ref = out.cpu().numpy(), ref.cpu().numpy()
     err = float(np.max(np.abs(out - ref)))
     emit({"phase": "kernel_fl", "name": "film_shaper_fused_fl", "case": label, "B": exc.shape[0],
-          "Ta": exc.shape[1], "max_abs_err": err, "rtol": RTOL, "atol": ATOL})
+          "Ta": exc.shape[1], "max_abs_err": err, "rtol": RTOL, "atol": ATOL,
+          "bit_identical": bool(np.array_equal(out, ref))})
     np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL, err_msg=label)
     return err
 
@@ -1077,18 +1082,24 @@ def timbre_inputs(tmp: Path):
             "tone_44k_stereo": (tone_pcm, sr_tone, ControlAdjustments(octave_shift=1, loudness_scale=2.0))}
 
 
-def check_lookup(label, table, x):
-    """Lookup kernel vs plain on the same CUDA tensors -> max abs error."""
+def check_lookup(label, table, x, expected_path):
+    """Lookup kernel vs plain on the same CUDA tensors, and the kernel's
+    path (``fast_newt._lookup_path``) against the one expected -> max abs
+    error."""
     with torch.inference_mode():
         out = fast_newt._launch(table, x)
         ref = fast_newt.fast_newt_lookup_plain(table, x)
     torch.cuda.synchronize()
+    path = fast_newt._lookup_path(x, out)
     err = float((out - ref).abs().max())
     n_diff = int((out != ref).sum())
     emit({"phase": "kernel_fast_newt", "name": "fast_newt_lookup_pallas", "case": label,
-          "x_shape": list(x.shape), "S": table.shape[0], "max_abs_err": err,
-          "elements_not_bit_exact": n_diff, "elements": x.numel(), "rtol": 0.0, "atol": 1e-6})
+          "x_shape": list(x.shape), "S": table.shape[0], "x_offset_bytes": x.data_ptr() % 16, "path": path,
+          "expected_path": expected_path, "max_abs_err": err, "elements_not_bit_exact": n_diff,
+          "elements": x.numel(), "rtol": 0.0, "atol": 1e-6})
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-6, err_msg=label)
+    if path != expected_path:
+        raise RuntimeError(f"{label}: the lookup took the {path} path, expected {expected_path}")
     return err
 
 
@@ -1113,13 +1124,19 @@ def timbre_phases(dev, synth, cpu_synth):
         cases.append(("render_b8_4s", *caught_lookups(render_b8)[0]))
     rng = np.random.default_rng(7)
     for label, s, shape in (("beyond_edges", 4096, (2, 4000, 64)), ("grid_points", 4096, (1, 64, 64)),
-                            ("s256", 256, (2, 1000, 64)), ("ragged_rows", 4096, (3, 333, 64))):
+                            ("s256", 256, (2, 1000, 64)), ("ragged_rows", 4096, (3, 333, 64)),
+                            ("offset1_view", 4096, (2, 1000, 64))):
         x = rng.uniform(-4, 4, shape).astype(np.float32)
         if label == "grid_points":
             x = (np.float32(-3) + np.arange(64 * 64, dtype=np.float32) * np.float32(6 / 4096)).reshape(shape)
         t = table if s == 4096 else torch.from_numpy(rng.standard_normal((s, 64)).astype(np.float32)).to(dev)
-        cases.append((label, t, torch.from_numpy(x).to(dev)))
-    max_err = max(check_lookup(label, t, x) for label, t, x in cases)
+        x = torch.from_numpy(x).to(dev)
+        if label == "offset1_view":  # contiguous, 4 B past 16-B alignment: the scalar path
+            x = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+        cases.append((label, t, x))
+    # the main path's inputs (the first two) must take the vec4 path
+    max_err = max(check_lookup(label, t, x, "scalar" if label == "offset1_view" else "vec4")
+                  for label, t, x in cases)
     timed_table, timed_x = cases[1][1], cases[1][2]
     del cases
 

@@ -6,15 +6,17 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..streaming.synth import StreamState
 
 _FLOAT32 = ("gru_h", "phase_offset", "prev_f0", "prev_film", "noise_prev", "noise_ola",
             "reverb_tail")
 
 
-def stream_state_from_jax(state, device="cpu") -> StreamState:
+def stream_state_from_jax(state, device="cuda") -> StreamState:
     """A JAX ``StreamState`` (its NamedTuple, or a mapping of its field
-    names to numpy arrays) -> the port's :class:`StreamState` on ``device``.
+    names to numpy arrays) -> the port's :class:`StreamState` on ``device``
+    (the card unless ``device="cpu"``; raises without a card).
 
     The re/im float pairs of the reverb delay line become complex64, the
     phase carry becomes float64 (the port carries it so), and the JAX
@@ -22,7 +24,7 @@ def stream_state_from_jax(state, device="cpu") -> StreamState:
     ``device`` seeded with 0, as ``StreamingSynth.init_state`` makes (swap
     in another with ``state._replace(generator=g)``)."""
     fields = state if isinstance(state, Mapping) else state._asdict()
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def tensor(name, dtype=np.float32):
         return torch.from_numpy(np.array(fields[name], dtype=dtype)).to(dev)

@@ -59,7 +59,7 @@
 //    Each sample of a group takes its own frame pair and division, also in a
 //    group that straddles two segments or two clips.
 //  * The polynomial sine: see newt_shaper.cuh. shaper_n takes every sample
-//    through newt::shaper's operations in its order, so a sample's bits do
+//    through the same operations in the same order, so a sample's bits do
 //    not depend on its slot in a group. The ragged last group (B*Ta not a
 //    multiple of kS) computes its missing samples from zeros and stores
 //    nothing for them.

@@ -13,7 +13,7 @@
 //   x   = gamma_in * exciter + beta_in, gamma_in = film[s, c] and beta_in =
 //         film[s, 64 + c];
 //   y   = the per-channel 1 -> 8 -> 8 -> 8 -> 1 sine MLP of
-//         newt_shaper.cuh;
+//         newt_shaper.cuh (shaper_n);
 //   out = gamma_out * y + beta_out, film[s, 128 + c] and film[s, 192 + c].
 //
 // What bounds it on an H100: arithmetic. Per (sample, channel) it does 25
@@ -21,20 +21,36 @@
 // counting an FMA as two, against 24 bytes moved (exciter, four FiLM
 // floats, output): ~31 operations per byte against a ridge of ~20, so FP32
 // ALU throughput bounds it, with memory not far behind (at B=8, Ta=65536:
-// 0.372 ms of operations, 0.240 ms of bytes).
+// 0.372 ms of operations, 0.240 ms of bytes). In practice the instruction
+// issue rate binds first: the sines' range reductions and the integer and
+// address work around the FMAs take issue slots too.
 //
 // What the design does about it: kernel 1's (newt_fused_cr.cu), with the
-// FiLM read per sample instead of interpolated. One thread per (sample,
-// channel), channels fastest, so a warp's exciter, FiLM and output accesses
-// are 128-byte coalesced; the nine weight planes (43.5 KB) sit in shared
-// memory, staged once per block; blocks stride over the samples (grid =
-// what fits on the card at once). Not yet done (later work): reusing each
-// shared-memory weight read for several samples, packed f32x2 FMA.
+// FiLM read per sample instead of lerped. A thread owns channel c and kS = 4
+// consecutive samples of the flat (B*Ta) index (a group); lanes are
+// channels, so each sample's exciter, four FiLM and output accesses of a
+// warp are 128-byte coalesced. newt::film_shaper_fl_n reads the group's
+// FiLM and runs newt::shaper_n, which reads each weight once for the
+// group's four samples from the channel-major rows in shared memory (kLd =
+// 172 floats a channel; 43 conflict-free ld.shared.v4 per group). Those
+// volatile loads stay in the loop, where plain loads let the compiler hoist
+// all 170 weights into 203 registers and fit one 8-warp block per SM;
+// __launch_bounds__(256, 3) holds three 256-thread blocks per SM at 80
+// registers. A grid of what fits on the card at once strides over the
+// groups, so each block stages the weights once. Loading the next group's
+// exciter and FiLM before shaping this one, streaming loads and 2 samples a
+// thread measured no faster in turns (scripts/torch_fl_lookup_variants.py,
+// PERF.md §6). Not yet done: packed f32x2 FMA, fewer instructions in the
+// sines' range reductions.
 //
 // Exactness, as kernel 1: no --use_fast_math, rintf for the range
-// reduction (newt_shaper.cuh). Fed linear_upsample of a control-rate FiLM,
-// it computes what kernel 1 computes from that FiLM. Samples are counted
-// in 32-bit ints (the wrapper refuses B*Ta > 2^30), offsets in 64-bit.
+// reduction (newt_shaper.cuh). Every sample takes film_shaper_cr_n's
+// operations in its order, so fed linear_upsample of a control-rate FiLM
+// it computes kernel 1's bits from that FiLM. The ragged last group (B*Ta
+// not a multiple of kS) computes its missing samples from zeros and stores
+// nothing for them; groups may straddle clips. Samples are counted in
+// 32-bit ints (the wrapper refuses B*Ta > 2^30, so the strided index cannot
+// overflow), offsets in 64-bit.
 #include <cuda_runtime.h>
 
 #include "newt_shaper.cuh"
@@ -42,28 +58,34 @@
 namespace {
 
 using newt::kC;
-using newt::kRows;
 
-constexpr int kThreads = 256;  // 4 samples x 64 channels per block pass
-constexpr int kSamplesPerPass = kThreads / kC;
+constexpr int kThreads = 256;
+constexpr int kGroupsPerPass = kThreads / kC;  // 4 groups of kS samples per block pass
+constexpr int kS = 4;                          // samples per thread (a group)
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 film_shaper_fl_kernel(const float* __restrict__ exciter,
                       const float* __restrict__ film,
                       const float* __restrict__ weights,
                       float* __restrict__ out, int n_samples) {
-  __shared__ float sw[kRows * kC];
-  newt::stage_weights(sw, weights, kThreads);
+  __shared__ __align__(16) float sw[kC * newt::kLd];
+  newt::stage_weight_rows(sw, weights, kThreads);
   __syncthreads();
 
   const int c = threadIdx.x % kC;
-  const int stride = gridDim.x * kSamplesPerPass;
-  for (int s = blockIdx.x * kSamplesPerPass + threadIdx.x / kC; s < n_samples;
-       s += stride) {
-    const long long e = static_cast<long long>(s) * kC + c;
-    const float* f = film + static_cast<long long>(s) * (4 * kC) + c;
-    const float y = newt::shaper(f[0] * exciter[e] + f[kC], sw, c);
-    out[e] = f[2 * kC] * y + f[3 * kC];
+  const int n_groups = (n_samples + kS - 1) / kS;
+  const int stride = gridDim.x * kGroupsPerPass;
+
+  for (int g = blockIdx.x * kGroupsPerPass + threadIdx.x / kC; g < n_groups; g += stride) {
+    const int s0 = g * kS;
+    float x[kS], y[kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i)
+      x[i] = s0 + i < n_samples ? exciter[static_cast<long long>(s0 + i) * kC + c] : 0.0f;
+    newt::film_shaper_fl_n<kS>(x, film, s0, n_samples, sw, c, y);
+#pragma unroll
+    for (int i = 0; i < kS; ++i)
+      if (s0 + i < n_samples) out[static_cast<long long>(s0 + i) * kC + c] = y[i];
   }
 }
 
@@ -84,8 +106,8 @@ extern "C" int newt_fused_fl_forward(const float* exciter, const float* film,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, film_shaper_fl_kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long needed =
-      (static_cast<long long>(n_samples) + kSamplesPerPass - 1) / kSamplesPerPass;
+  const long long n_groups = (static_cast<long long>(n_samples) + kS - 1) / kS;
+  const long long needed = (n_groups + kGroupsPerPass - 1) / kGroupsPerPass;
   const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(needed < resident ? needed : resident);
   film_shaper_fl_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -1,18 +1,17 @@
-// The learned sine-shaper bank of one (sample, channel), float32, as the
-// audio-rate forward newt_fused_fl.cu runs it once it has its four FiLM
-// values in registers (shaper); the same for S samples of one channel, each
-// weight read once for all S, from a channel-major copy of the weights that
-// the lane-sum backwards read too (shaper_n, newt_fused_stream.cu); and the
-// control-rate chain around it that newt_fused_cr.cu (offline FiLM upsample)
-// and newt_fused_x.cu (exciter-fused) share: the FiLM lerp of one sample
-// (film_at) and of a group of S consecutive samples, FiLM, shaper_n, FiLM
-// (film_shaper_cr_n).
+// The learned sine-shaper bank of the forwards, float32: shaper_n runs S
+// samples of one channel, each weight read once for all S, from a
+// channel-major copy of the weights that the lane-sum backwards read too
+// (kernel 3, newt_fused_stream.cu, calls it directly); around it the group
+// routines of the fused forwards, FiLM -> shaper_n -> FiLM over S consecutive
+// flat samples: film_shaper_cr_n with the control-rate FiLM lerped per sample
+// (film_at; newt_fused_cr.cu, kernel 1, and newt_fused_x.cu, kernel 7) and
+// film_shaper_fl_n with the audio-rate FiLM read per sample (newt_fused_fl.cu,
+// kernel 5).
 //
-// The weights are the packed (170, 64) planes of kernels/newt_fused.py
-// pack_weights, channel fastest (the JAX pack_weights layout), staged in
-// shared memory by the kernel: scale, w1 (8), b1 (8), w2 (64, row u*8+v),
-// b2 (8), w3 (64), b3 (8), w4 (8), b4 (1). A warp's reads of one row hit 32
-// distinct banks.
+// The kernels take the packed (170, 64) planes of kernels/newt_fused.py
+// pack_weights, channel fastest (the JAX pack_weights layout): scale, w1 (8),
+// b1 (8), w2 (64, row u*8+v), b2 (8), w3 (64), b3 (8), w4 (8), b4 (1), and
+// stage them once per block into the channel-major rows (stage_weight_rows).
 //
 // The polynomial sine reduces with rintf (round half to even, like
 // jnp.round / torch.round; roundf would round half away from zero) and runs
@@ -95,41 +94,6 @@ __device__ __forceinline__ void film_at(const float* clip, int m, int o, int hop
   for (int a = 0; a < 4; ++a) film[a] = lerp_exact(fl[a * kC], fr[a * kC], w, omw);
 }
 
-// Copies the (kRows, kC) weight planes into shared memory; the caller
-// synchronises the block afterwards.
-__device__ __forceinline__ void stage_weights(float* sw, const float* __restrict__ weights,
-                                              int n_threads) {
-  for (int i = threadIdx.x; i < kRows * kC; i += n_threads) sw[i] = weights[i];
-}
-
-// x = gamma_in * exciter + beta_in -> the 1 -> 8 -> 8 -> 8 -> 1 sine MLP of
-// channel c (input scale first, a polynomial sine after every layer).
-__device__ __forceinline__ float shaper(float x, const float* sw, int c) {
-  const float h0 = x * sw[kScale * kC + c];
-  float h1[kW], h2[kW];
-#pragma unroll
-  for (int v = 0; v < kW; ++v)
-    h1[v] = psin(h0 * sw[(kW1 + v) * kC + c] + sw[(kB1 + v) * kC + c]);
-#pragma unroll
-  for (int v = 0; v < kW; ++v) {
-    float acc = h1[0] * sw[(kW2 + v) * kC + c];
-#pragma unroll
-    for (int u = 1; u < kW; ++u) acc += h1[u] * sw[(kW2 + u * kW + v) * kC + c];
-    h2[v] = psin(acc + sw[(kB2 + v) * kC + c]);
-  }
-#pragma unroll
-  for (int v = 0; v < kW; ++v) {
-    float acc = h2[0] * sw[(kW3 + v) * kC + c];
-#pragma unroll
-    for (int u = 1; u < kW; ++u) acc += h2[u] * sw[(kW3 + u * kW + v) * kC + c];
-    h1[v] = psin(acc + sw[(kB3 + v) * kC + c]);  // h1 now holds layer 3
-  }
-  float acc = h1[0] * sw[kW4 * kC + c];
-#pragma unroll
-  for (int u = 1; u < kW; ++u) acc += h1[u] * sw[(kW4 + u) * kC + c];
-  return psin(acc + sw[kB4 * kC + c]);
-}
-
 // The channel-major copy of the weights that shaper_n reads, and the
 // lane-sum backwards (newt_lanes_bwd.cuh) too: in shared memory, one row of
 // the 170 weights per channel, padded to kLd = 172 floats (16-B aligned), in
@@ -149,7 +113,7 @@ constexpr int kPW1 = 160;  // w1 (8)
 constexpr int kPScale = 168;
 constexpr int kPB4 = 169;
 
-// position in a channel's row of packed plane row k (newt_shaper.cuh order)
+// position in a channel's row of packed plane row k (pack_weights order)
 __device__ __forceinline__ int row_pos(int k) {
   if (k == newt::kScale) return kPScale;
   if (k < newt::kB1) return kPW1 + (k - newt::kW1);
@@ -200,7 +164,7 @@ __device__ __forceinline__ void stage_weight_rows(float* sw, const float* __rest
 // One 8 -> 8 sine layer for S samples: o[v] = psin(sum_u h[u] w(u, v) + b[v]),
 // the weights from channel rows at shared addresses w_addr (w(u, v) at u*8+v)
 // and b_addr. u runs outermost, so each weight row w(u, 0..7) is two 16-B
-// loads, and each sum still runs over u = 0..7 in shaper's order.
+// loads, and each sum still runs over u = 0..7 in order.
 template <int S>
 __device__ __forceinline__ void sine_layer_n(const float (&h)[kW][S], unsigned w_addr,
                                              unsigned b_addr, float (&o)[kW][S]) {
@@ -225,12 +189,14 @@ __device__ __forceinline__ void sine_layer_n(const float (&h)[kW][S], unsigned w
     for (int i = 0; i < S; ++i) o[v][i] = psin(o[v][i] + w[v]);
 }
 
-// shaper for S samples of channel c at once: y[i] = shaper(x[i], ...), with
-// the weights in the channel-major rows at sw (stage_weight_rows). Each
-// weight is read from shared memory once for all S samples (43 ld.shared.v4
-// per S samples), and the S samples' layers interleave, so a thread runs S
-// independent chains. Every sample takes shaper's operations in shaper's
-// order, the same for each i, so a sample's bits do not depend on its slot.
+// The 1 -> 8 -> 8 -> 8 -> 1 sine MLP of channel c for S samples at once
+// (input scale first, a polynomial sine after every layer, each sum over
+// its inputs in order), with the weights in the channel-major rows at sw
+// (stage_weight_rows). Each weight is read from shared memory once for all S
+// samples (43 ld.shared.v4 per S samples), and the S samples' layers
+// interleave, so a thread runs S independent chains. Every sample takes the
+// same operations in the same order, so a sample's bits do not depend on its
+// slot in a group, nor on S.
 template <int S>
 __device__ __forceinline__ void shaper_n(const float (&x)[S], const float* sw, int c,
                                          float (&y)[S]) {
@@ -259,7 +225,7 @@ __device__ __forceinline__ void shaper_n(const float (&x)[S], const float* sw, i
 
 // The control-rate chain of S consecutive samples s0 .. s0+S-1 of the flat
 // (B, Ta) sample index and channel c, a thread's group in kernels 1 and 7:
-// y[i] = gamma_out * shaper(gamma_in * exc[i] + beta_in) + beta_out, the
+// y[i] = gamma_out * shaper_n(gamma_in * exc[i] + beta_in) + beta_out, the
 // FiLM at sample s0+i from the (B, tc, 4*kC) control-rate `film` (film_at),
 // the shaper shaper_n's, on the channel-major rows at sw. The clip, frame and
 // in-frame offset are divided out once (s0 < n_samples) and stepped from
@@ -293,6 +259,37 @@ __device__ __forceinline__ void film_shaper_cr_n(const float (&exc)[S], const fl
         m = 0;
         clip += static_cast<long long>(tc) * (4 * kC);
       }
+    }
+  }
+  shaper_n<S>(x, sw, c, y);
+#pragma unroll
+  for (int i = 0; i < S; ++i) y[i] = g_out[i] * y[i] + b_out[i];
+}
+
+// The audio-rate chain of S consecutive samples s0 .. s0+S-1 of the flat
+// (B*Ta) sample index and channel c, a thread's group in kernel 5: as
+// film_shaper_cr_n, with each sample's four FiLM values read from the
+// (B*Ta, 4*kC) audio-rate `film` (gamma_in, beta_in, gamma_out, beta_out at
+// film[s, a*kC + c]; lanes are channels, so each of a warp's loads is 128
+// bytes) instead of lerped, in film_shaper_cr_n's expressions and order, so
+// that fed linear_upsample of a control-rate FiLM it gives
+// film_shaper_cr_n's bits. The audio-rate FiLM has no clip structure, so a
+// group that straddles two clips needs nothing more. Samples at or past
+// n_samples run on zeros and read nothing; the caller stores nothing for
+// them.
+template <int S>
+__device__ __forceinline__ void film_shaper_fl_n(const float (&exc)[S], const float* film, int s0,
+                                                 int n_samples, const float* sw, int c,
+                                                 float (&y)[S]) {
+  float x[S], g_out[S], b_out[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    x[i] = g_out[i] = b_out[i] = 0.0f;
+    if (s0 + i < n_samples) {
+      const float* f = film + static_cast<long long>(s0 + i) * (4 * kC) + c;
+      x[i] = f[0] * exc[i] + f[kC];
+      g_out[i] = f[2 * kC];
+      b_out[i] = f[3 * kC];
     }
   }
   shaper_n<S>(x, sw, c, y);

@@ -21,7 +21,10 @@ reference's, for the bake and the lookup alike.
 * :func:`fast_newt_lookup` is the wrapper: a CPU tensor goes to the plain
   version, a CUDA tensor launches ``csrc/fast_newt_lookup.cu`` or raises
   (there is no fallback). ``fast_newt_lookup.launches`` counts the
-  launches. Forward only, as in JAX.
+  launches. Forward only, as in JAX;
+* :func:`_lookup_path` chooses the kernel's path for a launch: ``"vec4"``
+  (16-B accesses of 4 channels) or ``"scalar"`` (one channel a thread),
+  both branches of the one kernel, bit for bit the same.
 """
 import ctypes
 
@@ -31,6 +34,7 @@ from . import _build
 
 TABLE_MIN, TABLE_MAX = -3.0, 3.0
 SPAN = TABLE_MAX - TABLE_MIN  # a Python float, rounded once to float32 where used, as in JAX
+_MAX_ROWS = 1 << 31  # rows N and table entries S*C: the kernel's 32-bit indices
 
 
 def fast_newt_lookup_plain(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -58,12 +62,26 @@ def _check(table: torch.Tensor, x: torch.Tensor) -> None:
     if x.device.type != "cuda" or table.device != x.device:
         raise ValueError(f"the kernel takes both tensors on one CUDA device: "
                          f"table on {table.device}, x on {x.device}")
-    if table.dim() != 2 or table.shape[0] < 2:
-        raise ValueError(f"table must be (S >= 2, C), got {tuple(table.shape)}")
+    if table.dim() != 2 or table.shape[0] < 2 or table.shape[1] < 1:
+        raise ValueError(f"table must be (S >= 2, C >= 1), got {tuple(table.shape)}")
     if x.dim() < 1 or x.shape[-1] != table.shape[1]:
         raise ValueError(f"x must be (..., {table.shape[1]}), got {tuple(x.shape)}")
     if table.shape[0] >= 1 << 24:
         raise ValueError("S must stay below 2^24, where float32 indices are exact")
+    n_rows = x.numel() // x.shape[-1]
+    if n_rows >= _MAX_ROWS or table.numel() >= _MAX_ROWS:
+        raise ValueError(f"the kernel indexes rows and table entries in 32 bits: need N and "
+                         f"S*C below {_MAX_ROWS}, got N = {n_rows}, S*C = {table.numel()}")
+
+
+def _lookup_path(x: torch.Tensor, out: torch.Tensor) -> str:
+    """The kernel's path for this launch: ``"vec4"`` where C is a multiple
+    of 4 and x and out start on 16 bytes (a thread then moves 4 channels by
+    one 16-B load and one 16-B store), else ``"scalar"`` (C = 5, or a view
+    at an odd storage offset). The table is gathered 4 bytes at a time on
+    either path, so its alignment does not matter."""
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    return "vec4" if x.shape[-1] % 4 == 0 and aligned else "scalar"
 
 
 def _launch(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -72,16 +90,17 @@ def _launch(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     s, c = table.shape
     with torch.cuda.device(x.device):
         lib = _build.load("fast_newt_lookup")
-        fn = lib.fast_newt_lookup_forward
+        fn = lib.fast_newt_lookup_rows
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), table.data_ptr(), out.data_ptr(), x.numel(), s, c,
+        vec4 = _lookup_path(x, out) == "vec4"
+        err = fn(x.data_ptr(), table.data_ptr(), out.data_ptr(), x.numel() // c, s, c, int(vec4),
                  TABLE_MIN, SPAN, stream)
     if err != 0:
-        raise RuntimeError(f"fast_newt_lookup_forward did not launch: CUDA error {err}")
+        raise RuntimeError(f"fast_newt_lookup_rows did not launch: CUDA error {err}")
     fast_newt_lookup.launches += 1
     return out
 

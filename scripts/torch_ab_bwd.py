@@ -4,15 +4,18 @@ the card: kernel 2 (``kernels/csrc/newt_fused_cr_bwd.cu``, the default
 training backward), kernel 6 (``newt_fused_fl_bwd.cu``, the audio-rate
 backward), kernel 8 (``newt_fused_x_bwd.cu``, the exciter-fused backward,
 xcr and xfull), kernel 3 (``newt_fused_stream.cu``, the streaming forward),
-kernel 1 (``newt_fused_cr.cu``, the control-rate forward) or kernel 7
-(``newt_fused_x.cu``, the exciter-fused forwards, xcr and xfull).
+kernel 1 (``newt_fused_cr.cu``, the control-rate forward), kernel 7
+(``newt_fused_x.cu``, the exciter-fused forwards, xcr and xfull), kernel 5
+(``newt_fused_fl.cu``, the audio-rate forward) or kernel 4
+(``fast_newt_lookup.cu``, the FastNEWT lookup).
 
-    python3 scripts/torch_ab_bwd.py --kernel cr|fl|x|stream|cr_fwd|x_fwd OTHER.cu [OTHER.cu ...] [--iters 30]
+    python3 scripts/torch_ab_bwd.py --kernel cr|fl|x|stream|cr_fwd|x_fwd|fl_fwd|lookup OTHER.cu [...] [--iters 30]
 
 Builds the checkout's kernel and each OTHER source (nvcc with the port's
 flags and ``-I kernels/csrc``, into ``build/ab_bwd/``) and prints, for each,
 ptxas's report and the SASS opcode counts (cuobjdump) of each kernel
-function (kernels 7 and 8 have two: xcr and xfull): the whole function, the
+function (kernels 7 and 8 have two: xcr and xfull; kernel 4 its vec4 and
+scalar paths): the whole function, the
 innermost loop that holds every shuffle (in the lane-sum design, one
 channel's pass over 32 samples; in kernel 7's xfull, a group's pass) or,
 without shuffles, the longest loop (the forwards' pass over a group of
@@ -20,13 +23,20 @@ samples) and a summary of every loop. Then, on seeded random inputs with the
 run120k_cr shaper, at a training step's shape (B=8, Tc=500, hop 128; H=101
 for kernel 8; for kernel 6 the ``full_lane`` step's B=8, Ta=64000), for the
 stream kernel at 256 streams of 1024-sample buffers (B=256, K=8, hop 128),
-and for kernels 1 and 7 at a batch-8 render's (B=8, Tc=512, hop 128; H=101),
-for each case (cr; fl; xcr and xfull; stream; cr_fwd; or xcr and xfull) it
-checks that two calls of each source give the same bits, gives each one's
-largest difference from the checkout's kernel relative to the latter's
-largest value per output, and times all of them in turns (a, b, ..., ...,
-b, a) by CUDA-event medians of ``--iters`` calls. One JSON line each, with
-the card's name and power limit. Without a card it exits non-zero.
+for kernels 1 and 7 at a batch-8 render's (B=8, Tc=512, hop 128; H=101),
+for kernel 5 at a batch-8 ``full_lane`` render's (B=8, Ta=65536), and for
+kernel 4 on the (4096, 64) table and the x of a batch-8 x 4-s FastNEWT
+render of the run120k_cr checkpoint (caught at the launch), on x uniform in
+[-4, 4] of that shape, and on the render's x as a view at storage offset 1
+(the scalar path), for each case (cr; fl; xcr and xfull; stream; cr_fwd;
+xcr and xfull; fl_fwd; render_b8_4s, uniform and offset1) it checks that two
+calls of each source give the same bits, gives each one's largest
+difference from the checkout's kernel relative to the latter's largest
+value per output, and times all of them in turns (a, b, ..., ..., b, a) by
+CUDA-event medians of ``--iters`` calls; for kernel 4 also PyTorch's copy
+of x into a new tensor, the same bytes moved with no lookup. One JSON line
+each, with the card's name and power limit. Without a card it exits
+non-zero.
 """
 import argparse
 import collections
@@ -45,7 +55,8 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
 from neural_waveshaping_synthesis_tpu_torch.convert import load_checkpoint  # noqa: E402
-from neural_waveshaping_synthesis_tpu_torch.kernels import _build  # noqa: E402
+from neural_waveshaping_synthesis_tpu_torch.inference import Synthesizer  # noqa: E402
+from neural_waveshaping_synthesis_tpu_torch.kernels import _build, fast_newt  # noqa: E402
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf  # noqa: E402
 
 OUT = _build.BUILD_DIR / "ab_bwd"
@@ -304,6 +315,85 @@ def x_fwd_inputs(rng, dev, packed):
     return x_inputs(rng, dev, packed, tc=FWD_TC, backward=False)
 
 
+def fl_fwd_launcher(lib: Path):
+    """-> {"fl_fwd": fn}: a function of kernel 5's inputs (exciter, film_a,
+    packed) -> (out,), launching the library at ``lib`` through kernel 5's
+    C interface (the library sizes its own grid)."""
+    dll = ctypes.CDLL(str(lib))
+    fn = _fn(dll, "newt_fused_fl_forward", [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+
+    def launch(exc, film_a, packed):
+        out = torch.empty_like(exc)
+        err = fn(exc.data_ptr(), film_a.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                 exc.shape[0] * exc.shape[1], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{lib.name} did not launch: CUDA error {err}")
+        return (out,)
+    return {"fl_fwd": launch}
+
+
+def fl_fwd_inputs(rng, dev, packed):
+    """As ``chip_smoke.py``'s made-up audio-rate cases (a 0.5-scaled
+    exciter, a normal audio-rate FiLM) at a batch-8 render's shape."""
+    exc = (rng.standard_normal((B, FWD_TC * HOP, 64)) * 0.5).astype(np.float32)
+    film_a = rng.standard_normal((B, FWD_TC * HOP, 256)).astype(np.float32)
+    exc, film_a = (torch.from_numpy(a).to(dev) for a in (exc, film_a))
+    return (exc, film_a, packed), ("out",)
+
+
+LOOKUP_CASES = ("render_b8_4s", "uniform", "offset1")
+
+
+def lookup_launcher(lib: Path):
+    """-> {case: fn}: a function of kernel 4's inputs (table, x) -> (out,),
+    launching the library at ``lib`` through kernel 4's C interface: the
+    row count and the path of ``fast_newt._lookup_path``
+    (``fast_newt_lookup_rows``), or an earlier source's element count
+    (``fast_newt_lookup_forward``)."""
+    dll = ctypes.CDLL(str(lib))
+    rows = hasattr(dll, "fast_newt_lookup_rows")
+    if rows:
+        fn = _fn(dll, "fast_newt_lookup_rows",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    else:
+        fn = _fn(dll, "fast_newt_lookup_forward", [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+
+    def launch(table, x):
+        out = torch.empty_like(x)
+        s, c = table.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        if rows:
+            vec4 = int(fast_newt._lookup_path(x, out) == "vec4")
+            err = fn(x.data_ptr(), table.data_ptr(), out.data_ptr(), x.numel() // c, s, c, vec4,
+                     fast_newt.TABLE_MIN, fast_newt.SPAN, stream)
+        else:
+            err = fn(x.data_ptr(), table.data_ptr(), out.data_ptr(), x.numel(), s, c,
+                     fast_newt.TABLE_MIN, fast_newt.SPAN, stream)
+        if err:
+            raise RuntimeError(f"{lib.name} did not launch: CUDA error {err}")
+        return (out,)
+    return {case: launch for case in LOOKUP_CASES}
+
+
+def lookup_inputs(rng, dev, packed):
+    """{case: (table, x)}: the run120k_cr checkpoint's baked (4096, 64)
+    table and the x its batch-8 x 4-s FastNEWT render hands the kernel, x
+    uniform in [-4, 4] of that shape, and the render's x copied into a view
+    at storage offset 1 (4 B past 16-B alignment: the scalar path)."""
+    synth = Synthesizer.from_checkpoint(cs.CKPT, device="cuda")
+    f0_b, ctrl_b, _ = synth.prepare(cs.make_requests([4] * B, 6))
+    f0_t, ctrl_t = torch.from_numpy(f0_b).to(dev), torch.from_numpy(ctrl_b).to(dev)
+    with torch.inference_mode():
+        table = synth.model.newt.bake_lookup_table()
+        table, x = cs.caught_lookups(lambda: synth.model(
+            f0_t, ctrl_t, generator=torch.Generator().manual_seed(0), lookup_table=table))[0]
+    uniform = torch.from_numpy(rng.uniform(-4, 4, tuple(x.shape)).astype(np.float32)).to(dev)
+    offset1 = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    offset1.copy_(x)
+    return {"render_b8_4s": (table, x), "uniform": (table, uniform), "offset1": (table, offset1)}, ("out",)
+
+
 # --kernel -> (source, SASS function-name mark, launcher, inputs, shape printed)
 KERNELS = {"cr": ("newt_fused_cr_bwd.cu", "bwd_kernel", cr_launcher, cr_inputs,
                   {"B": B, "Tc": TC, "hop": HOP}),
@@ -315,7 +405,11 @@ KERNELS = {"cr": ("newt_fused_cr_bwd.cu", "bwd_kernel", cr_launcher, cr_inputs,
            "cr_fwd": ("newt_fused_cr.cu", "film_shaper_cr_kernel", cr_fwd_launcher, cr_fwd_inputs,
                       {"B": B, "Tc": FWD_TC, "hop": HOP}),
            "x_fwd": ("newt_fused_x.cu", "bank_film_shaper_x_kernel", x_fwd_launcher, x_fwd_inputs,
-                     {"B": B, "Tc": FWD_TC, "hop": HOP, "H": H})}
+                     {"B": B, "Tc": FWD_TC, "hop": HOP, "H": H}),
+           "fl_fwd": ("newt_fused_fl.cu", "film_shaper_fl_kernel", fl_fwd_launcher, fl_fwd_inputs,
+                      {"B": B, "Ta": FWD_TC * HOP}),
+           "lookup": ("fast_newt_lookup.cu", "fast_newt_lookup", lookup_launcher, lookup_inputs,
+                      {"B": B, "Ta": FWD_TC * HOP, "C": 64, "S": 4096})}
 
 
 def sass_counts(lib: Path, mark: str) -> dict:
@@ -384,8 +478,9 @@ def main() -> int:
     packed = nf.pack_weights({"input_scale": shaper["input_scale"].to(dev),
                               "layers": [{k: v.to(dev) for k, v in layer.items()}
                                          for layer in shaper["layers"]]})
-    inputs, outputs = make_inputs(np.random.default_rng(0), dev, packed)
+    made, outputs = make_inputs(np.random.default_rng(0), dev, packed)
     for case in launch["current"]:
+        inputs = made[case] if isinstance(made, dict) else made
         ref = launch["current"][case](*inputs)
         for name, fns in launch.items():
             first, second = fns[case](*inputs), fns[case](*inputs)
@@ -401,6 +496,10 @@ def main() -> int:
         for name in order:
             ms[name].append(cs.cuda_median_ms(lambda: launch[name][case](*inputs), n=args.iters))
         print(json.dumps({"card": smi, "case": case, **shape, "order": order, "ms": ms}), flush=True)
+        if args.kernel == "lookup":  # the bytes alone: PyTorch's copy of x into a new tensor
+            x = inputs[1]
+            copy_ms = cs.cuda_median_ms(lambda: torch.empty_like(x).copy_(x), n=args.iters)
+            print(json.dumps({"card": smi, "case": case, "copy_ms": copy_ms}), flush=True)
     return 0
 
 

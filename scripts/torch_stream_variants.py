@@ -181,7 +181,7 @@ __device__ __forceinline__ void shaper_n_scalar(const float (&x)[S], const float
 '''
 
 SCALAR_STAGE = """  __shared__ float sw[newt::kRows * kC];
-  newt::stage_weights(sw, weights, kThreads);
+  for (int i = threadIdx.x; i < newt::kRows * kC; i += kThreads) sw[i] = weights[i];
   __syncthreads();
 """
 OWN_STAGE = """  __shared__ __align__(16) float sw[kC * kPitch];

@@ -323,11 +323,13 @@ def _fl_inputs(b, ta, seed=0):
 _FL_SHAPES = [(2, 96), (1, 37), (3, 333), (1, 1), (2, 1025), (1, 31), (3, 47), (3, 1500)]
 
 
-@pytest.mark.parametrize("b,ta", _FL_SHAPES)
+@pytest.mark.parametrize("b,ta", _FL_SHAPES + [(8, 65536)])
 def test_fl_kernel_matches_plain(cuda, params, b, ta):
     """The audio-rate forward against its plain version on the same CUDA
-    tensors, rtol=1e-4, atol=1e-5; odd B*Ta (JAX needed it even) and
-    B*Ta not a multiple of the block included. One launch per call."""
+    tensors, rtol=1e-4, atol=1e-5; odd B*Ta (JAX needed it even), B*Ta
+    not a multiple of a thread's 4 samples, groups across clips, and at a
+    batch-8 render's (8, 65536) more groups of 4 samples than the card
+    holds threads at once. One launch per call."""
     exc, film_a = (t.to(cuda) for t in _fl_inputs(b, ta, seed=ta))
     w = _shaper(params, cuda)
     before = nf.film_shaper_fl.launches
@@ -584,6 +586,24 @@ def test_lookup_kernel_matches_plain_bit_for_bit(cuda, s, shape):
         ref = fast_newt.fast_newt_lookup_plain(table, x)
     torch.cuda.synchronize()
     assert fast_newt.fast_newt_lookup.launches == before + 1
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("shape,offset,path", [((2, 1000, 64), 1, "scalar"), ((3, 333, 64), 0, "vec4"),
+                                               ((1, 7, 5), 0, "scalar")])
+def test_lookup_kernel_paths_match_plain_bit_for_bit(cuda, shape, offset, path):
+    """Both paths of the one kernel against the plain version, torch.equal:
+    a contiguous C = 64 view at storage offset 1 (4 B past 16-B alignment)
+    takes the scalar path, 999 rows (not a multiple of a block pass's 16)
+    the vec4 path, C = 5 the scalar path."""
+    rng = np.random.default_rng(shape[1] + offset)
+    table = torch.from_numpy(rng.standard_normal((4096, shape[-1])).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.uniform(-4, 4, shape).astype(np.float32)).to(cuda)
+    x = torch.empty(x.numel() + offset, device=cuda)[offset:].view(shape).copy_(x)
+    assert fast_newt._lookup_path(x, torch.empty_like(x)) == path
+    with torch.inference_mode():
+        out = fast_newt.fast_newt_lookup(table, x)
+        ref = fast_newt.fast_newt_lookup_plain(table, x)
     assert torch.equal(out, ref)
 
 

@@ -267,7 +267,7 @@ def test_step_matches_jax_on_run120k_cr(shipped, k):
     b, n_buffers, hop = 2, 6, 128
     jstate = jss.init_state(jparams, b, jax.random.PRNGKey(k))
     fields = {n: np.asarray(v) for n, v in jstate._asdict().items() if n != "key"}
-    state = stream_state_from_jax(fields)
+    state = stream_state_from_jax(fields, device="cpu")
     jstep = jax.jit(jss.step)
     jspec = jss.ir_partition_spectra(jparams)
     spec = ss.ir_partition_spectra()

@@ -162,6 +162,17 @@ def test_lookup_kernel_wrapper_refuses_what_it_does_not_take():
         fast_newt.fast_newt_lookup(table.to("meta"), x)
 
 
+@pytest.mark.parametrize("c,offset,path", [(64, 0, "vec4"), (5, 0, "scalar"), (64, 1, "scalar")])
+def test_lookup_path_takes_vec4_only_on_aligned_quads_of_channels(c, offset, path):
+    """The lookup kernel's path, chosen from C and the data pointers: C = 64
+    on an aligned tensor gives vec4; C = 5 gives scalar; a C = 64
+    contiguous view at storage offset 1 (4 B past 16-B alignment) gives
+    scalar."""
+    x = torch.zeros(2 * 8 * c + offset)[offset:].view(2, 8, c)
+    assert x.is_contiguous()
+    assert fast_newt._lookup_path(x, torch.empty_like(x)) == path
+
+
 def _newt_inputs(tc, seed):
     rng = np.random.default_rng(seed)
     exciter = (rng.standard_normal((2, tc * 128, 64)) * 0.5).astype(np.float32)
