@@ -156,10 +156,43 @@ exits non-zero:
    checkpoint serves;
 23. timing_kernel_fused, timing_fused: the four kernels and their plain
    versions with bounds, and in turns (off, xcr, xfull, xfull, xcr, off) the
-   batch-1 and batch-8 x 4-s forward, the training step and its peak memory.
+   batch-1 and batch-8 x 4-s forward, the training step and its peak memory;
+24. kernel_bf16: mixed precision (``NeuralWaveshaping.compute_dtype =
+   'bfloat16'`` bound through gin). Kernel 1's bf16 instances, (bf16 exciter,
+   bf16 FiLM) and (bf16 exciter, float32 FiLM: ``NEWT.cr_film_f32``), against
+   the plain version within one bf16 ulp (rtol 2^-7, atol 1e-5), on the
+   inputs a bf16 ``Synthesizer``'s renders of phase 4's request sets and of
+   the timed batch 8 hand them (caught by wrapping the launch) and on the
+   odd_tc, hop_64 and straddle shapes; with gamma_out = 0 the output is
+   ``linear_upsample`` of the widened FiLM rounded to bf16, bit for bit;
+25. serve_bf16: the bf16 ``Synthesizer`` renders the batch and the single
+   request (one launch of the (bf16, bf16) instance each, none of the
+   float32 one), and with cr_film_f32 one request (the (bf16, f32)
+   instance); finite, not silent; from the same offsets and noise the card
+   within 1e-2 nRMS of the CPU and the bf16 render within 0.05 of the
+   float32 one, in float32;
+26. kernel_bwd_bf16: kernel 2's two bf16 instances against autograd through
+   the plain version on the inputs one bf16 ``Trainer`` step with
+   ``NEWT.fused = "full_lane_cr"`` hands them (without and with
+   cr_film_f32) and at hop 33: d_exciter and d_film one bf16 ulp beyond the
+   float32 bar (rtol 1e-3 + 2^-7, atol 1e-3 * max|plain|), d_planes at that
+   bar; two calls bit-identical;
+27. train_cli_bf16: ``scripts/torch_train.py --gin-file
+   gin/train/train_newt_bf16.gin`` for 20 steps as written (the chain: no
+   kernel launch), with ``-b "NEWT.fused = 'full_lane_cr'"`` (kernels 1 and
+   2 in their (bf16, bf16) instances only, counted) and with ``-b
+   "NEWT.cr_film_f32 = True"`` as well (the (bf16, f32) instances only);
+   finite losses;
+28. timing_kernel_bf16, timing_bf16_step: both kernels' bf16 instances beside
+   their float32 instance on the same shapes, in turns, with plain versions
+   and bounds (the bytes at the tensors' own sizes); the training step at
+   batch 8 x 4 s in float32 (full_lane_cr), bf16 with the chain and bf16 with
+   full_lane_cr, in turns (six medians of 20 each), with each arm's peak
+   memory.
 
-Then the kernels line (the numbers of phases 3-23 per kernel, with its
-least possible time on an H100 from its bytes and operations) and, last,
+Then the kernels line (the numbers of phases 3-28 per kernel, with its
+least possible time on an H100 from its bytes and operations; kernels 1 and
+2's bf16 instances as entries of their own) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN (the GRU), so the card computes in float32 like the CPU reference.
 """
@@ -266,6 +299,17 @@ X_MIX_FLOP_PER_HARMONIC = 2  # per element; twice that in the backward
 X_MASK_FLOP_PER_HARMONIC = 2  # per sample
 X_SINE_FLOP = 20  # per sample and unmasked harmonic
 KERNELS = list(_build.KERNELS)
+BF16 = torch.bfloat16
+BF16_RTOL = 2.0**-7  # one bf16 ulp, relative: 8 significant bits
+# nRMS, a bf16 render on the card vs the CPU: 1.07e-3 measured on the H100,
+# where the float32 render reads 3.5e-3 from the card's bf16 one, so a card
+# path that computed in float32 fails it
+BF16_CARD_VS_CPU = 2e-3
+BF16_VS_F32 = 0.05  # nRMS, a bf16 render vs the float32 one (JAX tests/test_model_golden.py)
+BF16_FLOOR = 1e-3  # nRMS, and at least this far from it: the render computed in bf16
+# kernel 1 and 2's bf16 instances: the counters' suffix -> the name's suffix in
+# the kernels line ((bf16 exciter, bf16 FiLM) and (bf16 exciter, f32 FiLM))
+BF16_INSTANCES = {"bf16": "[bf16]", "bf16_f32": "[bf16, f32 film]"}
 
 
 def emit(obj):
@@ -1029,6 +1073,8 @@ def audio_rate_phases(dev, synth, root, tmp):
 
 def reset_counts():
     nf.film_shaper_cr.launches = nf.film_shaper_cr.bwd_launches = 0
+    nf.film_shaper_cr.launches_bf16 = nf.film_shaper_cr.bwd_launches_bf16 = 0
+    nf.film_shaper_cr.launches_bf16_f32 = nf.film_shaper_cr.bwd_launches_bf16_f32 = 0
     nf.film_shaper_fl.launches = nf.film_shaper_fl.bwd_launches = 0
     nf.film_shaper_stream.launches = fast_newt.fast_newt_lookup.launches = 0
     nf.bank_film_shaper_xcr.launches = nf.bank_film_shaper_xcr.bwd_launches = 0
@@ -1040,7 +1086,10 @@ def counts():
             "fl": nf.film_shaper_fl.launches, "fl_bwd": nf.film_shaper_fl.bwd_launches,
             "stream": nf.film_shaper_stream.launches, "lookup": fast_newt.fast_newt_lookup.launches,
             "xcr": nf.bank_film_shaper_xcr.launches, "xcr_bwd": nf.bank_film_shaper_xcr.bwd_launches,
-            "xfull": nf.bank_newt_xfull.launches, "xfull_bwd": nf.bank_newt_xfull.bwd_launches}
+            "xfull": nf.bank_newt_xfull.launches, "xfull_bwd": nf.bank_newt_xfull.bwd_launches,
+            "cr_bf16": nf.film_shaper_cr.launches_bf16, "bwd_bf16": nf.film_shaper_cr.bwd_launches_bf16,
+            "cr_bf16_f32": nf.film_shaper_cr.launches_bf16_f32,
+            "bwd_bf16_f32": nf.film_shaper_cr.bwd_launches_bf16_f32}
 
 
 def caught_lookups(fn):
@@ -1658,6 +1707,301 @@ def exciter_fused_phases(dev, synth, root, tmp, batch_requests, single_requests)
     return {"launches": launches, "fwd_err": fwd_err, "bwd_err": bwd_err, "numbers": numbers}
 
 
+def cr_bytes(exc, film_c, planes, backward=False):
+    """The bytes kernel 1 (or 2) must move, at the tensors' own element sizes:
+    exciter in and out (and dy in), the FiLM in (and d_film out), the float32
+    planes in (and d_planes out). bf16 halves the exciter, dy and outputs."""
+    e = exc.numel() * exc.element_size()
+    f = film_c.numel() * film_c.element_size()
+    w = planes.numel() * planes.element_size()
+    return 3 * e + 2 * f + 2 * w if backward else 2 * e + f + w
+
+
+def instance_of(exc, film_c):
+    return "f32" if exc.dtype == torch.float32 else ("bf16" if film_c.dtype == BF16 else "bf16_f32")
+
+
+def check_bf16_forward(label, exc, film_c, packed):
+    """Kernel 1's bf16 instance vs its plain version (float32 between bf16
+    load and store) within one bf16 ulp, and with gamma_out = 0 its output
+    against linear_upsample of the widened FiLM rounded to bf16, bit for bit
+    -> max abs error."""
+    b, ta, _ = exc.shape
+    hop = ta // film_c.shape[1]
+    with torch.inference_mode():
+        out = nf._launch_forward(exc, film_c, packed, hop)
+        ref = nf.film_shaper_cr_plain(exc, film_c, nf.unpack_weight_grads(packed), hop)
+        film_z = film_c.clone()
+        film_z[..., 128:192] = 0.0
+        lerp = nf._launch_forward(exc, film_z, packed, hop).cpu()
+    torch.cuda.synchronize()
+    expect = linear_upsample(film_z.float().cpu(), ta)[..., 192:].to(BF16)
+    o, r = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    err = float(np.max(np.abs(o - r)))
+    n_lerp = int((lerp != expect).sum())
+    emit({"phase": "kernel_bf16", "name": "film_shaper_fused_cr", "io": instance_of(exc, film_c),
+          "case": label, "B": b, "Tc": film_c.shape[1], "hop": hop, "max_abs_err": err,
+          "elements_not_bit_identical": int((o != r).sum()), "elements": int(o.size),
+          "rtol": BF16_RTOL, "atol": ATOL, "film_lerp_elements_not_bit_exact": n_lerp})
+    if out.dtype != BF16:
+        raise RuntimeError(f"{label}: the bf16 instance returned {out.dtype}")
+    np.testing.assert_allclose(o, r, rtol=BF16_RTOL, atol=ATOL, err_msg=label)
+    if n_lerp:
+        raise RuntimeError(f"{label}: the bf16 instance's FiLM lerp is not bit-exact")
+    return err
+
+
+def check_bf16_backward(label, exc, film_c, planes, dy, hop):
+    """Kernel 2's bf16 instance vs autograd through the plain version:
+    d_exciter and d_film one bf16 ulp beyond the float32 gradient bar (rtol
+    1e-3 + 2^-7, atol 1e-3 * max|plain|), d_planes (float32) at that bar;
+    two calls bit-identical -> max abs error."""
+    out = nf._launch_backward(exc, film_c, planes, dy, hop)
+    again = nf._launch_backward(exc, film_c, planes, dy, hop)
+    ref = nf.film_shaper_cr_grad_plain(exc, film_c, nf.unpack_weight_grads(planes), hop, dy)
+    torch.cuda.synchronize()
+    bit_identical = all(torch.equal(a, b) for a, b in zip(out, again))
+    errs = {}
+    for name, o, r, rtol in zip(("d_exciter", "d_film_c", "d_planes"), out, ref,
+                                (BWD_RTOL + BF16_RTOL, BWD_RTOL + BF16_RTOL, BWD_RTOL)):
+        if o.dtype != r.dtype:
+            raise RuntimeError(f"{label} {name}: {o.dtype}, the plain version's {r.dtype}")
+        o, r = o.float().cpu().numpy(), r.float().cpu().numpy()
+        errs[name] = (float(np.max(np.abs(o - r))), float(np.max(np.abs(r))))
+        np.testing.assert_allclose(o, r, rtol=rtol, atol=BWD_RTOL * errs[name][1],
+                                   err_msg=f"{label} {name}")
+    emit({"phase": "kernel_bwd_bf16", "name": "_fused_bwd_cr", "io": instance_of(exc, film_c),
+          "case": label, "B": exc.shape[0], "Tc": film_c.shape[1], "hop": hop,
+          "dtypes": [str(t.dtype) for t in out],
+          "max_abs_err": {k: v[0] for k, v in errs.items()},
+          "max_abs_plain": {k: v[1] for k, v in errs.items()},
+          "rtol": {"d_exciter": BWD_RTOL + BF16_RTOL, "d_film_c": BWD_RTOL + BF16_RTOL,
+                   "d_planes": BWD_RTOL},
+          "bit_identical_repeat": bit_identical})
+    if not bit_identical:
+        raise RuntimeError(f"{label}: two bf16 backward calls gave different bits")
+    return max(v[0] for v in errs.values())
+
+
+def in_turns(fns, order):
+    """CUDA-event medians of ``fns[k]`` for k in ``order`` (each arm timed
+    where it stands in the order) -> {k: [ms, ...]}."""
+    out = {}
+    for k in order:
+        out.setdefault(k, []).append(cuda_median_ms(fns[k]))
+    return out
+
+
+def mixed_precision_phases(dev, root, tmp):
+    """Phases 24-28 (mixed precision: the model's compute_dtype = "bfloat16"
+    and kernels 1 and 2's bf16 instances) -> the four instances' numbers."""
+    synth16 = synth_with({"compute_dtype": "bfloat16"})
+    synth32 = Synthesizer.from_checkpoint(CKPT, device="cuda")
+    newt = synth16.model.newt
+    with torch.no_grad():
+        packed = newt._packed_shaper(BF16)
+    batch_requests, single_requests = make_requests([2, 4, 4, 7], seed=1), make_requests([4], seed=2)
+    timed = make_requests([4] * 8, 6)
+
+    # 24. kernel 1's bf16 instances on the inputs a bf16 Synthesizer's render
+    # hands them (caught by wrapping the launch), with the FiLM in bf16 and,
+    # with cr_film_f32, in float32; then made-up shapes
+    cases, fwd_err = [], {"bf16": 0.0, "bf16_f32": 0.0}
+    timed_inputs = {}
+    for film_f32 in (False, True):
+        newt.cr_film_f32 = film_f32
+        for label, requests in (("serve_batch", batch_requests), ("serve_single", single_requests),
+                                ("timed_batch8", timed)):
+            (exc, film_c, _, _), = caught_launches(
+                "_launch_forward", lambda: synth16.render(requests, seed=0))
+            cases.append((label, exc, film_c))
+            if label == "timed_batch8":
+                timed_inputs[instance_of(exc, film_c)] = (exc, film_c)
+    newt.cr_film_f32 = False
+    for label, b, tc, hop in (("odd_tc", 1, 37, HOP), ("hop_64", 2, 500, 64), ("straddle", 3, 1, 3)):
+        exc, film_c = made_up_kernel_inputs(b, tc, hop, 20 + tc, dev)
+        cases += [(label, exc.to(BF16), film_c.to(BF16)), (label, exc.to(BF16), film_c)]
+    for label, exc, film_c in cases:
+        key = instance_of(exc, film_c)
+        fwd_err[key] = max(fwd_err[key], check_bf16_forward(label, exc, film_c, packed))
+    del cases
+    torch.cuda.empty_cache()
+
+    # 25. serve through the entry point a user calls: each render launches the
+    # bf16 instance (counts zeroed just before, read just after); one render
+    # with cr_film_f32; the card against the CPU and the bf16 render against
+    # the float32 one, from the same offsets and noise
+    reset_counts()
+    renders = [synth16.render(requests, seed=0) for requests in (batch_requests, single_requests)]
+    got = counts()
+    newt.cr_film_f32 = True
+    reset_counts()
+    renders.append(synth16.render(single_requests, seed=0))
+    got_f32_film = counts()
+    newt.cr_film_f32 = False
+    launches = {"cr_bf16": got["cr_bf16"], "cr_bf16_f32": got_f32_film["cr_bf16_f32"]}
+    if (got["cr_bf16"], got["cr"], got["cr_bf16_f32"]) != (2, 0, 0) or (
+            got_f32_film["cr_bf16_f32"], got_f32_film["cr"], got_f32_film["cr_bf16"]) != (1, 0, 0):
+        raise RuntimeError(f"bf16 serve launches {got}, with cr_film_f32 {got_f32_film}")
+    for audio in renders:
+        for a in audio:
+            if not np.all(np.isfinite(a)) or np.sqrt(np.mean(a**2)) < 1e-4:
+                raise RuntimeError("a bf16 render is not finite or silent")
+    f0_b, ctrl_b, _ = synth16.prepare(make_requests([2], seed=3))
+    rng = np.random.default_rng(4)
+    offset = rng.uniform(-np.pi, np.pi, 101).astype(np.float32)
+    noise = rng.uniform(0, 1, f0_b.shape[1] * HOP - 1).astype(np.float32)
+    outs = {}
+    for label, s in (("card_bf16", synth16), ("cpu_bf16", synth_with({"compute_dtype": "bfloat16"}, "cpu")),
+                     ("card_f32", synth32)):
+        with torch.inference_mode():
+            y = s.model(torch.from_numpy(f0_b).to(s.device), torch.from_numpy(ctrl_b).to(s.device),
+                        phase_offset=torch.from_numpy(offset).to(s.device),
+                        noise=torch.from_numpy(noise).to(s.device))
+        outs[label] = y.cpu().numpy()
+    card_vs_cpu = nrms(outs["card_bf16"], outs["cpu_bf16"])
+    vs_f32 = nrms(outs["card_bf16"], outs["card_f32"])
+    emit({"phase": "serve_bf16", "requests_s": [2, 4, 4, 7, 4, 4], "launches": got,
+          "launches_cr_film_f32": got_f32_film, "output_dtype": str(outs["card_bf16"].dtype),
+          "rms": [float(np.sqrt(np.mean(a**2))) for au in renders for a in au],
+          "nrms_card_vs_cpu": card_vs_cpu, "bar_card_vs_cpu": BF16_CARD_VS_CPU,
+          "nrms_bf16_vs_f32": vs_f32, "bar_bf16_vs_f32": BF16_VS_F32, "floor_bf16_vs_f32": BF16_FLOOR})
+    if outs["card_bf16"].dtype != np.float32:
+        raise RuntimeError("the bf16 model does not return float32")
+    if not card_vs_cpu <= BF16_CARD_VS_CPU or not BF16_FLOOR < vs_f32 < BF16_VS_F32:
+        raise RuntimeError(f"bf16 render: card vs CPU {card_vs_cpu}, bf16 vs f32 {vs_f32}")
+    del renders
+
+    # 26. kernel 2's bf16 instances on the inputs one bf16 training step with
+    # NEWT.fused = "full_lane_cr" hands them (without and with cr_film_f32),
+    # then a hop whose last 32-sample lane group is partial
+    dm = GeneralDataModule(root, batch_size=8)
+    batch = dm.dataset("train").batch(np.arange(8))
+    bwd_inputs, bwd_err = {}, {"bf16": 0.0, "bf16_f32": 0.0}
+    for film_f32 in (False, True):
+        model = NeuralWaveshaping(generator=torch.Generator().manual_seed(0), compute_dtype="bfloat16")
+        model.newt.fused, model.newt.cr_film_f32 = "full_lane_cr", film_f32
+        trainer = Trainer(model, TrainConfig(), device="cuda")
+        (exc, film_c, planes, dy, hop), = caught_launches(
+            "_launch_backward", lambda: trainer.train_step(batch), first=1)
+        key = instance_of(exc, film_c)
+        bwd_inputs[key] = (exc, film_c, planes, dy, hop)
+        bwd_err[key] = max(bwd_err[key], check_bf16_backward("train_step_b8_4s", exc, film_c, planes, dy, hop))
+        e, f = made_up_kernel_inputs(2, 40, 33, 30 + film_f32, dev)
+        g = torch.randn(e.shape, generator=torch.Generator().manual_seed(31)).to(dev, BF16)
+        f = f if film_f32 else f.to(BF16)
+        bwd_err[key] = max(bwd_err[key], check_bf16_backward("hop_33", e.to(BF16), f, planes, g, 33))
+        del trainer, model
+    torch.cuda.empty_cache()
+
+    # 27. train through the CLI a user calls with the bf16 recipe as written
+    # (the chain), with NEWT.fused = 'full_lane_cr', and with cr_film_f32 as
+    # well: counts zeroed just before each run and read just after
+    cli = load_train_cli()
+    val_batches = len(list(dm.val_batches()))
+    n_fwd = CLI_STEPS + val_batches * (CLI_STEPS // CLI_VAL_EVERY)
+    zero = {k: 0 for k in ("cr", "bwd", "fl", "fl_bwd", "xcr", "xcr_bwd", "xfull", "xfull_bwd",
+                           "cr_bf16", "bwd_bf16", "cr_bf16_f32", "bwd_bf16_f32")}
+    runs = {"recipe": ([], zero),
+            "full_lane_cr": (["-b", "NEWT.fused = 'full_lane_cr'"],
+                             {**zero, "cr_bf16": n_fwd, "bwd_bf16": CLI_STEPS}),
+            "full_lane_cr_film_f32": (["-b", "NEWT.fused = 'full_lane_cr'", "-b", "NEWT.cr_film_f32 = True"],
+                                      {**zero, "cr_bf16_f32": n_fwd, "bwd_bf16_f32": CLI_STEPS})}
+    for label, (extra, expect) in runs.items():
+        args = ["--gin-file", "gin/train/train_newt_bf16.gin", "--dataset-path", root, "--device", "cuda",
+                "--checkpoint-dir", str(tmp / f"cli_{label}_ckpt"), "--log-dir", str(tmp / f"cli_{label}_logs"),
+                "-b", f"TrainConfig.max_steps = {CLI_STEPS}",
+                "-b", f"TrainConfig.val_every_n_steps = {CLI_VAL_EVERY}",
+                "-b", "TrainConfig.log_every_n_steps = 5", *extra]
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            first = caught_launches("_launch_forward", lambda: cli.main(args), first=1)
+            torch.cuda.synchronize()
+        finally:
+            gin.clear_config()
+        cli_s = time.perf_counter() - t0
+        got = counts()
+        with open(tmp / f"cli_{label}_logs" / "metrics.csv") as f:
+            table = list(csv.DictReader(f))
+        losses = [float(r["train/loss"]) for r in table if r["train/loss"]]
+        val = [float(r["val/loss"]) for r in table if r["val/loss"]]
+        emit({"phase": "train_cli_bf16", "run": label, "steps": CLI_STEPS, "seconds": cli_s,
+              "launches": got, "expected_launches": expect,
+              "first_launch_io": instance_of(*first[0][:2]) if first else None,
+              "train_loss_windows": losses, "val_loss": val})
+        if any(got[k] != v for k, v in expect.items()):
+            raise RuntimeError(f"train_cli_bf16 {label}: launches {got}, expected {expect}")
+        if not losses or not val or not np.all(np.isfinite(losses + val)):
+            raise RuntimeError(f"train_cli_bf16 {label}: the losses are not finite")
+        for k in ("cr_bf16", "bwd_bf16", "cr_bf16_f32", "bwd_bf16_f32"):
+            launches[k] = launches.get(k, 0) + got[k]
+
+    # 28. timing: both kernels' bf16 instances beside their float32 instance
+    # on the same shapes (the float32 copies of the same inputs), in turns,
+    # with their plain versions and bounds; the training step (batch 8 x 4 s)
+    # in float32 (full_lane_cr), in bf16 with the recipe's chain and with
+    # full_lane_cr, in turns, with each arm's peak memory
+    order = ["f32", "bf16", "bf16_f32", "bf16_f32", "bf16", "f32"]
+    exc, film_c = timed_inputs["bf16"]
+    hop = exc.shape[1] // film_c.shape[1]
+    fwd_in = {"f32": (exc.float(), film_c.float()), "bf16": (exc, film_c),
+              "bf16_f32": timed_inputs["bf16_f32"]}
+    tree = nf.unpack_weight_grads(packed)
+    with torch.inference_mode():
+        fwd_ms = in_turns({k: (lambda e=e, f=f: nf._launch_forward(e, f, packed, hop))
+                           for k, (e, f) in fwd_in.items()}, order)
+        fwd_plain = {k: cuda_median_ms(lambda: nf.film_shaper_cr_plain(e, f, tree, hop))
+                     for k, (e, f) in fwd_in.items()}
+    e, f, planes, dy, bhop = bwd_inputs["bf16"]
+    bwd_in = {"f32": (e.float(), f.float(), planes, dy.float(), bhop), "bf16": bwd_inputs["bf16"],
+              "bf16_f32": bwd_inputs["bf16_f32"]}
+    bwd_ms = in_turns({k: (lambda a=a: nf._launch_backward(*a)) for k, a in bwd_in.items()}, order)
+    bwd_plain = {k: cuda_median_ms(lambda: nf.film_shaper_cr_grad_plain(
+        a[0], a[1], nf.unpack_weight_grads(a[2]), a[4], a[3])) for k, a in bwd_in.items()}
+    numbers = {}
+    for k in ("f32", "bf16", "bf16_f32"):
+        e, f = fwd_in[k]
+        fb = bound(e.numel() * CR_FLOP_PER_ELEMENT, cr_bytes(e, f, packed))
+        be, bf, bp, _, _ = bwd_in[k]
+        bb = bound(be.numel() * CR_BWD_FLOP_PER_ELEMENT, cr_bytes(be, bf, bp, backward=True))
+        numbers[k] = ((statistics.mean(fwd_ms[k]), fwd_plain[k], *fb),
+                      (statistics.mean(bwd_ms[k]), bwd_plain[k], *bb))
+    emit({"phase": "timing_kernel_bf16", "order": order, "fwd_shape": list(exc.shape), "hop": hop,
+          "bwd_shape": list(bwd_in["bf16"][0].shape), "fwd_kernel_ms": fwd_ms, "fwd_plain_ms": fwd_plain,
+          "bwd_kernel_ms": bwd_ms, "bwd_plain_ms": bwd_plain,
+          "fwd_bound_ms": {k: v[0][2] for k, v in numbers.items()},
+          "fwd_bound_by": {k: v[0][3] for k, v in numbers.items()},
+          "bwd_bound_ms": {k: v[1][2] for k, v in numbers.items()},
+          "bwd_bound_by": {k: v[1][3] for k, v in numbers.items()},
+          "fwd_bytes": {k: cr_bytes(*fwd_in[k], packed) for k in fwd_in},
+          "bwd_bytes": {k: cr_bytes(a[0], a[1], a[2], backward=True) for k, a in bwd_in.items()}})
+    del timed_inputs, fwd_in, bwd_in, bwd_inputs
+    torch.cuda.empty_cache()
+    arms = {"f32_full_lane_cr": ("float32", "full_lane_cr"), "bf16_chain": ("bfloat16", None),
+            "bf16_full_lane_cr": ("bfloat16", "full_lane_cr")}
+    trainers = {}
+    for arm, (cd, fused) in arms.items():
+        model = NeuralWaveshaping(generator=torch.Generator().manual_seed(0), compute_dtype=cd)
+        model.newt.fused = fused
+        trainers[arm] = Trainer(model, TrainConfig(), device="cuda")
+    step, peak = {}, {}
+    turns = ["f32_full_lane_cr", "bf16_chain", "bf16_full_lane_cr", "bf16_full_lane_cr", "bf16_chain",
+             "f32_full_lane_cr"] * 3
+    for arm in turns:
+        step.setdefault(arm, []).append(cuda_median_ms(lambda: trainers[arm].train_step(batch)))
+        torch.cuda.reset_peak_memory_stats()
+        trainers[arm].train_step(batch)
+        torch.cuda.synchronize()
+        peak.setdefault(arm, []).append(torch.cuda.max_memory_allocated())
+    emit({"phase": "timing_bf16_step", "batch": [8, int(batch["f0"].shape[1])], "order": turns, "step_ms": step,
+          "step_peak_mem_bytes": peak,
+          "x_realtime": {a: [32.0 / (t / 1e3) for t in v] for a, v in step.items()}})
+    del trainers
+    torch.cuda.empty_cache()
+    return {"launches": launches, "fwd_err": fwd_err, "bwd_err": bwd_err, "numbers": numbers}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1807,6 +2151,7 @@ def main() -> int:
         train = train_phases(dev, root, tmp)
         fl = audio_rate_phases(dev, synth, root, tmp)
         x = exciter_fused_phases(dev, synth, root, tmp, batch, single)
+        mp = mixed_precision_phases(dev, root, tmp)
 
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
@@ -1863,7 +2208,18 @@ def main() -> int:
         ("bank_film_shaper_fused_xcr", "newt_fused_x.cu", 1136, "xcr", 0),
         ("_fused_bwd_xcr", "newt_fused_x_bwd.cu", 1199, "xcr", 1),
         ("bank_newt_fused_xfull", "newt_fused_x.cu", 1383, "xfull", 0),
-        ("_fused_bwd_xfull", "newt_fused_x_bwd.cu", 1447, "xfull", 1))]})
+        ("_fused_bwd_xfull", "newt_fused_x_bwd.cu", 1447, "xfull", 1))] + [{
+        "name": name + BF16_INSTANCES[io], "route": "cuda",
+        "source": f"neural_waveshaping_synthesis_tpu_torch/kernels/csrc/{source}",
+        "replaces": f"neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:{line}",
+        "launches": mp["launches"][counter + "_" + io],
+        "max_abs_err": (mp["bwd_err"] if bwd else mp["fwd_err"])[io],
+        "ms": mp["numbers"][io][bwd][0], "plain_ms": mp["numbers"][io][bwd][1],
+        "bound_ms": mp["numbers"][io][bwd][2], "bound_by": mp["numbers"][io][bwd][3],
+        "library_ms": None,
+    } for name, source, line, counter, bwd in (
+        ("film_shaper_fused_cr", "newt_fused_cr.cu", 779, "cr", 0),
+        ("_fused_bwd_cr", "newt_fused_cr_bwd.cu", 822, "bwd", 1)) for io in BF16_INSTANCES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

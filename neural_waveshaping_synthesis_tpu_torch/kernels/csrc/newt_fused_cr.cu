@@ -1,4 +1,5 @@
-// Control-rate FiLM -> sine-shaper bank -> FiLM, forward, float32.
+// Control-rate FiLM -> sine-shaper bank -> FiLM, forward: float32 arithmetic
+// on float32 or bfloat16 I/O.
 //
 // Replaces the TPU kernel kernels/newt_fused.py:779 film_shaper_fused_cr
 // (Pallas: _fwd_kernel_cr, _interp_w_cr, _film_planes_cr, _forward_core,
@@ -66,6 +67,20 @@
 //  * Index arithmetic: samples are counted in 32-bit ints (the wrapper
 //    refuses B*Ta > 2^30, so the strided index cannot overflow), element
 //    and film offsets in 64-bit.
+//
+// Mixed precision (the model's compute_dtype = "bfloat16"): the kernel is a
+// template on TE, the type of the exciter and the output, and TF, the type
+// of the control-rate FiLM. Three instances: (float, float), (bf16, bf16)
+// and (bf16, float), the NEWT.cr_film_f32 call. A bf16 exciter sample and
+// FiLM frame are widened exactly to float32 as they are loaded (a plain
+// 2-byte load a lane: lanes are channels, so a warp's access is 64
+// coalesced bytes), the routine above runs unchanged in float32, and the
+// output is rounded once, to nearest even, as it is stored. The JAX kernel
+// rounds its FiLM planes and each shaper layer to bf16 instead; the port
+// keeps float32 between load and store (ROADMAP.md, deviations). The
+// weights stay the float32 (170, 64) planes: under bf16 the wrapper packs
+// exact float32 copies of the bf16-rounded shaper weights.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "newt_shaper.cuh"
@@ -78,11 +93,12 @@ constexpr int kThreads = 256;
 constexpr int kGroupsPerPass = kThreads / kC;  // 4 groups of kS samples per block pass
 constexpr int kS = 4;                          // samples per thread (a group)
 
+template <typename TE, typename TF>
 __global__ void __launch_bounds__(kThreads, 3)
-film_shaper_cr_kernel(const float* __restrict__ exciter,
-                      const float* __restrict__ film,
+film_shaper_cr_kernel(const TE* __restrict__ exciter,
+                      const TF* __restrict__ film,
                       const float* __restrict__ weights,
-                      float* __restrict__ out, int n_samples, int ta, int tc,
+                      TE* __restrict__ out, int n_samples, int ta, int tc,
                       int hop) {
   __shared__ __align__(16) float sw[kC * newt::kLd];
   newt::stage_weight_rows(sw, weights, kThreads);
@@ -97,23 +113,19 @@ film_shaper_cr_kernel(const float* __restrict__ exciter,
     float x[kS], y[kS];
 #pragma unroll
     for (int i = 0; i < kS; ++i)
-      x[i] = s0 + i < n_samples ? exciter[static_cast<long long>(s0 + i) * kC + c] : 0.0f;
+      x[i] = s0 + i < n_samples
+                 ? newt::load_f32(exciter + static_cast<long long>(s0 + i) * kC + c)
+                 : 0.0f;
     newt::film_shaper_cr_n<kS>(x, film, s0, n_samples, ta, tc, hop, sw, c, y);
 #pragma unroll
     for (int i = 0; i < kS; ++i)
-      if (s0 + i < n_samples) out[static_cast<long long>(s0 + i) * kC + c] = y[i];
+      if (s0 + i < n_samples) newt::store_as(out + static_cast<long long>(s0 + i) * kC + c, y[i]);
   }
 }
 
-}  // namespace
-
-// exciter (B, Ta, 64), film (B, Tc, 256) at control rate, weights (170, 64)
-// and out (B, Ta, 64): contiguous float32 on the current device, Ta = Tc*hop.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
-extern "C" int newt_fused_cr_forward(const float* exciter, const float* film,
-                                     const float* weights, float* out,
-                                     int n_samples, int ta, int tc, int hop,
-                                     void* stream) {
+template <typename TE, typename TF>
+int launch(const TE* exciter, const TF* film, const float* weights, TE* out, int n_samples,
+           int ta, int tc, int hop, void* stream) {
   if (n_samples <= 0) return 0;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -121,13 +133,41 @@ extern "C" int newt_fused_cr_forward(const float* exciter, const float* film,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, film_shaper_cr_kernel, kThreads, 0);
+        &per_sm, film_shaper_cr_kernel<TE, TF>, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_groups = (static_cast<long long>(n_samples) + kS - 1) / kS;
   const long long needed = (n_groups + kGroupsPerPass - 1) / kGroupsPerPass;
   const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(needed < resident ? needed : resident);
-  film_shaper_cr_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  film_shaper_cr_kernel<TE, TF><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       exciter, film, weights, out, n_samples, ta, tc, hop);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// exciter (B, Ta, 64), film (B, Tc, 256) at control rate, weights (170, 64)
+// and out (B, Ta, 64): contiguous on the current device, Ta = Tc*hop; the
+// weights float32, the others float32 here, and bfloat16 (the exciter and the
+// output; the FiLM too in _bf16, not in _bf16_f32) in the two instances
+// below. Launches on `stream` and returns cudaGetLastError() (0 = launched).
+extern "C" int newt_fused_cr_forward(const float* exciter, const float* film,
+                                     const float* weights, float* out,
+                                     int n_samples, int ta, int tc, int hop,
+                                     void* stream) {
+  return launch(exciter, film, weights, out, n_samples, ta, tc, hop, stream);
+}
+
+extern "C" int newt_fused_cr_forward_bf16(const __nv_bfloat16* exciter,
+                                          const __nv_bfloat16* film, const float* weights,
+                                          __nv_bfloat16* out, int n_samples, int ta, int tc,
+                                          int hop, void* stream) {
+  return launch(exciter, film, weights, out, n_samples, ta, tc, hop, stream);
+}
+
+extern "C" int newt_fused_cr_forward_bf16_f32(const __nv_bfloat16* exciter, const float* film,
+                                              const float* weights, __nv_bfloat16* out,
+                                              int n_samples, int ta, int tc, int hop,
+                                              void* stream) {
+  return launch(exciter, film, weights, out, n_samples, ta, tc, hop, stream);
 }

@@ -1,4 +1,5 @@
-// Control-rate FiLM -> sine-shaper bank -> FiLM, backward, float32.
+// Control-rate FiLM -> sine-shaper bank -> FiLM, backward: float32 arithmetic
+// on float32 or bfloat16 I/O.
 //
 // Replaces the TPU kernel kernels/newt_fused.py:822 _fused_bwd_cr (Pallas:
 // _bwd_kernel_cr, _bwd_core, _fold_dfilm_cr, _accumulate_wgrads, and
@@ -76,6 +77,17 @@
 // gradient's lerp weights are the same w and 1-w. The sums run in another
 // order than the plain version's, so d_planes and d_film differ from it by
 // rounding.
+//
+// Mixed precision: the kernel is a template on TE (exciter, dy, d_exciter)
+// and TF (FiLM, d_film), in the instances of newt_fused_cr.cu: (float,
+// float), (bf16, bf16) and (bf16, float). The tiles in shared memory, the
+// FiLM segment, the recompute and every sum stay float32: a bf16 exciter, dy
+// or FiLM frame is widened as it is loaded, d_exciter is rounded once as it
+// leaves its tile, and d_film once as the fold stores it (the FiLM partials
+// are float32 scratch). d_planes stays float32, as the JAX kernel keeps its
+// weight gradients ("f32 whatever the activation dtype"); the wrapper's
+// autograd rounds it to the shaper leaves' dtype.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "newt_lanes_bwd.cuh"
@@ -104,12 +116,13 @@ constexpr int kChanPerWarp = kC / kWarps;
 constexpr size_t kSmemBytes =
     static_cast<size_t>(2 * kC * kLd + 2 * kLanes * kTileLd + kC * kFilmSlots) * sizeof(float);
 
+template <typename TE, typename TF>
 __global__ void __launch_bounds__(kThreads, 2)
-film_shaper_cr_bwd_kernel(const float* __restrict__ exciter,
-                          const float* __restrict__ film,
+film_shaper_cr_bwd_kernel(const TE* __restrict__ exciter,
+                          const TF* __restrict__ film,
                           const float* __restrict__ weights,
-                          const float* __restrict__ dy,
-                          float* __restrict__ d_exciter,
+                          const TE* __restrict__ dy,
+                          TE* __restrict__ d_exciter,
                           float* __restrict__ film_part,
                           float* __restrict__ w_part, int n_seg, int tc,
                           int hop) {
@@ -137,17 +150,17 @@ film_shaper_cr_bwd_kernel(const float* __restrict__ exciter,
   for (int seg = blockIdx.x; seg < n_seg; seg += gridDim.x) {
     const int b = seg / tc;
     const int m = seg - b * tc;
-    const float* clip = film + static_cast<long long>(b) * tc * (4 * kC);
+    const TF* clip = film + static_cast<long long>(b) * tc * (4 * kC);
     for (int j = 0; j < n_chunk; ++j) {
       const int o0 = j * kLanes;
       const int n = min(kLanes, hop - o0) * kC;
       const long long base = (static_cast<long long>(seg) * hop + o0) * kC;
       for (int i = threadIdx.x; i < kLanes * kC; i += kThreads) {
         const int t = (i / kC) * kTileLd + i % kC;
-        if (i < pend_n) d_exciter[pend_base + i] = se[t];
+        if (i < pend_n) newt::store_as(d_exciter + pend_base + i, se[t]);
         if (i < n) {
-          se[t] = exciter[base + i];
-          sdy[t] = dy[base + i];
+          se[t] = newt::load_f32(exciter + base + i);
+          sdy[t] = newt::load_f32(dy + base + i);
         }
       }
       __syncthreads();
@@ -197,7 +210,7 @@ film_shaper_cr_bwd_kernel(const float* __restrict__ exciter,
   }
 
   for (int i = threadIdx.x; i < pend_n; i += kThreads)
-    d_exciter[pend_base + i] = se[(i / kC) * kTileLd + i % kC];
+    newt::store_as(d_exciter + pend_base + i, se[(i / kC) * kTileLd + i % kC]);
   float* out = w_part + static_cast<long long>(blockIdx.x) * kPlane;
   for (int i = threadIdx.x; i < kPlane; i += kThreads) {
     const int k = i / kC;
@@ -205,46 +218,27 @@ film_shaper_cr_bwd_kernel(const float* __restrict__ exciter,
   }
 }
 
-}  // namespace
-
-// The number of backward blocks resident on the current device at once
-// (SMs x blocks per SM); it also allows the kernel its dynamic shared
-// memory there, so call it once per device before the first launch. The
-// caller launches min(this, B*Tc) blocks (one control segment per block at
-// a time) and sizes the (blocks, 170, 64) weight partials with it. Returns
-// -(CUDA error) on failure.
-extern "C" int newt_fused_cr_backward_resident_blocks() {
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(film_shaper_cr_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemBytes));
+// Allows an instance its dynamic shared memory on the current device and
+// gives its resident blocks per SM.
+template <typename TE, typename TF>
+cudaError_t blocks_per_sm(int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(film_shaper_cr_bwd_kernel<TE, TF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemBytes));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, film_shaper_cr_bwd_kernel, kThreads, kSmemBytes);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (per_sm < 1) return -static_cast<int>(cudaErrorLaunchOutOfResources);
-  return sms * per_sm;
+        per_sm, film_shaper_cr_bwd_kernel<TE, TF>, kThreads, kSmemBytes);
+  return err;
 }
 
-// exciter, dy, d_exciter (B, Ta, 64); film, d_film (B, Tc, 256); weights,
-// d_planes (170, 64); scratch film_part (B*Tc, 3, 256) and w_part
-// (blocks, 170, 64), with blocks as newt_fused_cr_backward_resident_blocks
-// says: contiguous float32 on the current device, Ta = Tc*hop. Launches the three kernels
-// on `stream` and returns the first CUDA error (0 = launched).
-extern "C" int newt_fused_cr_backward(const float* exciter, const float* film,
-                                      const float* weights, const float* dy,
-                                      float* d_exciter, float* d_film,
-                                      float* d_planes, float* film_part,
-                                      float* w_part, int b, int ta, int tc,
-                                      int blocks, void* stream) {
+template <typename TE, typename TF>
+int launch(const TE* exciter, const TF* film, const float* weights, const TE* dy,
+           TE* d_exciter, TF* d_film, float* d_planes, float* film_part, float* w_part, int b,
+           int ta, int tc, int blocks, void* stream) {
   if (b <= 0 || tc <= 0 || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hop = ta / tc;
-  film_shaper_cr_bwd_kernel<<<blocks, kThreads, kSmemBytes, s>>>(
+  film_shaper_cr_bwd_kernel<TE, TF><<<blocks, kThreads, kSmemBytes, s>>>(
       exciter, film, weights, dy, d_exciter, film_part, w_part, b * tc, tc, hop);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -253,4 +247,64 @@ extern "C" int newt_fused_cr_backward(const float* exciter, const float* film,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(newt::fold_film(film_part, d_film, b, tc, s));
+}
+
+}  // namespace
+
+// The number of backward blocks resident on the current device at once
+// (SMs x blocks per SM, the least over the three instances); it also allows
+// every instance its dynamic shared memory there, so call it once per device
+// before the first launch. The caller launches min(this, B*Tc) blocks (one
+// control segment per block at a time) and sizes the (blocks, 170, 64)
+// weight partials with it. Returns -(CUDA error) on failure.
+extern "C" int newt_fused_cr_backward_resident_blocks() {
+  int device = 0, sms = 0, f32 = 0, bf16 = 0, mixed = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = blocks_per_sm<float, float>(&f32);
+  if (err == cudaSuccess) err = blocks_per_sm<__nv_bfloat16, __nv_bfloat16>(&bf16);
+  if (err == cudaSuccess) err = blocks_per_sm<__nv_bfloat16, float>(&mixed);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int per_sm = f32 < bf16 ? f32 : bf16;
+  if (mixed < per_sm) per_sm = mixed;
+  if (per_sm < 1) return -static_cast<int>(cudaErrorLaunchOutOfResources);
+  return sms * per_sm;
+}
+
+// exciter, dy, d_exciter (B, Ta, 64); film, d_film (B, Tc, 256); weights,
+// d_planes (170, 64); scratch film_part (B*Tc, 3, 256) and w_part
+// (blocks, 170, 64), with blocks as newt_fused_cr_backward_resident_blocks
+// says: contiguous on the current device, Ta = Tc*hop; float32 here, and in
+// the two instances below bfloat16 for exciter, dy and d_exciter (and film
+// and d_film in _bf16), the weights, d_planes and the scratch float32
+// always. Launches the three kernels on `stream` and returns the first CUDA
+// error (0 = launched).
+extern "C" int newt_fused_cr_backward(const float* exciter, const float* film,
+                                      const float* weights, const float* dy,
+                                      float* d_exciter, float* d_film,
+                                      float* d_planes, float* film_part,
+                                      float* w_part, int b, int ta, int tc,
+                                      int blocks, void* stream) {
+  return launch(exciter, film, weights, dy, d_exciter, d_film, d_planes, film_part, w_part, b,
+                ta, tc, blocks, stream);
+}
+
+extern "C" int newt_fused_cr_backward_bf16(const __nv_bfloat16* exciter,
+                                           const __nv_bfloat16* film, const float* weights,
+                                           const __nv_bfloat16* dy, __nv_bfloat16* d_exciter,
+                                           __nv_bfloat16* d_film, float* d_planes,
+                                           float* film_part, float* w_part, int b, int ta,
+                                           int tc, int blocks, void* stream) {
+  return launch(exciter, film, weights, dy, d_exciter, d_film, d_planes, film_part, w_part, b,
+                ta, tc, blocks, stream);
+}
+
+extern "C" int newt_fused_cr_backward_bf16_f32(const __nv_bfloat16* exciter, const float* film,
+                                               const float* weights, const __nv_bfloat16* dy,
+                                               __nv_bfloat16* d_exciter, float* d_film,
+                                               float* d_planes, float* film_part, float* w_part,
+                                               int b, int ta, int tc, int blocks, void* stream) {
+  return launch(exciter, film, weights, dy, d_exciter, d_film, d_planes, film_part, w_part, b,
+                ta, tc, blocks, stream);
 }

@@ -18,9 +18,23 @@
 // in f32 with the coefficients rounded to f32, as ops/fastmath.py. FMA
 // contraction of the reduction, the Horner chain and the MLP's sums is
 // allowed: the kernel-vs-plain tolerance (rtol 1e-4, atol 1e-5) absorbs it.
+//
+// The arithmetic is float32 whatever the I/O type: load_f32 widens a
+// bfloat16 exciter, FiLM or cotangent exactly on its way in, and store_as
+// rounds a result once, to nearest even, on its way out (kernels 1 and 2
+// take float32 or bfloat16 I/O; the others float32).
 #pragma once
 
+#include <cuda_bf16.h>
+
 namespace newt {
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 constexpr int kC = 64;  // channels (waveshapers)
 constexpr int kW = 8;   // shaper width
@@ -77,8 +91,9 @@ __device__ __forceinline__ float lerp_exact(float left, float right, float w,
 // (2o+1 +- hop) / (2*hop) (__fdiv_rn; the build does not use
 // --use_fast_math); the head clamp (the first half-hop copies frame 0) is a
 // lerp of weight 0 between two copies of frame 0, the tail clamp one between
-// two copies of the last.
-__device__ __forceinline__ void film_at(const float* clip, int m, int o, int hop, int tc, int c,
+// two copies of the last. A bfloat16 `clip` is widened before the lerp.
+template <typename TF>
+__device__ __forceinline__ void film_at(const TF* clip, int m, int o, int hop, int tc, int c,
                                         float film[4]) {
   const int two_o1 = 2 * o + 1;
   const bool lo = two_o1 < hop;
@@ -88,10 +103,11 @@ __device__ __forceinline__ void film_at(const float* clip, int m, int o, int hop
                       static_cast<float>(2 * hop));
   if (lo && m == 0) w = 0.0f;  // head clamp: frame 0 exactly
   const float omw = __fsub_rn(1.0f, w);
-  const float* fl = clip + static_cast<long long>(f_left) * (4 * kC) + c;
-  const float* fr = clip + static_cast<long long>(f_right) * (4 * kC) + c;
+  const TF* fl = clip + static_cast<long long>(f_left) * (4 * kC) + c;
+  const TF* fr = clip + static_cast<long long>(f_right) * (4 * kC) + c;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) film[a] = lerp_exact(fl[a * kC], fr[a * kC], w, omw);
+  for (int a = 0; a < 4; ++a)
+    film[a] = lerp_exact(load_f32(fl + a * kC), load_f32(fr + a * kC), w, omw);
 }
 
 // The channel-major copy of the weights that shaper_n reads, and the
@@ -232,16 +248,17 @@ __device__ __forceinline__ void shaper_n(const float (&x)[S], const float* sw, i
 // sample to sample, across a frame's and a clip's end too (a group may
 // straddle two clips: B*Ta need not be a multiple of S). Each sample keeps
 // film_at's own frame pair and division. Samples at or past n_samples run on
-// zeros; the caller stores nothing for them.
-template <int S>
-__device__ __forceinline__ void film_shaper_cr_n(const float (&exc)[S], const float* film, int s0,
+// zeros; the caller stores nothing for them. `film` is float32 or bfloat16
+// (kernel 1's instances); film_at widens it.
+template <int S, typename TF>
+__device__ __forceinline__ void film_shaper_cr_n(const float (&exc)[S], const TF* film, int s0,
                                                  int n_samples, int ta, int tc, int hop,
                                                  const float* sw, int c, float (&y)[S]) {
   const int b = s0 / ta;
   const int t = s0 - b * ta;
   int m = t / hop;
   int o = t - m * hop;
-  const float* clip = film + static_cast<long long>(b) * tc * (4 * kC);
+  const TF* clip = film + static_cast<long long>(b) * tc * (4 * kC);
   float x[S], g_out[S], b_out[S];
 #pragma unroll
   for (int i = 0; i < S; ++i) {

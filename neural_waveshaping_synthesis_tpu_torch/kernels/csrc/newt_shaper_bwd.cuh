@@ -66,7 +66,9 @@ struct FilmSegment {
   int m, hop;
   bool has_next;
 
-  __device__ __forceinline__ void load(const float* clip, int m_, int tc, int hop_, int c) {
+  // clip: float32 or bfloat16 frames (kernel 2's instances), widened here
+  template <typename TF>
+  __device__ __forceinline__ void load(const TF* clip, int m_, int tc, int hop_, int c) {
     m = m_;
     hop = hop_;
     has_next = m + 1 < tc;
@@ -75,7 +77,7 @@ struct FilmSegment {
     for (int j = 0; j < 3; ++j) {
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        frame[j][a] = clip[static_cast<long long>(f[j]) * (4 * kC) + a * kC + c];
+        frame[j][a] = load_f32(clip + static_cast<long long>(f[j]) * (4 * kC) + a * kC + c);
         slot[j][a] = 0.0f;
       }
     }
@@ -136,9 +138,11 @@ __global__ void sum_weight_partials(const float* __restrict__ w_part,
 // (b, m) left its FiLM cotangents summed by clamped frame in part[seg, slot]
 // (slot 0, 1, 2 = frame m-1, m, m+1); d_film[b, f, j] = part[f-1, slot 2] +
 // part[f, slot 1] + part[f+1, slot 0] over the segments of clip b that exist,
-// in that order.
+// in that order. The sum is float32; a bfloat16 d_film (kernel 2's bf16
+// instance) is rounded once as it is stored.
+template <typename TF>
 __global__ void fold_film_partials(const float* __restrict__ part,
-                                   float* __restrict__ d_film, long long n, int tc) {
+                                   TF* __restrict__ d_film, long long n, int tc) {
   const int width = 4 * kC;
   for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        idx < n; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -149,17 +153,18 @@ __global__ void fold_film_partials(const float* __restrict__ part,
     if (f > 0) s += part[((seg - 1) * 3 + 2) * width + j];
     s += part[(seg * 3 + 1) * width + j];
     if (f + 1 < tc) s += part[((seg + 1) * 3 + 0) * width + j];
-    d_film[idx] = s;
+    store_as(d_film + idx, s);
   }
 }
 
 // Launches fold_film_partials for b clips of tc frames on `stream`.
-inline cudaError_t fold_film(const float* part, float* d_film, int b, int tc,
+template <typename TF>
+inline cudaError_t fold_film(const float* part, TF* d_film, int b, int tc,
                              cudaStream_t stream) {
   const long long n = static_cast<long long>(b) * tc * 4 * kC;
   const long long want = (n + 255) / 256;
   const int grid = static_cast<int>(want < 65535 ? want : 65535);
-  fold_film_partials<<<grid, 256, 0, stream>>>(part, d_film, n, tc);
+  fold_film_partials<TF><<<grid, 256, 0, stream>>>(part, d_film, n, tc);
   return cudaGetLastError();
 }
 

@@ -19,7 +19,20 @@ sine MLP, and gamma_out/beta_out modulate the result.
   :class:`_FilmShaperCR`, whose backward launches
   ``csrc/newt_fused_cr_bwd.cu`` (never the plain backward).
   ``film_shaper_cr.launches`` and ``film_shaper_cr.bwd_launches`` count
-  the launches of the two kernels.
+  the launches of the two kernels' float32 instances, ``.launches_bf16``
+  and ``.bwd_launches_bf16`` those of their (bf16 exciter, bf16 FiLM)
+  instances and ``.launches_bf16_f32`` and ``.bwd_launches_bf16_f32`` those
+  of their (bf16 exciter, float32 FiLM) ones.
+
+Mixed precision (the model's ``compute_dtype = "bfloat16"``): the two
+control-rate kernels take a bfloat16 exciter (and cotangent) with a
+bfloat16 FiLM, or with a float32 one (``NEWT.cr_film_f32``), and compute in
+float32 between load and store: the output (and d_exciter) comes back in the
+exciter's dtype, d_film in the FiLM's, d_planes in float32. The weights are
+float32 planes always: :func:`pack_weights` of bfloat16 leaves gives exact
+float32 copies. The plain versions compute the same under bfloat16 (widen,
+the float32 chain, round each output once). The other kernels take float32
+only.
 
 The audio-rate counterpart (JAX ``film_shaper_fused_fl`` and
 ``film_shaper_fused``, the two TPU lane layouts of one function) takes the
@@ -57,7 +70,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..models.modules import dense_apply, film, shaper_apply
+from ..models.modules import cast_params, dense_apply, film, shaper_apply
 from ..ops.oscillator import bank_from_wrapped_phase
 from ..ops.upsample import linear_upsample, segment_interp
 from . import _build
@@ -141,11 +154,22 @@ def film_shaper_cr_plain(
     exciter: torch.Tensor, film_c: torch.Tensor, shaper_params: Dict, hop: int
 ) -> torch.Tensor:
     """The plain PyTorch version: ``linear_upsample`` of the (B, Tc, 4C)
-    film to Ta = Tc*hop samples, then :func:`film_shaper_chain`."""
+    film to Ta = Tc*hop samples, then :func:`film_shaper_chain`.
+
+    It computes what every instance of the kernel computes: the exciter,
+    the film and the shaper parameters widened to at least float32 (under
+    float32 they are the tensors given), the chain in that type, the output
+    rounded once to the exciter's dtype (bfloat16 with a bfloat16 or
+    float32 film). Autograd through it
+    gives d_exciter in the exciter's dtype and d_film in the film's."""
     ta = exciter.shape[1]
     if ta != film_c.shape[1] * hop:
         raise ValueError(f"exciter length {ta} != Tc {film_c.shape[1]} * hop {hop}")
-    return film_shaper_chain(exciter, linear_upsample(film_c, ta), shaper_params)
+    acc = torch.promote_types(exciter.dtype, torch.float32)
+    out = film_shaper_chain(
+        exciter.to(acc), linear_upsample(film_c.to(acc), ta), cast_params(shaper_params, acc)
+    )
+    return out.to(exciter.dtype)
 
 
 def film_shaper_cr_grad_plain(
@@ -158,7 +182,8 @@ def film_shaper_cr_grad_plain(
     """The plain version of the backward: ``torch.autograd.grad`` through
     :func:`film_shaper_cr_plain` with cotangent ``dy`` -> (d_exciter
     (B, Ta, C), d_film_c (B, Tc, 4C), d_planes (170, C) in the
-    :func:`pack_weights` layout)."""
+    :func:`pack_weights` layout), each in its input's dtype (the planes
+    float32)."""
     with torch.enable_grad():
         exc = exciter.detach().requires_grad_()
         film_c = film_c.detach().requires_grad_()
@@ -179,20 +204,36 @@ def _lib(name: str, symbol: str, n_ptrs: int, n_ints: int = 4, n_floats: int = 0
     return lib
 
 
-def _check_tensors(**tensors: torch.Tensor) -> None:
-    """Every tensor float32, contiguous and on the first one's device."""
+def _check_tensors(bf16_ok=(), **tensors: torch.Tensor) -> None:
+    """Every tensor float32 (those named in ``bf16_ok`` float32 or bfloat16),
+    contiguous and on the first one's device."""
     first, dev = next((name, t.device) for name, t in tensors.items())
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, {first} on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != torch.float32 and not (name in bf16_ok and t.dtype == torch.bfloat16):
+            also = " or bfloat16" if name in bf16_ok else ""
+            raise TypeError(f"{name} must be float32{also}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check(exciter: torch.Tensor, film_c: torch.Tensor, weights: torch.Tensor, hop: int):
-    _check_tensors(exciter=exciter, film_c=film_c, shaper_weights=weights)
+# (exciter dtype, film dtype) -> the C symbols' suffix of kernels 1 and 2's instance
+_CR_INSTANCES = {
+    (torch.float32, torch.float32): "",
+    (torch.bfloat16, torch.bfloat16): "_bf16",
+    (torch.bfloat16, torch.float32): "_bf16_f32",
+}
+
+
+def _check(exciter: torch.Tensor, film_c: torch.Tensor, weights: torch.Tensor, hop: int) -> str:
+    """Checks what kernels 1 and 2 take; -> the suffix of the instance."""
+    _check_tensors(("exciter", "film_c"), exciter=exciter, film_c=film_c, shaper_weights=weights)
+    instance = _CR_INSTANCES.get((exciter.dtype, film_c.dtype))
+    if instance is None:
+        raise TypeError(
+            f"a {film_c.dtype} film_c needs a bfloat16 exciter, got {exciter.dtype}"
+        )
     if exciter.dim() != 3 or exciter.shape[2] != C:
         raise ValueError(f"exciter must be (B, Ta, {C}), got {tuple(exciter.shape)}")
     b, ta, _ = exciter.shape
@@ -205,23 +246,29 @@ def _check(exciter: torch.Tensor, film_c: torch.Tensor, weights: torch.Tensor, h
         raise ValueError(f"B*Ta = {b * ta} exceeds the kernel's {_MAX_SAMPLES} samples")
     if tuple(weights.shape) != (170, C):
         raise ValueError(f"packed weights must be (170, {C}), got {tuple(weights.shape)}")
+    return instance
 
 
 def _launch_forward(exciter, film_c, weights, hop) -> torch.Tensor:
-    _check(exciter, film_c, weights, hop)
+    instance = _check(exciter, film_c, weights, hop)
+    symbol = "newt_fused_cr_forward" + instance
     out = torch.empty_like(exciter)
     b, ta, _ = exciter.shape
     with torch.cuda.device(exciter.device):
-        lib = _lib("newt_fused_cr", "newt_fused_cr_forward", 4)
+        lib = _lib("newt_fused_cr", symbol, 4)
         stream = torch.cuda.current_stream(exciter.device).cuda_stream
-        err = lib.newt_fused_cr_forward(
+        err = getattr(lib, symbol)(
             exciter.data_ptr(), film_c.data_ptr(), weights.data_ptr(), out.data_ptr(),
             b * ta, ta, film_c.shape[1], hop, stream,
         )
     if err != 0:
-        raise RuntimeError(f"newt_fused_cr_forward did not launch: CUDA error {err}")
-    film_shaper_cr.launches += 1
+        raise RuntimeError(f"{symbol} did not launch: CUDA error {err}")
+    _count(film_shaper_cr, "launches" + instance)
     return out
+
+
+def _count(wrapper, counter: str) -> None:
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 _RESIDENT_BLOCKS: Dict[Tuple[str, int], int] = {}  # (query, device index) -> blocks resident at once
@@ -254,30 +301,31 @@ def _launch_backward(exciter, film_c, weights, dy, hop):
     """-> (d_exciter, d_film_c, d_planes) from ``csrc/newt_fused_cr_bwd.cu``.
     Scratch (per-segment FiLM partials, per-block weight partials) is
     allocated here, for :func:`_segment_blocks` blocks."""
-    _check(exciter, film_c, weights, hop)
-    if dy.shape != exciter.shape or dy.dtype != torch.float32 or dy.device != exciter.device:
-        raise ValueError(f"dy must be float32 {tuple(exciter.shape)} on {exciter.device}")
+    instance = _check(exciter, film_c, weights, hop)
+    symbol = "newt_fused_cr_backward" + instance
+    if dy.shape != exciter.shape or dy.dtype != exciter.dtype or dy.device != exciter.device:
+        raise ValueError(f"dy must be {exciter.dtype} {tuple(exciter.shape)} on {exciter.device}")
     b, ta, _ = exciter.shape
     tc = film_c.shape[1]
     d_exc = torch.empty_like(exciter)
     d_film = torch.empty_like(film_c)
     d_planes = torch.empty_like(weights)
     with torch.cuda.device(exciter.device):
-        lib = _lib("newt_fused_cr_bwd", "newt_fused_cr_backward", 9)
+        lib = _lib("newt_fused_cr_bwd", symbol, 9)
         blocks = _segment_blocks(
             b * tc, _resident_blocks(lib, "newt_fused_cr_backward_resident_blocks", exciter.device))
         film_part = torch.empty((b * tc, 3, 4 * C), dtype=torch.float32, device=exciter.device)
         w_part = torch.empty((blocks, 170, C), dtype=torch.float32, device=exciter.device)
         stream = torch.cuda.current_stream(exciter.device).cuda_stream
-        err = lib.newt_fused_cr_backward(
+        err = getattr(lib, symbol)(
             exciter.data_ptr(), film_c.data_ptr(), weights.data_ptr(), dy.data_ptr(),
             d_exc.data_ptr(), d_film.data_ptr(), d_planes.data_ptr(),
             film_part.data_ptr(), w_part.data_ptr(),
             b, ta, tc, blocks, stream,
         )
     if err != 0:
-        raise RuntimeError(f"newt_fused_cr_backward did not launch: CUDA error {err}")
-    film_shaper_cr.bwd_launches += 1
+        raise RuntimeError(f"{symbol} did not launch: CUDA error {err}")
+    _count(film_shaper_cr, "bwd_launches" + instance)
     return d_exc, d_film, d_planes
 
 
@@ -339,8 +387,10 @@ def film_shaper_cr(
 
     CPU tensors take :func:`film_shaper_cr_plain` (autograd differentiates
     it). CUDA tensors launch the kernels on the current stream, after
-    checking device, dtype (float32), shapes and contiguity; anything the
-    kernels do not take raises. With grad enabled and an input that needs
+    checking device, dtype (a float32 or bfloat16 exciter; a float32 film,
+    or a bfloat16 one with a bfloat16 exciter), shapes and contiguity;
+    anything the kernels do not take raises. The output takes the
+    exciter's dtype. With grad enabled and an input that needs
     a gradient, the call goes through :class:`_FilmShaperCR`, whose
     backward is the CUDA backward kernel; otherwise the forward kernel
     alone runs. ``packed`` is ``pack_weights(shaper_params)`` when the
@@ -359,6 +409,8 @@ def film_shaper_cr(
 
 film_shaper_cr.launches = 0
 film_shaper_cr.bwd_launches = 0
+film_shaper_cr.launches_bf16 = film_shaper_cr.bwd_launches_bf16 = 0  # (bf16, bf16)
+film_shaper_cr.launches_bf16_f32 = film_shaper_cr.bwd_launches_bf16_f32 = 0  # (bf16, f32)
 
 
 # ---------------------------------------------------------------------------

@@ -47,9 +47,27 @@ def _load(dst: torch.Tensor, src) -> None:
 # ---------------------------------------------------------------------------
 # dense, FiLM, LayerNorm
 # ---------------------------------------------------------------------------
+def cast_params(p, dtype: torch.dtype):
+    """A parameter tree with every leaf cast to ``dtype`` inside autograd, so
+    gradients reach the float32 leaves; a leaf already of ``dtype`` is
+    itself (float32 stays the same tensors)."""
+    if isinstance(p, dict):
+        return {k: cast_params(v, dtype) for k, v in p.items()}
+    if isinstance(p, (list, tuple)):
+        return [cast_params(v, dtype) for v in p]
+    return p.to(dtype)
+
+
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """(..., in) -> (..., out): ``x @ w + b``."""
-    return torch.matmul(x, p["w"]) + p["b"]
+    """(..., in) -> (..., out): ``x @ w + b``.
+
+    Mixed precision, as JAX ``dense_apply``: the output takes ``x``'s dtype
+    and the product is summed in at least float32: ``x``, ``w`` and ``b`` are
+    widened to float32 (for float32 a no-op) and the sum rounded once to
+    ``x``'s dtype. (A bfloat16 ``matmul`` and then a float32 bias, as the
+    harmonic mixer's, would round twice and return float32.)"""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return (torch.matmul(x.to(acc), p["w"].to(acc)) + p["b"].to(acc)).to(x.dtype)
 
 
 def film(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -59,7 +77,8 @@ def film(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tens
 
 def layer_norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis, statistics in float32 (population
-    variance, as ``jnp.var``)."""
+    variance, as ``jnp.var``); scaled by the (possibly bfloat16) scale and
+    bias in float32 and returned in ``x``'s dtype."""
     xf = x.to(torch.float32)
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
@@ -82,7 +101,9 @@ class Dense(nn.Module):
         _load(self.b, p["b"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense_apply({"w": self.w, "b": self.b}, x)
+        """In ``x``'s dtype: a bfloat16 ``x`` takes ``w`` and ``b`` rounded
+        to bfloat16 (NEWT's mixer under the model's ``compute_dtype``)."""
+        return dense_apply(cast_params(self.params(), x.dtype), x)
 
 
 class LayerNorm(nn.Module):
@@ -142,12 +163,18 @@ class TimeDistributedMLP(nn.Module):
                 self.norms[i].load_params(layer["norm"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, in) -> (B, T, out)."""
-        for i, dense in enumerate(self.dense):
-            x = dense(x)
-            if i < len(self.norms):
-                x = F.leaky_relu(self.norms[i](x), negative_slope=0.01)
-        return x
+        """(B, T, in) -> (B, T, out), in ``x``'s dtype (the parameters cast
+        to it, as JAX casts NEWT's tree under ``compute_dtype``)."""
+        return mlp_apply(cast_params(self.params(), x.dtype), x)
+
+
+def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """:class:`TimeDistributedMLP` on a parameter tree of its layout."""
+    for layer in p["layers"]:
+        x = dense_apply(layer["dense"], x)
+        if "norm" in layer:
+            x = F.leaky_relu(layer_norm_apply(layer["norm"], x), negative_slope=0.01)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +320,10 @@ __all__: List[str] = [
     "TrainableNonlinearity",
     "GRU",
     "ControlModule",
+    "cast_params",
     "dense_apply",
     "film",
     "layer_norm_apply",
+    "mlp_apply",
     "shaper_apply",
 ]

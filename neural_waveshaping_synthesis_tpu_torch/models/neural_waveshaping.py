@@ -9,8 +9,14 @@
         '-> noise MLP > H (B, Tc, 129) > FIR noise --> (B, Ta)
     sum --> learned reverb --> audio (B, Ta)
 
-float32 throughout: ``compute_dtype`` takes only ``"float32"`` (the JAX
-default) until mixed precision is ported (ROADMAP.md queue 1, Mixed precision).
+``compute_dtype`` (JAX's field) is ``"float32"`` (the default) or
+``"bfloat16"``, the mixed-precision scope of the JAX ``apply``: in bfloat16
+the oscillator bank's output, the harmonic mixer's weight (its bias stays
+float32, and the mixer's sum is rounded once) and NEWT, which runs in its
+exciter's dtype on its parameters cast inside autograd; NEWT's output comes
+back to float32. In float32: the phase (summed in float64 and wrapped, the
+port's deviation), the GRU embedding (cast for NEWT only), the noise MLP and
+FIR, the reverb, the loss, the parameters and the optimizer's state.
 
 ``fuse_exciter`` and ``fuse_out_mixer`` (both off by default, as in JAX)
 fold the harmonic bank and the 101 -> 64 mixer, and with
@@ -36,8 +42,11 @@ from ..kernels import newt_fused
 from ..ops.oscillator import draw_phase_offset, phase_accumulate, wrap_phase
 from ..ops.upsample import linear_upsample
 from .generators import FIRNoiseSynth, HarmonicOscillator, Reverb
-from .modules import ControlModule, Dense, Params, TimeDistributedMLP
-from .newt import _CR, NEWT
+from .modules import ControlModule, Dense, Params, TimeDistributedMLP, dense_apply
+from .newt import _CR, NEWT, not_ported_in
+
+# the compute dtypes the port takes: JAX's field takes any jnp.dtype name
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _default_noise_mlp(generator=None) -> TimeDistributedMLP:
@@ -64,12 +73,12 @@ class NeuralWaveshaping(nn.Module):
     architecture, 266,945 parameters, drawn from ``generator`` in the order
     embedding, harmonic mixer, NEWT, noise MLP, reverb.
 
-    ``compute_dtype`` other than ``"float32"`` raises ``NotImplementedError``
-    (ROADMAP.md queue 1, Mixed precision, is not ported), so the
-    repo's ``gin/train/train_newt_bf16.gin`` stops there. ``fuse_exciter`` /
-    ``fuse_out_mixer`` are the JAX fields of the same names; like every
-    parameter here they bind from gin (``-b "NeuralWaveshaping.fuse_exciter
-    = True"``), also for ``Synthesizer.from_checkpoint``'s model."""
+    ``compute_dtype`` is ``"float32"`` or ``"bfloat16"`` (the repo's
+    ``gin/train/train_newt_bf16.gin``); any other name raises ``ValueError``.
+    ``fuse_exciter`` / ``fuse_out_mixer`` are the JAX fields of the same
+    names; like every parameter here they bind from gin (``-b
+    "NeuralWaveshaping.fuse_exciter = True"``), also for
+    ``Synthesizer.from_checkpoint``'s model."""
 
     def __init__(
         self,
@@ -82,11 +91,12 @@ class NeuralWaveshaping(nn.Module):
         fuse_out_mixer: bool = False,
     ):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"NeuralWaveshaping.compute_dtype = {compute_dtype!r}: mixed precision is not "
-                "ported yet (ROADMAP.md queue 1, Mixed precision); only 'float32' runs"
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"NeuralWaveshaping.compute_dtype = {compute_dtype!r}: the port takes "
+                "'float32' or 'bfloat16'"
             )
+        self.compute_dtype = compute_dtype
         self.control_hop = control_hop
         self.sample_rate = sample_rate
         self.fuse_exciter = fuse_exciter
@@ -145,7 +155,9 @@ class NeuralWaveshaping(nn.Module):
         ``bank_from_phase`` expands. With ``fuse_out_mixer`` and one output
         channel the xfull kernel also mixes to audio and NEWT's mixer bias is
         added here; otherwise the xcr kernel's (B, Ta, C) goes through
-        NEWT's mixer."""
+        NEWT's mixer. Where it would apply under a ``compute_dtype`` other
+        than float32 it raises ``NotImplementedError``, on every device: the
+        exciter-fused kernels' bf16 I/O is not ported."""
         newt = self.newt
         n_harm = self.osc.n_harmonics
         ta, tc = f0_up.shape[1], embedding.shape[1]
@@ -156,6 +168,10 @@ class NeuralWaveshaping(nn.Module):
             and newt_fused.supports_xcr(newt.shaping_fn, ta, tc, n_harm)
         ):
             return None
+        if self.compute_dtype != "float32":
+            raise not_ported_in(
+                COMPUTE_DTYPES[self.compute_dtype],
+                "NeuralWaveshaping.fuse_exciter: the exciter-fused kernels (newt_fused_x*.cu)")
         sr = self.osc.sample_rate
         phase = wrap_phase(phase_accumulate(f0_up, sr), f0_up.dtype)
         fp = newt.film_params(embedding)
@@ -206,8 +222,12 @@ class NeuralWaveshaping(nn.Module):
         if lookup_table is None:
             shaped = self._fused_exciter_newt(f0_up, embedding, phase_offset)
         if shaped is None:
-            exciter = self.harmonic_mixer(self.osc(f0_up, phase_offset=phase_offset))
-            shaped = self.newt(exciter, embedding, lookup_table=lookup_table)  # (B, Ta, 1)
+            bank = self.osc(f0_up, phase_offset=phase_offset)
+            cd = COMPUTE_DTYPES[self.compute_dtype]
+            # The mixer's w and the bank in compute_dtype, its b in float32.
+            mixer = {"w": self.harmonic_mixer.w.to(cd), "b": self.harmonic_mixer.b}
+            exciter = dense_apply(mixer, bank.to(cd))
+            shaped = self.newt(exciter, embedding, lookup_table=lookup_table).float()  # (B, Ta, 1)
         h = self.h_generator(embedding)  # (B, Tc, 129)
         noise_audio = self.noise_synth(h, generator=generator, noise=noise)
         return self.reverb(shaped[..., 0] + noise_audio)

@@ -19,6 +19,7 @@ from .modules import (
     Params,
     TimeDistributedMLP,
     TrainableNonlinearity,
+    cast_params,
     film,
     shaper_apply,
 )
@@ -26,6 +27,15 @@ from .modules import (
 _CR = ("cr", "full_lane_cr")
 _AUDIO_RATE = (True, "full_lane", "fl")
 _FUSED = (*_CR, *_AUDIO_RATE, None, False)
+
+
+def not_ported_in(dtype: torch.dtype, what: str) -> NotImplementedError:
+    """The error of a kernel path whose bfloat16 I/O is not ported."""
+    return NotImplementedError(
+        f"{what} does not take {dtype} yet (ROADMAP.md queue 1, Mixed precision: "
+        "its bf16 I/O is still to port); run it with compute_dtype 'float32', or NEWT.fused "
+        "'cr' / 'full_lane_cr' / False"
+    )
 
 
 @gin.configurable
@@ -68,6 +78,23 @@ class NEWT(nn.Module):
     to audio rate and the lookup runs between the two FiLMs; on CUDA it
     launches the lookup kernel (:func:`fast_newt.fast_newt_lookup`), on
     the CPU its plain version.
+
+    NEWT computes in its exciter's dtype, as the JAX NEWT computes in the
+    dtype of the tree ``NeuralWaveshaping.apply`` casts for it: under the
+    model's ``compute_dtype = "bfloat16"`` its parameters (the FiLM MLP, the
+    shaper and the mixer) are cast to bfloat16 inside autograd on every
+    forward, so the float32 masters get the gradients. The chain then runs
+    per operation in bfloat16, as JAX's does. The control-rate kernels take
+    bfloat16 I/O and compute in float32 between load and store; on the CPU
+    a bfloat16 exciter on a cr ``fused`` therefore runs the kernel's plain
+    version (:func:`newt_fused.film_shaper_cr_plain`), which computes the
+    same, where under float32 the chain is already that plain version.
+    ``cr_film_f32`` (JAX's field) hands the kernel a float32 FiLM with a
+    bfloat16 exciter; under float32 it changes nothing. The audio-rate
+    kernels, the FastNEWT lookup kernel and the stream kernel take float32
+    only: on CUDA a bfloat16 exciter there raises ``NotImplementedError``
+    (ROADMAP.md queue 1, Mixed precision), and :meth:`forward_stream` runs
+    in float32 whatever the model's ``compute_dtype``, as JAX's stream does.
     """
 
     def __init__(
@@ -79,6 +106,7 @@ class NEWT(nn.Module):
         shaping_fn_depth: int = 4,
         remat_shaper: bool = False,
         fused: Optional[Union[str, bool]] = "cr",
+        cr_film_f32: bool = False,
         generator=None,
     ):
         super().__init__()
@@ -86,6 +114,7 @@ class NEWT(nn.Module):
         self.n_waveshapers = n_waveshapers
         self.remat_shaper = remat_shaper
         self.fused = fused
+        self.cr_film_f32 = cr_film_f32
         self.mlp = TimeDistributedMLP(
             control_embedding_size, control_embedding_size, n_waveshapers * 4,
             depth=4, generator=generator,
@@ -96,20 +125,28 @@ class NEWT(nn.Module):
         self.mixer = Dense(n_waveshapers, out_channels, generator)
         self._packed, self._packed_key = None, None
 
-    def _packed_shaper(self) -> torch.Tensor:
-        """The kernel's packed weight planes. With grad enabled and a shaper
-        parameter that needs a gradient they are packed anew, with autograd,
-        on every call, so that the kernel's plane gradient flows back to
-        the 9 shaper leaves; otherwise the pack is cached and made again
-        only when a shaper parameter has moved or been written in place."""
+    def _shaper_params(self, dtype: torch.dtype = torch.float32) -> Params:
+        """The shaper's parameter tree in ``dtype`` (cast inside autograd)."""
+        return cast_params(self.shaping_fn.params(), dtype)
+
+    def _packed_shaper(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The kernel's packed float32 weight planes, packed from the shaper
+        leaves cast to ``dtype``: under bfloat16 the kernel gets exact float32
+        copies of the rounded weights, as JAX packs the tree after its cast,
+        and the plane gradient is rounded to bfloat16 on its way back. With
+        grad enabled and a shaper parameter that needs a gradient they are
+        packed anew, with autograd, on every call, so that the kernel's plane
+        gradient flows back to the 9 shaper leaves; otherwise the pack is
+        cached, keyed by ``dtype``, and made again only when a shaper
+        parameter has moved or been written in place."""
         if torch.is_grad_enabled() and any(
             t.requires_grad for t in self.shaping_fn.parameters()
         ):
-            return newt_fused.pack_weights(self.shaping_fn.params())
-        key = tuple((t.data_ptr(), t._version) for t in self.shaping_fn.parameters())
+            return newt_fused.pack_weights(self._shaper_params(dtype))
+        key = (dtype, tuple((t.data_ptr(), t._version) for t in self.shaping_fn.parameters()))
         if key != self._packed_key:
             with torch.no_grad():
-                self._packed = newt_fused.pack_weights(self.shaping_fn.params())
+                self._packed = newt_fused.pack_weights(self._shaper_params(dtype))
             self._packed_key = key
         return self._packed
 
@@ -164,30 +201,41 @@ class NEWT(nn.Module):
         lookup_table: Optional[torch.Tensor] = None,
         fused: Optional[Union[str, bool]] = None,
     ) -> torch.Tensor:
-        """(B, Ta, C) exciter + (B, Tc, E) embedding -> (B, Ta, out_channels).
+        """(B, Ta, C) exciter + (B, Tc, E) embedding -> (B, Ta, out_channels),
+        in the exciter's dtype (the embedding is cast to it).
 
         ``fused=None`` defers to the ``fused`` given at construction;
         ``lookup_table`` (S, C) takes the FastNEWT path instead."""
         fused = self.fused if fused is None else fused
         self._check_fused(fused)
-        fp = self.film_params(control_embedding)  # (B, Tc, 4C) control-rate FiLM
+        dtype = exciter.dtype
+        narrow = dtype == torch.bfloat16
+        fp = self.film_params(control_embedding.to(dtype))  # (B, Tc, 4C) control-rate FiLM
         ta, tc = exciter.shape[1], fp.shape[1]
         if lookup_table is not None:
+            if exciter.is_cuda and narrow:
+                raise not_ported_in(dtype, "The FastNEWT lookup kernel (fast_newt_lookup.cu)")
             gi, bi, gn, bn = linear_upsample(fp, ta).split(self.n_waveshapers, dim=-1)
             x = fast_newt.fast_newt_lookup(lookup_table, film(exciter, gi, bi))
             return self.mixer(film(x, gn, bn))
-        params = self.shaping_fn.params()
-        if exciter.is_cuda and fused in _CR:
+        params = self._shaper_params(dtype)
+        if fused in _CR and (exciter.is_cuda or narrow):
             if newt_fused.supports_cr(self.shaping_fn, ta, tc):
+                if self.cr_film_f32:
+                    fp = fp.to(torch.float32)
                 x = newt_fused.film_shaper_cr(
-                    exciter, fp, params, ta // tc, packed=self._packed_shaper()
+                    exciter, fp, params, ta // tc, packed=self._packed_shaper(dtype)
                 )
                 return self.mixer(x)
-            if fused == "cr":
-                raise self._refuse(fused, ta, tc)
-            fused = "full_lane"  # JAX's fallback for the training spelling
+            if exciter.is_cuda:
+                if fused == "cr":
+                    raise self._refuse(fused, ta, tc)
+                fused = "full_lane"  # JAX's fallback for the training spelling
         film_a = linear_upsample(fp, ta)  # (B, Ta, 4C)
         if exciter.is_cuda and fused in _AUDIO_RATE:
+            if narrow:
+                raise not_ported_in(
+                    dtype, f"NEWT fused={fused!r}: the audio-rate kernels (newt_fused_fl*.cu)")
             if not newt_fused.supports(self.shaping_fn):
                 raise self._refuse(fused, ta, tc)
             x = newt_fused.film_shaper_fl(exciter, film_a, params, packed=self._packed_shaper())

@@ -1,9 +1,10 @@
 """The port on the card: the CUDA kernels (forward, backward, the
 streaming forward, the audio-rate forward and backward, the FastNEWT
-lookup, and the exciter-fused forwards and backwards) against their plain
-versions, and the model (also with ``fuse_exciter`` / ``fuse_out_mixer``),
-a training step, a streamed buffer and timbre transfer on the card against
-the same on the CPU.
+lookup, and the exciter-fused forwards and backwards; kernels 1 and 2 in
+their bf16 instances too) against their plain versions, and the model
+(also with ``fuse_exciter`` / ``fuse_out_mixer``, and in bf16), a training
+step, a streamed buffer and timbre transfer on the card against the same on
+the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it runs where the card is and JAX is not:
@@ -24,6 +25,7 @@ from neural_waveshaping_synthesis_tpu_torch.inference import Synthesizer, extrac
 from neural_waveshaping_synthesis_tpu_torch.kernels import fast_newt
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
 from neural_waveshaping_synthesis_tpu_torch.models import NEWT, NeuralWaveshaping
+from neural_waveshaping_synthesis_tpu_torch.models.modules import cast_params
 from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample, segment_interp
 from neural_waveshaping_synthesis_tpu_torch.streaming import StreamingSynth
 from neural_waveshaping_synthesis_tpu_torch.training import compute_loss
@@ -111,6 +113,149 @@ def test_kernel_refuses_what_it_does_not_take(cuda, params):
         packed = nf.pack_weights(leaves)
     with pytest.raises(ValueError):
         nf.film_shaper_cr(exc, film_c, leaves, 8, packed=packed)
+
+
+# ---------------------------------------------------------------------------
+# mixed precision: the bf16 instances of kernels 1 and 2
+# ---------------------------------------------------------------------------
+BF16 = torch.bfloat16
+BF16_PAIRS = [(BF16, BF16), (BF16, torch.float32)]
+
+
+def _bf16_planes(params, cuda):
+    """The float32 planes of the bf16-rounded shaper, as NEWT packs them
+    under bf16, and their tree."""
+    packed = nf.pack_weights(cast_params(_shaper(params, cuda), BF16))
+    return packed, nf.unpack_weight_grads(packed)
+
+
+def _ulp_close(out, ref, atol=1e-5):
+    """One bf16 ulp (rtol 2^-7) plus atol: the kernel and the plain version
+    both compute in float32, and their float32 results differ by FMA
+    contraction (1e-4), so the rounded results differ by at most one ulp."""
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               rtol=2.0**-7, atol=atol)
+
+
+@pytest.mark.parametrize("exc_dtype,film_dtype", BF16_PAIRS)
+@pytest.mark.parametrize("b,tc,hop", [(2, 6, 16), (1, 37, 128), (3, 1, 3)])
+def test_bf16_kernel_matches_plain(cuda, params, exc_dtype, film_dtype, b, tc, hop):
+    """Kernel 1's bf16 instances vs the plain version (float32 between bf16
+    load and store) within one bf16 ulp; the output bf16; the instance's
+    counter moves; with gamma_out = 0 the output is linear_upsample of the
+    widened FiLM rounded to bf16, bit for bit."""
+    exc, film_c = _inputs(b, tc, hop, seed=4)
+    exc, film_c = exc.to(cuda, exc_dtype), film_c.to(cuda, film_dtype)
+    packed, tree = _bf16_planes(params, cuda)
+    name = "launches_bf16" if film_dtype == BF16 else "launches_bf16_f32"
+    before = getattr(nf.film_shaper_cr, name)
+    with torch.inference_mode():
+        out = nf.film_shaper_cr(exc, film_c, tree, hop, packed=packed)
+        ref = nf.film_shaper_cr_plain(exc, film_c, tree, hop)
+        film_c[..., 128:192] = 0.0
+        lerp = nf.film_shaper_cr(exc, film_c, tree, hop, packed=packed)
+    torch.cuda.synchronize()
+    assert out.dtype == BF16 and getattr(nf.film_shaper_cr, name) == before + 2
+    _ulp_close(out, ref)
+    expect = linear_upsample(film_c.float().cpu(), tc * hop)[..., 192:].to(BF16)
+    assert torch.equal(lerp.cpu(), expect)
+
+
+@pytest.mark.parametrize("exc_dtype,film_dtype", BF16_PAIRS)
+@pytest.mark.parametrize("b,tc,hop", [(2, 6, 16), (1, 5, 33)])
+def test_bf16_backward_kernel_matches_plain(cuda, params, exc_dtype, film_dtype, b, tc, hop):
+    """Kernel 2's bf16 instances vs autograd through the plain version:
+    d_exciter bf16 and d_film in the FiLM's dtype within one bf16 ulp beyond
+    the float32 gradient bar (rtol 1e-3 + 2^-7, atol 1e-3 * max|plain|),
+    d_planes float32 at the float32 bar; two calls bit-identical."""
+    exc, film_c = _inputs(b, tc, hop, seed=5)
+    exc, film_c = exc.to(cuda, exc_dtype), film_c.to(cuda, film_dtype)
+    dy = torch.randn(exc.shape, generator=torch.Generator().manual_seed(6)).to(cuda, exc_dtype)
+    packed, tree = _bf16_planes(params, cuda)
+    out = nf._launch_backward(exc, film_c, packed, dy, hop)
+    again = nf._launch_backward(exc, film_c, packed, dy, hop)
+    ref = nf.film_shaper_cr_grad_plain(exc, film_c, tree, hop, dy)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in out] == [BF16, film_dtype, torch.float32]
+    assert all(torch.equal(a, r) for a, r in zip(out, again))
+    for o, r in zip(out[:2], ref[:2]):
+        np.testing.assert_allclose(o.float().cpu().numpy(), r.float().cpu().numpy(),
+                                   rtol=1e-3 + 2.0**-7, atol=1e-3 * float(r.float().abs().max()))
+    _grad_close(out[2], ref[2])
+
+
+def test_bf16_model_on_the_card_launches_the_bf16_instances(cuda, params):
+    """A bf16 model with NEWT "cr" launches kernel 1's (bf16, bf16)
+    instance, with cr_film_f32 its (bf16, f32) one, and kernels 1 and 2
+    with "full_lane_cr" and a gradient; its render is within 0.05 nRMS of
+    the float32 render but at least 1e-3 from it (it computes in bf16), and
+    within 2e-3 of the CPU's bf16 render (chip_smoke.py's bar: a card path
+    that computed in float32 would read the bf16-vs-float32 gap)."""
+    rng = np.random.default_rng(7)
+    tc = 64
+    f0 = torch.from_numpy(np.geomspace(150, 600, tc)[None].astype(np.float32))
+    control = torch.from_numpy(rng.standard_normal((1, tc, 2)).astype(np.float32))
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, tc * 128 - 1).astype(np.float32))
+    outs = {}
+    for label, cd, dev in (("f32", "float32", cuda), ("bf16", "bfloat16", cuda),
+                           ("bf16_cpu", "bfloat16", torch.device("cpu"))):
+        model = NeuralWaveshaping(compute_dtype=cd)
+        model.load_params(params)
+        model.to(dev)
+        before = nf.film_shaper_cr.launches_bf16
+        with torch.inference_mode():
+            y = model(f0.to(dev), control.to(dev), phase_offset=offset.to(dev), noise=noise.to(dev))
+        outs[label] = y.cpu().numpy()
+        assert nf.film_shaper_cr.launches_bf16 == before + (label == "bf16")
+        if label == "bf16":
+            model.newt.cr_film_f32 = True
+            before = nf.film_shaper_cr.launches_bf16_f32
+            with torch.inference_mode():
+                model(f0.to(dev), control.to(dev), phase_offset=offset.to(dev), noise=noise.to(dev))
+            assert nf.film_shaper_cr.launches_bf16_f32 == before + 1
+            model.newt.fused = "full_lane_cr"
+            before = nf.film_shaper_cr.bwd_launches_bf16_f32
+            loss = model(f0.to(dev), control.to(dev), phase_offset=offset.to(dev),
+                         noise=noise.to(dev)).square().mean()
+            loss.backward()
+            assert nf.film_shaper_cr.bwd_launches_bf16_f32 == before + 1
+            assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+
+    def nrms(a, b):
+        return np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b**2))
+
+    assert 1e-3 < nrms(outs["bf16"], outs["f32"]) < 0.05, nrms(outs["bf16"], outs["f32"])
+    assert nrms(outs["bf16"], outs["bf16_cpu"]) < 2e-3, nrms(outs["bf16"], outs["bf16_cpu"])
+
+
+def test_bf16_paths_not_ported_raise_on_the_card(cuda, params):
+    """Under bf16 on the card the audio-rate kernels, the "full_lane_cr"
+    fallback at a non-integer hop, the FastNEWT lookup and the exciter-fused
+    path raise the named NotImplementedError, and launch nothing."""
+    model = NeuralWaveshaping(compute_dtype="bfloat16")
+    model.load_params(params)
+    model.to(cuda)
+    f0 = torch.full((1, 4), 330.0, device=cuda)
+    control = torch.zeros(1, 4, 2, device=cuda)
+    exc = torch.zeros(1, 130, 64, device=cuda, dtype=BF16)
+    emb = torch.zeros(1, 4, 128, device=cuda)
+    before = (nf.film_shaper_fl.launches, fast_newt.fast_newt_lookup.launches)
+    with torch.inference_mode():
+        for fused in (True, "full_lane", "fl"):
+            model.newt.fused = fused
+            with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
+                model(f0, control)
+        with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
+            model.newt(exc, emb, fused="full_lane_cr")
+        model.newt.fused = "cr"
+        table = model.newt.bake_lookup_table(256)
+        with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
+            model(f0, control, lookup_table=table)
+        model.fuse_exciter = True
+        with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
+            model(f0, control)
+    assert (nf.film_shaper_fl.launches, fast_newt.fast_newt_lookup.launches) == before
 
 
 def test_newt_on_the_card_launches_the_kernel(cuda, params):

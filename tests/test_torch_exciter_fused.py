@@ -356,7 +356,9 @@ def test_fallbacks_give_the_unfused_result_exactly(jax_model_params, monkeypatch
 def test_the_fields_bind_from_gin():
     """Both fields (and compute_dtype) are parameters of the configurable,
     so gin reaches them, also in the model Synthesizer.from_checkpoint
-    builds; no binding, both off."""
+    builds; no binding, both off. compute_dtype = 'bfloat16' binds through
+    gin into Synthesizer.from_checkpoint's model; a name other than
+    'float32' and 'bfloat16' raises ValueError."""
     assert (NeuralWaveshaping().fuse_exciter, NeuralWaveshaping().fuse_out_mixer) == (False, False)
     gin.clear_config()
     try:
@@ -365,10 +367,14 @@ def test_the_fields_bind_from_gin():
         assert gin.validate_config() == []
         model = Synthesizer.from_checkpoint(CKPT, device="cpu").model
         assert (model.fuse_exciter, model.fuse_out_mixer) == (True, True)
+        gin.clear_config()
+        gin.parse_config("NeuralWaveshaping.compute_dtype = 'bfloat16'")
+        model = Synthesizer.from_checkpoint(CKPT, device="cpu").model
+        assert model.compute_dtype == "bfloat16" and not model.fuse_exciter
     finally:
         gin.clear_config()
-    with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
-        NeuralWaveshaping(compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="'float32' or 'bfloat16'"):
+        NeuralWaveshaping(compute_dtype="float16")
 
 
 @pytest.mark.parametrize("fields", [{"fuse_exciter": True},

@@ -84,17 +84,36 @@ def test_a_binding_reaches_newt_fused(cli, binding, expect):
     assert cli.get_model().newt.fused == expect
 
 
-def test_the_bf16_gin_file_stops_at_the_mixed_precision_item(cli):
+def test_the_bf16_gin_file_stops_at_the_mixed_precision_item(cli, tmp_path):
     """gin/train/train_newt_bf16.gin binds NeuralWaveshaping.compute_dtype =
-    'bfloat16': validate_config finds every binding a parameter the port
-    takes, and the CLI stops with the NotImplementedError that names
-    ROADMAP.md queue 1, Mixed precision, not a TypeError."""
+    'bfloat16' and NEWT.fused = None (the chain): validate_config finds every
+    binding a parameter the port takes, the CLI's model is the bf16 one, and
+    the CLI, which stopped here before mixed precision was ported, trains 2
+    steps on the CPU with finite losses and writes its checkpoint, whose
+    parameters are float32 and which serves in float32."""
     gin.parse_config_file("gin/train/train_newt_bf16.gin")
     assert gin.validate_config() == []
+    model = cli.get_model()
+    assert model.compute_dtype == "bfloat16" and model.newt.fused is None
     gin.clear_config()
-    with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
-        cli.main(["--gin-file", "gin/train/train_newt_bf16.gin", "--dataset-path", "unused",
-                  "--device", "cpu"])
+    import chip_smoke
+
+    root = chip_smoke.write_tone_dataset(tmp_path / "data", splits=(("train", 4), ("val", 2)), seconds=0.25)
+    rc = cli.main([
+        "--gin-file", "gin/train/train_newt_bf16.gin", "--dataset-path", root, "--device", "cpu",
+        "--checkpoint-dir", str(tmp_path / "ckpt"), "--log-dir", str(tmp_path / "logs"),
+        "-b", "TrainConfig.max_steps = 2", "-b", "GeneralDataModule.batch_size = 2",
+        "-b", "TrainConfig.log_every_n_steps = 1", "-b", "TrainConfig.val_every_n_steps = 2",
+    ])
+    assert rc == 0
+    with open(tmp_path / "logs" / "metrics.csv") as f:
+        train_rows = [r for r in csv.DictReader(f) if r["train/loss"]]
+    assert [r["step"] for r in train_rows] == ["1", "2"]
+    assert all(np.isfinite(float(r[k])) for r in train_rows for k in ("train/loss", "grad_norm"))
+    gin.clear_config()
+    synth = Synthesizer.from_checkpoint(str(tmp_path / "ckpt" / "best.ckpt"), device="cpu")
+    assert synth.model.compute_dtype == "float32"
+    assert {t.dtype for t in synth.model.parameters()} == {torch.float32}
 
 
 @pytest.mark.parametrize("out_mixer", [False, True])
