@@ -68,7 +68,9 @@ exits non-zero:
    within 1e-3 normalised, or by the float64-witness rule;
 8. train: ``Trainer(device="cuda").fit`` for 30 steps at batch 8 x 4 s
    from a seeded random init on a synthetic shard dataset written here
-   (harmonic tones with their controls); finite losses, one launch of
+   (harmonic tones with their controls: 16 train, 4 val and 16 test clips,
+   the test split drawn last, so a dataset written without it has the same
+   train and val bytes, checked); finite losses, one launch of
    each kernel per step (and one forward launch per validation batch),
    moved parameters; then the checkpoint it
    wrote served by ``Synthesizer.from_checkpoint(device="cuda")``;
@@ -106,7 +108,7 @@ exits non-zero:
    the tone dataset of phase 8, in this process: every step launches the
    audio-rate forward and backward once (and each validation batch the
    forward) and never the cr kernels; finite losses, ``metrics.csv`` with
-   the JAX columns, ``last.ckpt`` and ``best.ckpt``; then the checkpoint
+   the JAX columns, ``last.ckpt``, ``best.ckpt`` and the two step saves; then the checkpoint
    served by ``Synthesizer`` with ``fused="full_lane"`` and ``"cr"`` (the
    two renders within 1e-5 nRMS);
 15. kernel_fl: the audio-rate forward against its plain version (rtol
@@ -188,17 +190,46 @@ exits non-zero:
    and bounds (the bytes at the tensors' own sizes); the training step at
    batch 8 x 4 s in float32 (full_lane_cr), bf16 with the chain and bf16 with
    full_lane_cr, in turns (six medians of 20 each), with each arm's peak
-   memory.
+   memory;
+29. train_resume: the training runtime with the recipe's ``NEWT.fused =
+   'full_lane_cr'`` at batch 8 x 4 s, validating and checkpointing every 5
+   steps (keep 2): ``Trainer.fit`` to 20 steps twice, and to 10 and then, on
+   a model of another seed, ``fit(restore=True)`` to 20. The restored state
+   (parameters, Adam's moments and step, the learning rate, StepLR's state,
+   the step) must be bit-equal to the one saved at step 10; the resumed
+   run's losses bit-identical to the first twin's if the twins are, else
+   within 2x the twins' largest relative difference plus 1e-6 (cuDNN's GRU
+   backward and atomics-based ops need not repeat bit for bit); each run
+   launches kernel 2 once a step and kernel 1 once a step and once a
+   validation batch, and nothing else; checkpoint_write: what a
+   validation's three checkpoint files cost;
+30. train_cli_resume: ``scripts/torch_train.py`` with the recipe for 10
+   steps in memory and with ``--no-load-data-to-memory``, three runs of each
+   in turns, then the last lazy run ``--restore-checkpoint`` to 20: it
+   resumes at step 10 and ends at 20, ``metrics.csv``'s steps do not
+   repeat, ``best.ckpt``'s val_loss is the lowest logged; the 10 steps'
+   seconds of each run of both loaders, and their medians (counted);
+31. resynth_cli: ``scripts/torch_resynthesise_dataset.py`` on the test split
+   (16 clips, two batches of its default 8) from that run's checkpoint
+   directory (its best-on-val save), with kernel 1 and with
+   ``--use-fast-newt`` (kernel 4, and not kernel 1): once with ``--device
+   cpu``, then one untimed and five timed calls of each arm on the card, in
+   turns; every card call gives the same distances, and the last is within
+   1e-3 nRMS per clip of the CPU's; x real time per warm call (median, least
+   and most), per batch (median), and the mean STFT distance.
 
-Then the kernels line (the numbers of phases 3-28 per kernel, with its
+Then the kernels line (the numbers of phases 3-31 per kernel, with its
 least possible time on an H100 from its bytes and operations; kernels 1 and
 2's bf16 instances as entries of their own) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN (the GRU), so the card computes in float32 like the CPU reference.
 """
+import contextlib
 import copy
 import csv
+import dataclasses
 import importlib.util
+import io
 import json
 import statistics
 import subprocess
@@ -232,6 +263,7 @@ from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
 from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping
 from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample, segment_interp
 from neural_waveshaping_synthesis_tpu_torch.streaming import PipelinedStreamer, StreamingSynth
+from neural_waveshaping_synthesis_tpu_torch.convert import load_lightning_checkpoint
 from neural_waveshaping_synthesis_tpu_torch.training import TrainConfig, Trainer, compute_loss
 
 REPO = Path(__file__).resolve().parent
@@ -310,6 +342,16 @@ BF16_FLOOR = 1e-3  # nRMS, and at least this far from it: the render computed in
 # kernel 1 and 2's bf16 instances: the counters' suffix -> the name's suffix in
 # the kernels line ((bf16 exciter, bf16 FiLM) and (bf16 exciter, f32 FiLM))
 BF16_INSTANCES = {"bf16": "[bf16]", "bf16_f32": "[bf16, f32 film]"}
+# the tone dataset's splits; the test split is drawn after train and val, so
+# their bytes are those of a dataset written without it
+TONE_SPLITS = (("train", 16), ("val", 4), ("test", 16))
+# the resume phases: uninterrupted to RESUME_STEPS, or to RESUME_AT and
+# restored, validating (and checkpointing) every RESUME_VAL_EVERY steps
+RESUME_STEPS, RESUME_AT, RESUME_VAL_EVERY = 20, 10, 5
+# train_cli_resume times the eager and the lazy loader over this many
+# 10-step CLI runs each, in turns; resynth_cli times this many warm calls of
+# each arm, in turns, after one untimed call each
+CLI_TURNS, RESYNTH_CALLS = 3, 5
 
 
 def emit(obj):
@@ -427,6 +469,19 @@ def write_tone_dataset(root: Path, splits=(("train", 16), ("val", 4)), seconds=4
     np.save(root / "data_mean.npy", mean.astype(np.float32))
     np.save(root / "data_std.npy", std.astype(np.float32))
     return str(root)
+
+
+def check_tone_splits(root: Path, other: Path) -> None:
+    """The tone dataset's train and val files and statistics are those of
+    one written without the test split, byte for byte."""
+    write_tone_dataset(other, splits=TONE_SPLITS[:2])
+    files = sorted(p.relative_to(other) for p in other.rglob("*.npy"))
+    differ = [str(f) for f in files if (root / f).read_bytes() != (other / f).read_bytes()]
+    n_test = len(list((root / "test" / "audio").iterdir()))
+    emit({"phase": "tone_dataset", "splits": dict(TONE_SPLITS), "files_compared": len(files),
+          "files_differ": differ, "test_clips": n_test})
+    if differ or n_test != dict(TONE_SPLITS)["test"]:
+        raise RuntimeError(f"the test split changed the train/val files {differ}")
 
 
 def train_step_kernel_inputs(trainer, batch):
@@ -945,7 +1000,8 @@ def audio_rate_phases(dev, synth, root, tmp):
         raise RuntimeError(f"metrics.csv columns {reader.fieldnames}, {len(losses)} train rows")
     if not np.all(np.isfinite(losses + val)):
         raise RuntimeError("the CLI's losses are not finite")
-    if ckpts != ["best.ckpt", "last.ckpt"]:
+    kept = [f"step={s}.ckpt" for s in range(CLI_VAL_EVERY, CLI_STEPS + 1, CLI_VAL_EVERY)][-2:]
+    if ckpts != ["best.ckpt", "last.ckpt"] + kept:
         raise RuntimeError(f"the CLI wrote {ckpts}")
     launches = {"fl": got["fl"], "fl_bwd": got["fl_bwd"]}
 
@@ -2002,6 +2058,259 @@ def mixed_precision_phases(dev, root, tmp):
     return {"launches": launches, "fwd_err": fwd_err, "bwd_err": bwd_err, "numbers": numbers}
 
 
+def recipe_model(seed):
+    """The shipped architecture from a seeded init, with the recipe's
+    ``NEWT.fused = 'full_lane_cr'`` (kernels 1 and 2 at hop 128)."""
+    model = NeuralWaveshaping(generator=torch.Generator().manual_seed(seed))
+    model.newt.fused = "full_lane_cr"
+    return model
+
+
+def train_state_snapshot(trainer):
+    """Every tensor and counter of a trainer's training state, on the CPU."""
+    opt = trainer.optimizer
+    snap = {f"param{i}": p.detach().cpu().clone() for i, p in enumerate(opt.params)}
+    for i, p in enumerate(opt.params):
+        for key, value in opt.adam.state[p].items():
+            snap[f"adam{i}/{key}"] = value.detach().cpu().clone()
+    snap["lr"] = opt.adam.param_groups[0]["lr"]
+    snap["schedule"] = opt.schedule.state_dict()
+    snap["step"] = trainer.step
+    return snap
+
+
+def snapshot_differences(a, b):
+    """The entries of two snapshots that are not the same bits."""
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        return x == y
+    return sorted(k for k in a.keys() | b.keys() if k not in a or k not in b or not same(a[k], b[k]))
+
+
+def max_rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def counted(fn, expect):
+    """Run fn with every count zeroed just before and read just after ->
+    (its result, the counts, seconds); raises unless the counts are
+    ``expect`` and every other kernel's is 0."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counts()
+    wrong = {k: v for k, v in got.items() if v != expect.get(k, 0)}
+    if wrong:
+        raise RuntimeError(f"launches {got}, expected {expect}")
+    return out, got, seconds
+
+
+def runtime_phases(dev, root, tmp):
+    """Phases 29-31 (the training runtime: resume, lazy loading, batch
+    resynthesis) -> the launches of kernels 1, 2 and 4 in them."""
+    launches = {"cr": 0, "bwd": 0, "lookup": 0}
+    dm = GeneralDataModule(root, batch_size=8)
+    val_batches = dm.n_batches("val")
+
+    def cfg(steps, folder):
+        return TrainConfig(max_steps=steps, val_every_n_steps=RESUME_VAL_EVERY,
+                           log_every_n_steps=RESUME_VAL_EVERY, keep_n_checkpoints=2,
+                           checkpoint_dir=str(tmp / folder))
+
+    def fit(trainer, steps, restore=False):
+        vals = steps // RESUME_VAL_EVERY
+        history, got, seconds = counted(lambda: trainer.fit(dm, restore=restore),
+                                        {"cr": steps + val_batches * vals, "bwd": steps})
+        launches["cr"] += got["cr"]
+        launches["bwd"] += got["bwd"]
+        return history, seconds
+
+    # 29. train_resume: uninterrupted twice, then to RESUME_AT and, from a
+    # model of another seed, fit(restore=True) to RESUME_STEPS
+    twins = []
+    for name in ("twin_a", "twin_b"):
+        history, seconds = fit(Trainer(recipe_model(0), cfg(RESUME_STEPS, name), device="cuda"),
+                               RESUME_STEPS)
+        twins.append((history, seconds))
+    first = Trainer(recipe_model(0), cfg(RESUME_AT, "parts"), device="cuda")
+    head, head_s = fit(first, RESUME_AT)
+    saved = train_state_snapshot(first)
+    probe = Trainer(recipe_model(5), cfg(RESUME_STEPS, "parts"), device="cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        probe.restore()
+    restored_diff = snapshot_differences(saved, train_state_snapshot(probe))
+    del probe
+    resumed = Trainer(recipe_model(5), cfg(RESUME_STEPS, "parts"), device="cuda")
+    tail, tail_s = fit(resumed, RESUME_STEPS - RESUME_AT, restore=True)
+    a, b = twins[0][0]["loss"], twins[1][0]["loss"]
+    twins_bitwise = a == b
+    twins_rel = max_rel(b, a)
+    resumed_rel = max_rel(tail["loss"], a[RESUME_AT:])
+    head_rel = max_rel(head["loss"], a[:RESUME_AT])
+    bar = 0.0 if twins_bitwise else 2 * twins_rel + 1e-6
+    files = sorted(p.name for p in (tmp / "parts").glob("*.ckpt"))
+    emit({"phase": "train_resume", "B": 8, "clip_s": 4.0, "steps": RESUME_STEPS,
+          "resumed_at": RESUME_AT, "val_every": RESUME_VAL_EVERY, "keep_n": 2,
+          "restored_entries": len(saved), "restored_not_bit_equal": restored_diff,
+          "twins_bit_identical": twins_bitwise, "twins_max_rel": twins_rel,
+          "resumed_max_rel": resumed_rel, "head_max_rel": head_rel, "bar": bar,
+          "resumed_bit_identical": tail["loss"] == a[RESUME_AT:],
+          "fit_s": {"twin_a": twins[0][1], "twin_b": twins[1][1], "head": head_s, "tail": tail_s},
+          "val": {"twin_a": twins[0][0]["val"], "resumed": head["val"] + tail["val"]},
+          "checkpoints": files, "step": resumed.step})
+    if restored_diff:
+        raise RuntimeError(f"train_resume: restored state differs from the saved one in {restored_diff}")
+    if resumed.step != RESUME_STEPS or len(tail["loss"]) != RESUME_STEPS - RESUME_AT:
+        raise RuntimeError(f"train_resume: ended at step {resumed.step}")
+    if not np.all(np.isfinite(a + b + tail["loss"])) or resumed_rel > bar:
+        raise RuntimeError(f"train_resume: resumed losses {resumed_rel} from the uninterrupted run, bar {bar}")
+
+    # ... and what a validation's checkpoints cost: last.ckpt written, the
+    # step save and best.ckpt copied from it (each call a new best)
+    resumed.cfg = dataclasses.replace(resumed.cfg, checkpoint_dir=str(tmp / "write_probe"))
+    resumed.saves, resumed.best_val_loss = {}, float("inf")
+    train = dm.dataset("train")
+    write_ms = []
+    for i in range(7):
+        resumed.step = RESUME_STEPS + i
+        t0 = time.perf_counter()
+        resumed.write_checkpoints(1.0 - 0.01 * i, train.data_mean, train.data_std)
+        write_ms.append((time.perf_counter() - t0) * 1e3)
+    ckpt_bytes = (tmp / "write_probe" / "last.ckpt").stat().st_size
+    emit({"phase": "checkpoint_write", "files_per_validation": 3, "ckpt_bytes": ckpt_bytes,
+          "write_ms_median": statistics.median(write_ms[2:]), "write_ms": write_ms})
+    del resumed, first
+
+    # 30. train_cli_resume: the CLI with the recipe, 10 steps in memory and
+    # lazily, then the lazy run restored to 20
+    cli = load_train_cli()
+
+    def cli_run(folder, steps, *extra):
+        args = ["--gin-file", "gin/train/train_newt.gin", "--dataset-path", root, "--device", "cuda",
+                "--checkpoint-dir", str(tmp / folder / "ck"), "--log-dir", str(tmp / folder / "logs"),
+                "-b", f"TrainConfig.max_steps = {steps}",
+                "-b", f"TrainConfig.val_every_n_steps = {RESUME_VAL_EVERY}",
+                "-b", f"TrainConfig.log_every_n_steps = {RESUME_VAL_EVERY}", *extra]
+        out = io.StringIO()
+        vals = RESUME_AT // RESUME_VAL_EVERY
+        try:
+            with contextlib.redirect_stdout(out):
+                _, got, seconds = counted(lambda: cli.main(args),
+                                          {"cr": RESUME_AT + val_batches * vals, "bwd": RESUME_AT})
+        finally:
+            gin.clear_config()
+        launches["cr"] += got["cr"]
+        launches["bwd"] += got["bwd"]
+        with open(tmp / folder / "logs" / "metrics.csv") as f:
+            table = list(csv.DictReader(f))
+        return out.getvalue(), table, seconds
+
+    def steps_s(table, first_step):
+        """The train windows' seconds from their steps_per_sec."""
+        rows = [r for r in table if r["train/loss"] and int(r["step"]) > first_step]
+        return sum(RESUME_VAL_EVERY / float(r["train/steps_per_sec"]) for r in rows)
+
+    # eager and lazy 10-step runs in turns, each in a directory of its own;
+    # the last lazy run's directory is the one resumed
+    loader_s = {"eager": [], "lazy": []}
+    for turn in range(CLI_TURNS):
+        for loader in ("eager", "lazy"):
+            folder = "cli_lazy" if (loader, turn) == ("lazy", CLI_TURNS - 1) else f"cli_{loader}{turn}"
+            extra = ("--no-load-data-to-memory",) if loader == "lazy" else ()
+            _, head_table, _ = cli_run(folder, RESUME_AT, *extra)
+            loader_s[loader].append(steps_s(head_table, 0))
+    text, table, resume_s = cli_run("cli_lazy", RESUME_STEPS, "--no-load-data-to-memory",
+                                    "--restore-checkpoint")
+    train_steps = [int(r["step"]) for r in table if r["train/loss"]]
+    val_rows = [(int(r["step"]), float(r["val/loss"])) for r in table if r["val/loss"]]
+    best_step, best_val = (load_lightning_checkpoint(str(tmp / "cli_lazy" / "ck" / "best.ckpt"))[k]
+                           for k in ("global_step", "val_loss"))
+    losses = [float(r["train/loss"]) for r in table if r["train/loss"]]
+    resumed_line = f"[trainer] resumed from step {RESUME_AT}"
+    emit({"phase": "train_cli_resume", "resumed": resumed_line in text,
+          "finished": f"[train] finished at step {RESUME_STEPS}" in text,
+          "train_steps": train_steps, "val": val_rows, "best": [best_step, best_val],
+          "checkpoints": sorted(p.name for p in (tmp / "cli_lazy" / "ck").glob("*.ckpt")),
+          "turns": CLI_TURNS, "eager_10_steps_s": loader_s["eager"],
+          "lazy_10_steps_s": loader_s["lazy"],
+          "eager_10_steps_s_median": statistics.median(loader_s["eager"]),
+          "lazy_10_steps_s_median": statistics.median(loader_s["lazy"]),
+          "resumed_10_steps_s": steps_s(table, RESUME_AT), "resume_call_s": resume_s})
+    expect_steps = list(range(RESUME_VAL_EVERY, RESUME_STEPS + 1, RESUME_VAL_EVERY))
+    if resumed_line not in text or f"[train] finished at step {RESUME_STEPS}" not in text:
+        raise RuntimeError("train_cli_resume: the CLI did not resume at step 10 and end at 20")
+    if train_steps != expect_steps or [s for s, _ in val_rows] != expect_steps:
+        raise RuntimeError(f"train_cli_resume: CSV steps {train_steps}, val {val_rows}")
+    if best_val != min(v for _, v in val_rows) or not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"train_cli_resume: best.ckpt val_loss {best_val}, logged {val_rows}")
+
+    # 31. resynth_cli: the test split (two batches of the script's default
+    # 8) through the lazy run's best-on-val save, with kernel 1 and with
+    # FastNEWT (kernel 4): once on the CPU, then one untimed and
+    # RESYNTH_CALLS timed calls of each arm on the card, in turns
+    spec = importlib.util.spec_from_file_location(
+        "torch_resynthesise_dataset", REPO / "scripts" / "torch_resynthesise_dataset.py")
+    resynth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(resynth)
+    n_test = len(dm.dataset("test"))
+    batches = -(-n_test // 8)
+    arms = {"cr": False, "fast_newt": True}
+
+    def resynth_run(label, device):
+        argv = ["--dataset-path", root, "--checkpoint", str(tmp / "cli_lazy" / "ck"),
+                "--output-path", str(tmp / f"resynth_{label}_{device}"), "--device", device]
+        argv += ["--use-fast-newt"] if arms[label] else []
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                if device == "cpu":
+                    return resynth.run(argv)
+                expect = {"lookup": batches} if arms[label] else {"cr": batches}
+                result, got, _ = counted(lambda: resynth.run(argv), expect)
+        finally:
+            gin.clear_config()
+        launches["cr"] += got["cr"]
+        launches["lookup"] += got["lookup"]
+        return result
+
+    cpu = {label: resynth_run(label, "cpu") for label in arms}
+    card = {label: [] for label in arms}
+    for _ in range(1 + RESYNTH_CALLS):
+        for label in arms:
+            card[label].append(resynth_run(label, "cuda"))
+    clip_s = len(cpu["cr"]["outputs"][0]) / SR
+    medians = {}
+    for label in arms:
+        runs = card[label]
+        warm = runs[1:]
+        call_x = [n_test * clip_s / r["render_s"] for r in warm]
+        batch_x = [min(8, n_test - 8 * k) * clip_s / t for r in warm for k, t in enumerate(r["batch_s"])]
+        medians[label] = statistics.median(call_x)
+        per_clip = [nrms(x, y) for x, y in zip(runs[-1]["outputs"], cpu[label]["outputs"])]
+        wavs = sorted(p.name for p in (tmp / f"resynth_{label}_cuda").iterdir())
+        emit({"phase": "resynth_cli", "case": label, "clips": n_test, "clip_s": clip_s,
+              "batch_size": 8, "checkpoint": Path(runs[-1]["checkpoint"]).name,
+              "launches_per_call": batches, "nrms_card_vs_cpu_max": max(per_clip), "bar": 1e-3,
+              "mean_stft_distance": float(np.mean(runs[-1]["distances"])),
+              "mean_stft_distance_cpu": float(np.mean(cpu[label]["distances"])),
+              "warm_calls": len(warm), "x_realtime_calls": call_x,
+              "x_realtime_median": medians[label], "x_realtime_min": min(call_x),
+              "x_realtime_max": max(call_x), "x_realtime_batch_median": statistics.median(batch_x),
+              "x_realtime_first_call": n_test * clip_s / runs[0]["render_s"],
+              "cpu_render_s": cpu[label]["render_s"], "wavs": len(wavs)})
+        if Path(runs[-1]["checkpoint"]).name != "best.ckpt" or len(wavs) != 2 * n_test:
+            raise RuntimeError(f"resynth_cli {label}: {runs[-1]['checkpoint']}, {len(wavs)} wavs")
+        if any(r["distances"] != runs[0]["distances"] for r in runs):
+            raise RuntimeError(f"resynth_cli {label}: the calls on the card differ")
+        if not max(per_clip) <= 1e-3 or not np.all(np.isfinite(runs[-1]["distances"])):
+            raise RuntimeError(f"resynth_cli {label}: card vs CPU nRMS {per_clip}")
+    emit({"phase": "resynth_cli", "case": "fast_newt_over_cr",
+          "x_realtime_median_ratio": medians["fast_newt"] / medians["cr"]})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -2147,24 +2456,26 @@ def main() -> int:
     timbre = timbre_phases(dev, synth, cpu_synth)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        root = write_tone_dataset(tmp / "data")
+        root = write_tone_dataset(tmp / "data", splits=TONE_SPLITS)
+        check_tone_splits(Path(root), tmp / "data_without_test")
         train = train_phases(dev, root, tmp)
         fl = audio_rate_phases(dev, synth, root, tmp)
         x = exciter_fused_phases(dev, synth, root, tmp, batch, single)
         mp = mixed_precision_phases(dev, root, tmp)
+        rt = runtime_phases(dev, root, tmp)
 
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:779",
-        "launches": launches + train["fwd_launches"], "max_abs_err": max_err,
+        "launches": launches + train["fwd_launches"] + rt["cr"], "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }, {
         "name": "_fused_bwd_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr_bwd.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:822",
-        "launches": train["bwd_launches"], "max_abs_err": train["max_abs_err"],
+        "launches": train["bwd_launches"] + rt["bwd"], "max_abs_err": train["max_abs_err"],
         "ms": train["ms"], "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
         "bound_by": train["bound_by"], "library_ms": None,
     }, {
@@ -2178,7 +2489,7 @@ def main() -> int:
         "name": "fast_newt_lookup", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/fast_newt_lookup.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/fast_newt.py:68",
-        "launches": timbre["launches"], "max_abs_err": timbre["max_abs_err"],
+        "launches": timbre["launches"] + rt["lookup"], "max_abs_err": timbre["max_abs_err"],
         "ms": timbre["ms"], "plain_ms": timbre["plain_ms"], "bound_ms": timbre["bound_ms"],
         "bound_by": timbre["bound_by"], "library_ms": None,
     }, {

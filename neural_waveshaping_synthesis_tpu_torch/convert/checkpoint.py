@@ -70,6 +70,11 @@ class _StubFinder(importlib.abc.MetaPathFinder):
         return None
 
 
+# Keys a Lightning checkpoint uses for the training state, under which the
+# port's Trainer saves its own (see ``Trainer.save_checkpoint``).
+TRAINING_STATE_KEYS = ("optimizer_states", "lr_schedulers", "val_loss")
+
+
 def load_lightning_checkpoint(path: str) -> Dict:
     """Load a PL checkpoint file into a plain dict of numpy arrays.
 
@@ -78,11 +83,12 @@ def load_lightning_checkpoint(path: str) -> Dict:
     Without ``pytorch_lightning`` installed, stub modules stand in for it
     during the unpickling only: left in place, they would answer every
     later ``import pytorch_lightning`` (torch probes for it) with a module
-    that is not one."""
+    that is not one. Whether the package is installed is asked of the path
+    finder alone, not by importing it: another stub finder on
+    ``sys.meta_path`` (the JAX package's loader leaves one) would answer the
+    import with a stub that stays."""
     finder = None
-    try:
-        import pytorch_lightning  # noqa: F401
-    except ImportError:
+    if importlib.machinery.PathFinder.find_spec("pytorch_lightning") is None:
         finder = _StubFinder()
         sys.meta_path.insert(0, finder)
     try:
@@ -93,12 +99,16 @@ def load_lightning_checkpoint(path: str) -> Dict:
             for name in [n for n in sys.modules if n.split(".")[0] == "pytorch_lightning"]:
                 del sys.modules[name]
     state = {k: v.detach().numpy() for k, v in ckpt["state_dict"].items()}
-    return {
+    out = {
         "state_dict": state,
         "hyper_parameters": dict(ckpt.get("hyper_parameters") or {}),
         "epoch": ckpt.get("epoch"),
         "global_step": ckpt.get("global_step"),
     }
+    # the training state a port checkpoint carries beside the weights
+    # (training/trainer.py), where present
+    out.update({k: ckpt[k] for k in TRAINING_STATE_KEYS if k in ckpt})
+    return out
 
 
 def _dense(sd, prefix):
@@ -258,9 +268,13 @@ def save_reference_checkpoint(
     hparams: Optional[Dict] = None,
     step: int = 0,
     epoch: int = 0,
+    extra: Optional[Dict] = None,
 ) -> None:
     """Write a reference-format ``.ckpt``: the PL dict format with plain
-    containers only, so no ``pytorch_lightning`` is needed to read it."""
+    containers only, so no ``pytorch_lightning`` is needed to read it.
+    ``extra`` adds top-level keys (the Trainer's training state). The file
+    is written beside ``path`` and renamed into place, so a reader never
+    sees half of one."""
     sd = params_to_reference_state_dict(params)
     ckpt = {
         "state_dict": {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()},
@@ -276,5 +290,8 @@ def save_reference_checkpoint(
         "epoch": epoch,
         "global_step": step,
         "pytorch-lightning_version": "1.1.2",
+        **(extra or {}),
     }
-    torch.save(ckpt, path)
+    tmp = f"{path}.tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)

@@ -13,13 +13,16 @@ package and the reference):
 Control channels: 0 = f0 (Hz), 1 = loudness, 2 = CREPE confidence,
 3-18 = MFCC. Items expose denormalised f0/amp like the reference.
 
-A split is loaded once into two dense float32 arrays (a 4-s split is a
-few hundred MB at most); batches are numpy arrays of static shape
-(remainder dropped), which the trainer copies to its device. Train
-batches are shuffled per pass by a seeded ``np.random.default_rng``.
+By default a split is loaded once into two dense float32 arrays (a 4-s
+split is a few hundred MB at most). With ``load_to_memory=False`` the
+shards stay on disk and each batch or item loads its own, for corpora
+larger than host memory; the arrays are the same bit for bit. Batches
+are numpy arrays of static shape (remainder dropped), which the trainer
+copies to its device. Train batches are shuffled per pass by a seeded
+``np.random.default_rng``; val and test iterate in order.
 """
 import os
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -27,30 +30,44 @@ from .. import minigin as gin
 
 
 class GeneralDataset:
-    """One split of (audio, control) pairs, stacked in memory."""
+    """One split of (audio, control) pairs: stacked in memory, or, with
+    ``load_to_memory=False``, read from its shards per call (``audio`` and
+    ``control`` are then None)."""
 
-    def __init__(self, path: str, split: str = "train"):
+    def __init__(self, path: str, split: str = "train", load_to_memory: bool = True):
         self.path = path
         self.split = split
-        split_path = os.path.join(path, split)
+        self.load_to_memory = load_to_memory
+        self._split_path = os.path.join(path, split)
         self.names = sorted(
             f[len("audio_") : -len(".npy")]
-            for f in os.listdir(os.path.join(split_path, "audio"))
+            for f in os.listdir(os.path.join(self._split_path, "audio"))
             if f.endswith(".npy") and f.startswith("audio_")
         )
         self.data_mean = np.load(os.path.join(path, "data_mean.npy")).astype(np.float32)  # (C, 1)
         self.data_std = np.load(os.path.join(path, "data_std.npy")).astype(np.float32)
+        self.audio: Optional[np.ndarray] = None
+        self.control: Optional[np.ndarray] = None
+        if load_to_memory:
+            self.audio, self.control = self._load(range(len(self.names)))
+
+    def _load(self, indices) -> Tuple[np.ndarray, np.ndarray]:
+        """The clips at ``indices`` -> (audio (N, Ta), control (N, Tc, C))."""
         audio, control = [], []
-        for name in self.names:
-            audio.append(np.load(os.path.join(split_path, "audio", f"audio_{name}.npy")))
-            control.append(np.load(os.path.join(split_path, "control", f"control_{name}.npy")))
-        if audio:
-            self.audio = np.stack(audio).astype(np.float32)  # (N, Ta)
-            # stored channel-first (C, Tc) -> channels-last (N, Tc, C)
-            self.control = np.stack(control).astype(np.float32).transpose(0, 2, 1)
-        else:
-            self.audio = np.zeros((0, 0), np.float32)
-            self.control = np.zeros((0, 0, 0), np.float32)
+        for i in indices:
+            name = self.names[i]
+            audio.append(np.load(os.path.join(self._split_path, "audio", f"audio_{name}.npy")))
+            control.append(np.load(os.path.join(self._split_path, "control", f"control_{name}.npy")))
+        if not audio:
+            return np.zeros((0, 0), np.float32), np.zeros((0, 0, 0), np.float32)
+        # stored channel-first (C, Tc) -> channels-last (N, Tc, C)
+        return (np.stack(audio).astype(np.float32),
+                np.stack(control).astype(np.float32).transpose(0, 2, 1))
+
+    def _clips(self, indices) -> Tuple[np.ndarray, np.ndarray]:
+        if self.load_to_memory:
+            return self.audio[indices], self.control[indices]
+        return self._load(np.atleast_1d(indices))
 
     def __len__(self) -> int:
         return len(self.names)
@@ -60,7 +77,7 @@ class GeneralDataset:
         return control_tc * self.data_std.T + self.data_mean.T
 
     def __getitem__(self, idx: int) -> Dict:
-        audio, control = self.audio[idx], self.control[idx]
+        (audio,), (control,) = self._clips([idx])
         denorm = self.denormalize(control)
         return {
             "audio": audio,
@@ -72,42 +89,53 @@ class GeneralDataset:
 
     def batch(self, indices: np.ndarray) -> Dict:
         """-> {audio (B, Ta), f0 (B, Tc) Hz, control (B, Tc, C) z-scored}."""
-        audio, control = self.audio[indices], self.control[indices]
+        audio, control = self._clips(indices)
         return {"audio": audio, "f0": self.denormalize(control)[:, :, 0], "control": control}
 
 
 @gin.configurable
 class GeneralDataModule:
-    """Batch streams for train and val (reference ``data/general.py``).
+    """Batch streams for train, val and test (reference ``data/general.py``).
 
     Train batches are shuffled per pass with ``np.random.default_rng(seed)``
-    and sized statically, the remainder dropped; val iterates in order
-    and drops a short final batch the same way. A split smaller than
-    ``batch_size`` gives one batch of the whole split."""
+    and sized statically, the remainder dropped; val and test iterate in
+    order and drop a short final batch the same way. A split smaller than
+    ``batch_size`` gives one batch of the whole split. ``load_to_memory``
+    (default on) is the datasets' (:class:`GeneralDataset`)."""
 
-    def __init__(self, data_root: str, batch_size: int = 16):
+    def __init__(self, data_root: str, batch_size: int = 16, load_to_memory: bool = True):
         self.data_root = data_root
         self.batch_size = batch_size
+        self.load_to_memory = load_to_memory
         self._splits: Dict[str, GeneralDataset] = {}
 
     def dataset(self, split: str) -> GeneralDataset:
         if split not in self._splits:
-            self._splits[split] = GeneralDataset(self.data_root, split)
+            self._splits[split] = GeneralDataset(self.data_root, split, self.load_to_memory)
         return self._splits[split]
 
-    def _batches(self, split: str, order: np.ndarray) -> Iterator[Dict]:
-        ds = self.dataset(split)
-        bs = min(self.batch_size, len(ds))
-        if not bs:
-            return
-        for start in range(0, len(ds) - bs + 1, bs):
-            yield ds.batch(order[start : start + bs])
+    def _batch_size(self, split: str) -> int:
+        return min(self.batch_size, len(self.dataset(split)))
 
-    def train_batches(self, seed) -> Iterator[Dict]:
-        """One shuffled pass; ``seed`` is anything ``np.random.default_rng``
-        takes (the trainer passes (run seed, epoch))."""
+    def n_batches(self, split: str) -> int:
+        """The batches one pass over ``split`` gives."""
+        bs = self._batch_size(split)
+        return len(self.dataset(split)) // bs if bs else 0
+
+    def _batches(self, split: str, order: np.ndarray, start: int = 0) -> Iterator[Dict]:
+        ds, bs = self.dataset(split), self._batch_size(split)
+        for i in range(start, self.n_batches(split)):
+            yield ds.batch(order[i * bs : (i + 1) * bs])
+
+    def train_batches(self, seed, start: int = 0) -> Iterator[Dict]:
+        """One shuffled pass from its ``start``-th batch on (the earlier ones
+        are not loaded); ``seed`` is anything ``np.random.default_rng`` takes
+        (the trainer passes (run seed, 2, epoch))."""
         n = len(self.dataset("train"))
-        return self._batches("train", np.random.default_rng(seed).permutation(n))
+        return self._batches("train", np.random.default_rng(seed).permutation(n), start)
 
     def val_batches(self) -> Iterator[Dict]:
         return self._batches("val", np.arange(len(self.dataset("val"))))
+
+    def test_batches(self) -> Iterator[Dict]:
+        return self._batches("test", np.arange(len(self.dataset("test"))))

@@ -1,20 +1,21 @@
 """Metric and audio loggers (counterpart of the JAX ``training/logging.py``).
 
-Two backends behind one duck-typed interface, ``log_metrics(metrics,
+Three backends behind one duck-typed interface, ``log_metrics(metrics,
 step)`` and ``log_audio(name, audio, sample_rate, step)``, with the JAX
 metric names (``train/loss``, ``train/lr``, ``train/steps_per_sec``,
-``grad_norm``, ``val/loss``) and CSV columns:
+``grad_norm``, ``val/loss``, ``test/loss``) and CSV columns:
 
   ConsoleLogger — one stdout line per call;
   CSVLogger     — append-only ``metrics.csv``, and audio snapshots as wavs
-                  in ``audio/`` beside it.
-
-The JAX ``WandbLogger`` is not ported (ROADMAP.md queue 1, Training runtime).
+                  in ``audio/`` beside it;
+  WandbLogger   — Weights & Biases, imported when it is built; it also has
+                  the ``log_params`` hook the Trainer calls at each
+                  validation.
 """
 import csv
 import os
 import time
-from typing import Dict
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 from scipy.io import wavfile
@@ -68,3 +69,49 @@ class CSVLogger:
         os.makedirs(audio_dir, exist_ok=True)
         safe = name.replace("/", "_")
         write_wav(os.path.join(audio_dir, f"{safe}_step{step}.wav"), audio, sample_rate)
+
+
+def _named_leaves(tree, prefix: Tuple = ()) -> Iterator[Tuple[str, np.ndarray]]:
+    """(path joined by "/", leaf) in the order JAX flattens a tree: dict
+    keys sorted, list items in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, prefix + (str(i),))
+    else:
+        yield "/".join(prefix), np.asarray(tree)
+
+
+class WandbLogger:
+    """Weights & Biases, as the JAX ``WandbLogger``. ``wandb`` is imported
+    when the logger is built, so building it without wandb installed raises
+    ImportError (the CLI builds it only under ``--with-wandb``)."""
+
+    def __init__(self, project: str = "neural-waveshaping-synthesis-tpu", **kwargs):
+        import wandb
+
+        self._wandb = wandb
+        self.run = wandb.init(project=project, **kwargs)
+
+    def log_metrics(self, metrics: Dict, step: int) -> None:
+        self._wandb.log(metrics, step=step)
+
+    def log_audio(self, name: str, audio: np.ndarray, sample_rate: int, step: int) -> None:
+        self._wandb.log(
+            {f"audio/{name}": self._wandb.Audio(audio, sample_rate=sample_rate, caption=name)},
+            step=step,
+        )
+
+    def log_params(self, params: Dict, step: int) -> None:
+        """A histogram per parameter tensor (``parameters/<path>``) and
+        their global norm (``parameters/global_norm``): the reference's
+        ``logger.watch(model, log="parameters")``, called by the Trainer
+        at each validation with host arrays in the JAX layout."""
+        payload, sq_sum = {}, 0.0
+        for name, arr in _named_leaves(params):
+            payload[f"parameters/{name}"] = self._wandb.Histogram(arr.ravel())
+            sq_sum += float(np.sum(arr.astype(np.float64) ** 2))
+        payload["parameters/global_norm"] = float(np.sqrt(sq_sum))
+        self._wandb.log(payload, step=step)

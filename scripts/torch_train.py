@@ -4,7 +4,8 @@ gin files (the counterpart of ``scripts/train.py``).
 
     python3 scripts/torch_train.py --gin-file gin/train/train_newt.gin \\
         --dataset-path data/shards [-b "NEWT.fused = 'full_lane'"] \\
-        [-b "TrainConfig.max_steps = 2000"] [--device cpu]
+        [-b "TrainConfig.max_steps = 2000"] [--device cpu] \\
+        [--no-load-data-to-memory] [--restore-checkpoint] [--with-wandb]
 
 The gin files and ``-b`` bindings are parsed in order, checked
 (``validate_config``: a binding no configurable takes is reported), and
@@ -12,15 +13,23 @@ printed; then the model (``get_model``, bound to ``@NeuralWaveshaping`` by
 ``gin/train/train_newt.gin``), the ``TrainConfig`` and the data module are
 built from them and ``Trainer.fit`` runs. Metrics go to stdout and to
 ``<log-dir>/metrics.csv`` with the validation audio beside it; checkpoints
-(``last.ckpt``, ``best.ckpt``) to ``TrainConfig.checkpoint_dir``.
+(``last.ckpt``, ``best.ckpt`` and the ``TrainConfig.keep_n_checkpoints``
+best-on-val ``step=<n>.ckpt``) to ``TrainConfig.checkpoint_dir``.
 
 ``NEWT.fused`` picks the NEWT kernels on the card: ``'full_lane_cr'`` (the
 recipe) and ``'cr'`` the control-rate pair, ``'full_lane'``, ``'fl'`` and
 ``True`` the audio-rate pair, ``False`` the plain chain. Runs on the card
 unless ``--device cpu`` is given (without a card the default raises).
 ``--device`` names the device; the JAX CLI's ``--device`` counted TPUs.
-Not ported: resume (``--restore-checkpoint``) and wandb
-(``--with-wandb``), which raise.
+
+``--restore-checkpoint`` resumes from the newest save in the checkpoint
+directory (``last.ckpt`` or a retained ``step=<n>.ckpt``), with its
+optimizer state, and continues to ``TrainConfig.max_steps``; with no save
+there it starts fresh. ``--no-load-data-to-memory`` reads each batch's
+shards from disk as it is needed (corpora larger than host memory).
+``--with-wandb`` also logs to Weights & Biases (it needs
+``wandb`` installed). Evaluate a run with
+``scripts/torch_resynthesise_dataset.py --checkpoint <checkpoint_dir>``.
 """
 import argparse
 import sys
@@ -39,6 +48,7 @@ from neural_waveshaping_synthesis_tpu_torch.training import (  # noqa: E402
     CSVLogger,
     TrainConfig,
     Trainer,
+    WandbLogger,
 )
 
 
@@ -63,8 +73,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--from-torch-checkpoint", default="",
                     help="start from a reference-format .ckpt (fine-tune), with a fresh optimizer")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--restore-checkpoint", action="store_true", help="not ported: raises")
-    ap.add_argument("--with-wandb", action="store_true", help="not ported: raises")
+    ap.add_argument("--load-data-to-memory", action=argparse.BooleanOptionalAction, default=True,
+                    help="stack each split in host memory (default); with "
+                         "--no-load-data-to-memory each batch reads its shards from disk")
+    ap.add_argument("--restore-checkpoint", action="store_true",
+                    help="resume from the newest checkpoint in TrainConfig.checkpoint_dir")
+    ap.add_argument("--with-wandb", action="store_true", help="also log to Weights & Biases")
     args = ap.parse_args(argv)
     args.gin_file = args.gin_file or ["gin/train/train_newt.gin"]
     return args
@@ -72,10 +86,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.restore_checkpoint:
-        raise NotImplementedError("resume is not ported yet (ROADMAP.md queue 1, Training runtime)")
-    if args.with_wandb:
-        raise NotImplementedError("wandb logging is not ported (ROADMAP.md queue 1, Training runtime)")
     for path in args.gin_file:
         gin.parse_config_file(path)
     for binding in args.gin_binding:
@@ -86,15 +96,18 @@ def main(argv=None) -> int:
     cfg = TrainConfig(**({"checkpoint_dir": args.checkpoint_dir} if args.checkpoint_dir else {}))
     model = get_model(generator=torch.Generator().manual_seed(cfg.seed))
     if args.urmp:
-        data = URMPDataModule(args.dataset_path, args.instrument)
+        data = URMPDataModule(args.dataset_path, args.instrument,
+                              load_to_memory=args.load_data_to_memory)
     else:
-        data = GeneralDataModule(args.dataset_path)
+        data = GeneralDataModule(args.dataset_path, load_to_memory=args.load_data_to_memory)
     initial = load_checkpoint(args.from_torch_checkpoint)[0] if args.from_torch_checkpoint else None
-    trainer = Trainer(model, cfg, device=args.device,
-                      loggers=[ConsoleLogger(), CSVLogger(args.log_dir)])
+    loggers = [ConsoleLogger(), CSVLogger(args.log_dir)]
+    if args.with_wandb:
+        loggers.append(WandbLogger())
+    trainer = Trainer(model, cfg, device=args.device, loggers=loggers)
     print(f"[train] {args.device}: max_steps={cfg.max_steps} batch={data.batch_size} "
-          f"NEWT.fused={model.newt.fused!r}", flush=True)
-    trainer.fit(data, initial_params=initial)
+          f"NEWT.fused={model.newt.fused!r} load_to_memory={data.load_to_memory}", flush=True)
+    trainer.fit(data, restore=args.restore_checkpoint, initial_params=initial)
     print(f"[train] finished at step {trainer.step}", flush=True)
     return 0
 

@@ -1,7 +1,7 @@
 """The port's training runtime around the kernels: its copy of minigin on
 the repo's gin files, the configurables those files bind, the loggers,
 ``URMPDataModule``, ``TrainConfig.data_parallel`` and the CLI
-``scripts/torch_train.py`` on the CPU. Where the JAX package has the same
+``scripts/torch_train.py`` on the CPU, with its resume and lazy loading. Where the JAX package has the same
 piece (minigin, the CSV logger) the two are held against each other."""
 import csv
 import importlib.util
@@ -235,10 +235,49 @@ def test_cli_trains_on_the_cpu_and_its_checkpoint_serves(cli, tmp_path):
     assert audio.shape == (40 * 128,) and np.all(np.isfinite(audio))
 
 
-@pytest.mark.parametrize("flag", ["--restore-checkpoint", "--with-wandb"])
-def test_cli_refuses_what_is_not_ported(cli, flag):
-    with pytest.raises(NotImplementedError):
-        cli.main(["--dataset-path", "unused", "--device", "cpu", flag])
+def _cli_run(cli, root, tmp_path, steps, *extra):
+    rc = cli.main([
+        "--gin-file", TRAIN_GIN, "--dataset-path", root, "--device", "cpu",
+        "--checkpoint-dir", str(tmp_path / "ckpt"), "--log-dir", str(tmp_path / "logs"),
+        "-b", f"TrainConfig.max_steps = {steps}", "-b", "GeneralDataModule.batch_size = 2",
+        "-b", "TrainConfig.log_every_n_steps = 1", "-b", "TrainConfig.val_every_n_steps = 2",
+        *extra,
+    ])
+    gin.clear_config()
+    with open(tmp_path / "logs" / "metrics.csv") as f:
+        return rc, list(csv.DictReader(f))
+
+
+def test_cli_restore_checkpoint_continues_a_run(cli, tmp_path, capsys):
+    """--restore-checkpoint continues a 4-step run to 8: it says it resumed
+    from step 4, and metrics.csv's train and val steps go on without a
+    repeat (1-8, and 2, 4, 6, 8)."""
+    import chip_smoke
+
+    root = chip_smoke.write_tone_dataset(tmp_path / "data", splits=(("train", 4), ("val", 2)), seconds=0.25)
+    assert _cli_run(cli, root, tmp_path, 4)[0] == 0
+    rc, table = _cli_run(cli, root, tmp_path, 8, "--restore-checkpoint")
+    assert rc == 0 and "[trainer] resumed from step 4" in capsys.readouterr().out
+    assert [int(r["step"]) for r in table if r["train/loss"]] == list(range(1, 9))
+    assert [int(r["step"]) for r in table if r["val/loss"]] == [2, 4, 6, 8]
+
+
+def test_cli_trains_without_loading_the_data_to_memory(cli, tmp_path, monkeypatch):
+    """--no-load-data-to-memory hands the Trainer a lazy data module, whose
+    run logs the same losses as the eager one, bit for bit."""
+    import chip_smoke
+
+    root = chip_smoke.write_tone_dataset(tmp_path / "data", splits=(("train", 4), ("val", 2)), seconds=0.25)
+    modules = []
+    real = trainer_module.Trainer.fit
+    monkeypatch.setattr(trainer_module.Trainer, "fit",
+                        lambda self, data, **kw: modules.append(data) or real(self, data, **kw))
+    runs = [_cli_run(cli, root, tmp_path / name, 2, *flag)
+            for name, flag in (("eager", ()), ("lazy", ("--no-load-data-to-memory",)))]
+    assert [m.load_to_memory for m in modules] == [True, False]
+    assert modules[1].dataset("train").audio is None
+    losses = [[r["train/loss"] for r in table if r["train/loss"]] for _, table in runs]
+    assert losses[0] == losses[1] and len(losses[0]) == 2
 
 
 def test_data_parallel_over_several_cards_raises(monkeypatch):
