@@ -216,9 +216,34 @@ exits non-zero:
    cpu``, then one untimed and five timed calls of each arm on the card, in
    turns; every card call gives the same distances, and the last is within
    1e-3 nRMS per clip of the CPU's; x real time per warm call (median, least
-   and most), per batch (median), and the mean STFT distance.
+   and most), per batch (median), and the mean STFT distance;
+32. preprocess_dataset: a wav corpus written here (four 16-s 16-kHz mono
+   tones with a rest, a 12-s 44.1-kHz int16 stereo tone, 8 s of noise)
+   through ``scripts/torch_create_dataset.py`` with the data gin file and
+   ``--f0-extractor yin``, on the card and with ``--device cpu``: at least
+   one 8-clip train batch and a val batch; the same shard files; audio atol
+   1e-5, loudness atol 1e-4, voiced f0 rtol 1e-4 and confidence atol 1e-4,
+   MFCC atol 1e-2 dB, the means within 1e-3 of a std and the stds rtol 1e-3
+   (``PRE_BARS``); the card builds twice (the first is timed cold), and the
+   count of files the two builds wrote differently is reported;
+33. preprocess_pyin: ``extract_f0_with_pyin`` on 4 s on the card against the
+   CPU: the decoded bins the same on >= 99 % of frames, f0 rtol 1e-4 and
+   periodicity atol 1e-4 where they are;
+34. preprocess_crepe: random full-capacity CREPE weights in torchcrepe's
+   layout, saved as a .pth and bound as ``--crepe-weights`` binds them:
+   ``extract_f0_with_crepe`` on 1 s on the card against the CPU (bins as
+   phase 33, periodicity atol 1e-3), then the CLI on the card with CREPE
+   (every segment kept): finite shards;
+35. train_from_created: ``scripts/torch_train.py`` with the recipe, 5 steps
+   at batch 8 on the card from phase 32's card tree: finite losses, kernels
+   1 and 2 counted;
+36. timing_preprocess: per extractor (YIN, pYIN, CREPE full) the seconds per
+   second of audio on the card at 4 and 60 s (medians of 5 after a warm-up),
+   the Viterbi decode's seconds and share, the CNN alone and its TFLOP/s,
+   the decode's device launches on 4 s (profiler), and the whole
+   ``create_dataset``'s seconds per second of audio on the card and the CPU.
 
-Then the kernels line (the numbers of phases 3-31 per kernel, with its
+Then the kernels line (the numbers of phases 3-35 per kernel, with its
 least possible time on an H100 from its bytes and operations; kernels 1 and
 2's bf16 instances as entries of their own) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -246,6 +271,8 @@ from scipy.io import wavfile
 from neural_waveshaping_synthesis_tpu_torch import minigin as gin
 from neural_waveshaping_synthesis_tpu_torch.data import GeneralDataModule
 from neural_waveshaping_synthesis_tpu_torch.data.preprocess import (
+    extract_f0_with_crepe,
+    extract_f0_with_pyin,
     extract_f0_with_yin,
     extract_perceptual_loudness,
     resample_audio,
@@ -261,6 +288,7 @@ from neural_waveshaping_synthesis_tpu_torch.inference import (
 from neural_waveshaping_synthesis_tpu_torch.kernels import _build, fast_newt
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
 from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping
+from neural_waveshaping_synthesis_tpu_torch.models import crepe
 from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample, segment_interp
 from neural_waveshaping_synthesis_tpu_torch.streaming import PipelinedStreamer, StreamingSynth
 from neural_waveshaping_synthesis_tpu_torch.convert import load_lightning_checkpoint
@@ -352,6 +380,21 @@ RESUME_STEPS, RESUME_AT, RESUME_VAL_EVERY = 20, 10, 5
 # 10-step CLI runs each, in turns; resynth_cli times this many warm calls of
 # each arm, in turns, after one untimed call each
 CLI_TURNS, RESYNTH_CALLS = 3, 5
+# the preprocessing phases: the data gin file, the card-vs-CPU bars of the
+# features (loudness and voiced f0 as timbre_card_vs_cpu's; audio as the
+# resampler's CPU bar; MFCC in dB and the statistics, stated here: a
+# channel's mean within stats_rtol of its std, its std rtol stats_rtol), the
+# share of frames whose decoded bin may differ, the timed clips' seconds
+DATA_GIN = "gin/data/urmp_4second_crepe.gin"
+PRE_BARS = {"audio_atol": 1e-5, "loudness_atol": 1e-4, "f0_rtol": 1e-4, "confidence_atol": 1e-4,
+            "mfcc_atol": 1e-2, "stats_rtol": 1e-3, "bins_differ_max": 0.01,
+            "periodicity_atol": 1e-4, "crepe_periodicity_atol": 1e-3}
+PRE_TIMED_S = (4, 60)
+PRE_TIMED_RUNS = 5
+CREPE_FULL_FLOP_PER_FRAME = 2 * sum(  # multiply-adds of the six convolutions and the classifier
+    out_len * c_out * c_in * w for out_len, c_in, c_out, w in (
+        (256, 1, 1024, 512), (128, 1024, 128, 64), (64, 128, 128, 64), (32, 128, 128, 64),
+        (16, 128, 256, 64), (8, 256, 512, 64))) + 2 * 2048 * 360
 
 
 def emit(obj):
@@ -2311,6 +2354,287 @@ def runtime_phases(dev, root, tmp):
     return launches
 
 
+def write_wav_corpus(root: Path, seed=0) -> list:
+    """A small wav corpus made here with numpy and scipy -> its files:
+    four 16-s 16-kHz int16 mono tones (five harmonics, f0 gliding within
+    110-660 Hz) with a 1-s rest of faint noise in their second 4-s window,
+    a 12-s 44.1-kHz int16 stereo tone (so the resampler and the downmix
+    run) and 8 s of noise (which the confidence filter drops)."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    for i in range(4):
+        f0 = np.geomspace(*np.sort(rng.uniform(110.0, 660.0, 2)), 16 * SR)
+        phase = 2 * np.pi * np.cumsum(f0) / SR
+        x = (0.15 + 0.1 * rng.uniform()) * sum(np.sin(k * phase) / k for k in range(1, 6))
+        x[5 * SR : 6 * SR] = 1e-4 * rng.standard_normal(SR)
+        wavfile.write(root / f"tone{i}.wav", SR, (x * 32767).astype(np.int16))
+    t = np.arange(12 * 44100) / 44100
+    stereo = np.stack([0.5 * np.sin(2 * np.pi * 247 * t) + 0.1 * np.sin(2 * np.pi * 494 * t),
+                       0.3 * np.sin(2 * np.pi * 370 * t)], axis=-1)
+    wavfile.write(root / "stereo44k.wav", 44100, (stereo * 32767).astype(np.int16))
+    wavfile.write(root / "noise.wav", SR, (0.05 * rng.standard_normal(8 * SR) * 32767).astype(np.int16))
+    return sorted(str(p) for p in root.iterdir())
+
+
+def load_script(name):
+    spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def shards_of(root: Path) -> dict:
+    """A shard tree -> {relative path: array}, the control shards back in
+    physical units with the tree's own statistics."""
+    mean, std = np.load(root / "data_mean.npy"), np.load(root / "data_std.npy")
+    out = {}
+    for p in sorted(root.rglob("*.npy")):
+        name = str(p.relative_to(root))
+        if not name.startswith("data_"):
+            x = np.load(p)
+            out[name] = x * std + mean if "/control/" in name else x
+    return out
+
+
+def tree_differences(card: Path, cpu: Path) -> dict:
+    """The card's shard tree against the CPU's, per quantity: the largest
+    difference, over voiced frames (the CPU's confidence > 0.5) for f0
+    (relative) and confidence."""
+    a, b = shards_of(card), shards_of(cpu)
+    if sorted(a) != sorted(b):
+        raise RuntimeError(f"preprocess_dataset: the trees hold different files: {sorted(set(a) ^ set(b))}")
+    diff = {"audio": 0.0, "f0_rel": 0.0, "loudness": 0.0, "confidence": 0.0, "mfcc": 0.0}
+    for name, x in a.items():
+        y = b[name]
+        if x.shape != y.shape or not np.all(np.isfinite(x)):
+            raise RuntimeError(f"preprocess_dataset: {name} {x.shape} vs {y.shape}")
+        if "/audio/" in name:
+            diff["audio"] = max(diff["audio"], float(np.abs(x - y).max()))
+            continue
+        voiced = y[2] > 0.5
+        diff["f0_rel"] = max(diff["f0_rel"], float((np.abs(x[0] - y[0]) / y[0])[voiced].max(initial=0.0)))
+        diff["loudness"] = max(diff["loudness"], float(np.abs(x[1] - y[1]).max()))
+        diff["confidence"] = max(diff["confidence"], float(np.abs(x[2] - y[2])[voiced].max(initial=0.0)))
+        diff["mfcc"] = max(diff["mfcc"], float(np.abs(x[3:] - y[3:]).max()))
+    (mean_a, std_a), (mean_b, std_b) = ((np.load(r / "data_mean.npy"), np.load(r / "data_std.npy"))
+                                        for r in (card, cpu))
+    diff["data_mean_per_std"] = float((np.abs(mean_a - mean_b) / std_b).max())  # means near 0 too
+    diff["data_std_rel"] = float((np.abs(std_a - std_b) / std_b).max())
+    return diff
+
+
+def decoded(fn):
+    """Run fn with ``models.crepe.viterbi_decode`` wrapped -> (its result,
+    the posteriorgrams and the bins of every decode in it, on the host)."""
+    seen = []
+    decode = crepe.viterbi_decode
+
+    def spy(probs, *args, **kwargs):
+        bins = decode(probs, *args, **kwargs)
+        seen.append((probs.detach().clone(), bins.cpu().numpy()))
+        return bins
+
+    crepe.viterbi_decode = spy
+    try:
+        return fn(), seen
+    finally:
+        crepe.viterbi_decode = decode
+
+
+def compare_f0(label, card, cpu, periodicity_atol) -> dict:
+    """An extractor's ((f0, periodicity), decodes) on the card against the
+    CPU's: the share of frames whose bin differs, f0 relative and
+    periodicity absolute differences where the bins agree."""
+    (f0_a, per_a), dec_a = card
+    (f0_b, per_b), dec_b = cpu
+    n = f0_a.shape[0]  # pYIN decodes the frames of the clip's padding too
+    bins_a, bins_b = dec_a[-1][1][:n], dec_b[-1][1][:n]
+    same = bins_a == bins_b
+    f0_a, per_a, f0_b, per_b = (t.cpu().numpy() for t in (f0_a, per_a, f0_b, per_b))
+    out = {"frames": int(len(bins_a)), "bins_differ": float(1.0 - same.mean()),
+           "f0_rel": float((np.abs(f0_a - f0_b) / f0_b)[same].max()),
+           "periodicity": float(np.abs(per_a - per_b)[same].max()), "bar_periodicity": periodicity_atol,
+           "bar_f0_rel": PRE_BARS["f0_rtol"], "bar_bins_differ": PRE_BARS["bins_differ_max"]}
+    if not (out["bins_differ"] <= PRE_BARS["bins_differ_max"] and out["f0_rel"] <= PRE_BARS["f0_rtol"]
+            and out["periodicity"] <= periodicity_atol and np.all(np.isfinite(f0_a))):
+        raise RuntimeError(f"{label}: card vs CPU {out}")
+    return out
+
+
+def random_crepe_pth(path: Path, seed=0) -> str:
+    """Random full-capacity CREPE weights in torchcrepe's state-dict layout
+    (the repo holds no pretrained ones), saved as a .pth."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, t in crepe.Crepe("full").state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        if name.endswith("running_var"):
+            v = 1.0 + 0.1 * rng.random(t.shape)
+        elif name.endswith("BN.weight"):
+            v = 1.0 + 0.1 * rng.standard_normal(t.shape)
+        else:
+            v = 0.05 * rng.standard_normal(t.shape)
+        sd[name] = torch.from_numpy(v.astype(np.float32))
+    torch.save(sd, path)
+    return str(path)
+
+
+def vibrato_tone(seconds, seed):
+    """A 16-kHz tone with vibrato, five harmonics and a little noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * SR)) / SR
+    f0 = 220.0 * 2 ** (np.sin(2 * np.pi * 0.1 * t) + 0.02 * np.sin(2 * np.pi * 5.5 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / SR
+    x = 0.3 * sum(np.sin(k * phase) / k for k in range(1, 6)) + 3e-3 * rng.standard_normal(t.shape)
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def synced_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def median_s(fn, runs=PRE_TIMED_RUNS):
+    fn()  # warm-up: cuDNN plans, allocator
+    return statistics.median(synced_s(fn)[1] for _ in range(runs))
+
+
+def launches_of(fn):
+    """Device kernels one call launches, from the profiler's trace (None
+    where the trace shows no device event)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def preprocess_phases(dev, tmp):
+    """Phases 32-36 (preprocessing: wavs to shards on the card, pYIN and
+    CREPE card vs CPU, training from the created shards, the extractors'
+    times) -> the launches of kernels 1 and 2 in the training run."""
+    files = write_wav_corpus(tmp / "wavs")
+    audio_s = sum(len(a) / sr for sr, a in map(wavfile.read, files))
+    create = load_script("torch_create_dataset")
+
+    def create_cli(out, device, *extra):
+        args = ["--data-directory", str(tmp / "wavs"), "--output-directory", str(out),
+                "--device", device, "-b", "preprocess_audio.verbose = False", *extra]
+        gin.clear_config()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                return synced_s(lambda: create.main(args))[1]
+        finally:
+            gin.clear_config()
+
+    # 32. preprocess_dataset: the data gin file with YIN, on the card (the
+    # process's first build, then again warm) and on the CPU, through
+    # scripts/torch_create_dataset.py
+    build_s = {name: create_cli(tmp / f"shards_{name}", device, "--f0-extractor", "yin")
+               for name, device in (("cold", "cuda"), ("cuda", "cuda"), ("cpu", "cpu"))}
+    card_root, cpu_root = tmp / "shards_cuda", tmp / "shards_cpu"
+    n = {s: len(list((card_root / s / "audio").iterdir())) for s in ("train", "val", "test")}
+    diff = tree_differences(card_root, cpu_root)
+    repeat_differs = sum((card_root / p.relative_to(tmp / "shards_cold")).read_bytes() != p.read_bytes()
+                         for p in (tmp / "shards_cold").rglob("*.npy"))
+    bars = {"audio": PRE_BARS["audio_atol"], "f0_rel": PRE_BARS["f0_rtol"],
+            "loudness": PRE_BARS["loudness_atol"], "confidence": PRE_BARS["confidence_atol"],
+            "mfcc": PRE_BARS["mfcc_atol"], "data_mean_per_std": PRE_BARS["stats_rtol"],
+            "data_std_rel": PRE_BARS["stats_rtol"]}
+    emit({"phase": "preprocess_dataset", "extractor": "yin", "files": len(files), "audio_s": audio_s,
+          "segments": n, "card_cold_s": build_s["cold"], "card_s": build_s["cuda"],
+          "cpu_s": build_s["cpu"], "card_vs_cpu": diff, "bars": bars,
+          "card_repeat_files_not_bit_identical": repeat_differs})
+    if n["train"] < 8 or n["val"] < 1 or any(diff[k] > bars[k] for k in bars):
+        raise RuntimeError(f"preprocess_dataset: segments {n}, card vs CPU {diff}")
+
+    # 33. preprocess_pyin: the extractor on the card against the CPU
+    clip = vibrato_tone(4, 1)
+    pyin = {d: decoded(lambda d=d: extract_f0_with_pyin(clip.to(d))) for d in ("cuda", "cpu")}
+    emit({"phase": "preprocess_pyin", "clip_s": 4,
+          **compare_f0("preprocess_pyin", pyin["cuda"], pyin["cpu"], PRE_BARS["periodicity_atol"])})
+
+    # 34. preprocess_crepe: random full weights in torchcrepe's layout from a
+    # .pth, bound as --crepe-weights binds them: the extractor on the card
+    # against the CPU, then the CLI on the card with CREPE
+    pth = random_crepe_pth(tmp / "crepe_full.pth")
+    gin.bind_parameter("extract_f0_with_crepe.weights_path", pth)
+    try:
+        short = clip[:SR]
+        crepe_out = {d: decoded(lambda d=d: extract_f0_with_crepe(short.to(d))) for d in ("cuda", "cpu")}
+    finally:
+        gin.clear_config()
+    crepe_cmp = compare_f0("preprocess_crepe", crepe_out["cuda"], crepe_out["cpu"],
+                           PRE_BARS["crepe_periodicity_atol"])
+    crepe_s = create_cli(tmp / "shards_crepe", "cuda", "--f0-extractor", "crepe", "--crepe-weights", pth,
+                         "-b", "preprocess_audio.confidence_threshold = -1.0")
+    crepe_shards = shards_of(tmp / "shards_crepe")
+    f0_finite = all(np.all(np.isfinite(x)) for x in crepe_shards.values())
+    emit({"phase": "preprocess_crepe", "capacity": "full", "clip_s": 1, **crepe_cmp,
+          "cli_card_s": crepe_s, "cli_shards": len(crepe_shards), "cli_finite": f0_finite})
+    if not crepe_shards or not f0_finite:
+        raise RuntimeError(f"preprocess_crepe: the CLI wrote {len(crepe_shards)} shards, finite {f0_finite}")
+
+    # 35. train_from_created: 5 CLI steps on the card from the YIN tree
+    cli = load_train_cli()
+    val_batches = GeneralDataModule(str(card_root), batch_size=8).n_batches("val")
+    args = ["--gin-file", "gin/train/train_newt.gin", "--dataset-path", str(card_root),
+            "--device", "cuda", "--checkpoint-dir", str(tmp / "created" / "ck"),
+            "--log-dir", str(tmp / "created" / "logs"), "-b", "TrainConfig.max_steps = 5",
+            "-b", "TrainConfig.val_every_n_steps = 5", "-b", "TrainConfig.log_every_n_steps = 1"]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, got, seconds = counted(lambda: cli.main(args), {"cr": 5 + val_batches, "bwd": 5})
+    finally:
+        gin.clear_config()
+    with open(tmp / "created" / "logs" / "metrics.csv") as f:
+        losses = [float(r["train/loss"]) for r in csv.DictReader(f) if r["train/loss"]]
+    emit({"phase": "train_from_created", "steps": 5, "batch": 8, "losses": losses,
+          "launches": got, "seconds": seconds})
+    if len(losses) != 5 or not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"train_from_created: losses {losses}")
+
+    # 36. timing_preprocess: seconds per second of audio of each extractor
+    # on the card at 4 and 60 s, and the Viterbi decode's share of it
+    model = crepe.load_weights(pth).to(dev)
+    gin.bind_parameter("extract_f0_with_crepe.weights_path", pth)
+    try:
+        for seconds_ in PRE_TIMED_S:
+            x = vibrato_tone(seconds_, 2).to(dev)
+            row = {"phase": "timing_preprocess", "clip_s": seconds_, "frames": 1 + x.shape[0] // HOP}
+            for name, fn in (("yin", extract_f0_with_yin), ("pyin", extract_f0_with_pyin),
+                             ("crepe_full", extract_f0_with_crepe)):
+                row[name + "_s_per_s"] = median_s(lambda fn=fn: fn(x)) / seconds_
+                if name != "yin":
+                    probs = decoded(lambda fn=fn: fn(x))[1][-1][0]
+                    viterbi_s = median_s(lambda: crepe.viterbi_decode(probs))
+                    row[name + "_viterbi_s"] = viterbi_s
+                    row[name + "_viterbi_share"] = viterbi_s / (row[name + "_s_per_s"] * seconds_)
+            frames = crepe.frame_audio(x, HOP)
+            with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                cnn_s = median_s(lambda: torch.cat([model(frames[i : i + 2048])
+                                                    for i in range(0, frames.shape[0], 2048)]))
+            row["crepe_full_cnn_s"] = cnn_s
+            row["crepe_full_cnn_tflop_per_s"] = CREPE_FULL_FLOP_PER_FRAME * frames.shape[0] / cnn_s / 1e12
+            if seconds_ == PRE_TIMED_S[0]:
+                row["viterbi_launches"] = launches_of(lambda: crepe.viterbi_decode(probs))
+            emit(row)
+    finally:
+        gin.clear_config()
+    emit({"phase": "timing_preprocess", "case": "create_dataset_yin", "audio_s": audio_s,
+          "card_cold_s_per_s": build_s["cold"] / audio_s,
+          "card_s_per_s": build_s["cuda"] / audio_s, "cpu_s_per_s": build_s["cpu"] / audio_s,
+          "crepe_cli_card_s_per_s": crepe_s / audio_s,
+          "crepe_full_flop_per_frame": CREPE_FULL_FLOP_PER_FRAME})
+    return {"cr": got["cr"], "bwd": got["bwd"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -2463,19 +2787,20 @@ def main() -> int:
         x = exciter_fused_phases(dev, synth, root, tmp, batch, single)
         mp = mixed_precision_phases(dev, root, tmp)
         rt = runtime_phases(dev, root, tmp)
+        pre = preprocess_phases(dev, tmp)
 
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:779",
-        "launches": launches + train["fwd_launches"] + rt["cr"], "max_abs_err": max_err,
+        "launches": launches + train["fwd_launches"] + rt["cr"] + pre["cr"], "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }, {
         "name": "_fused_bwd_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr_bwd.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:822",
-        "launches": train["bwd_launches"] + rt["bwd"], "max_abs_err": train["max_abs_err"],
+        "launches": train["bwd_launches"] + rt["bwd"] + pre["bwd"], "max_abs_err": train["max_abs_err"],
         "ms": train["ms"], "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
         "bound_by": train["bound_by"], "library_ms": None,
     }, {

@@ -27,7 +27,11 @@ Entry points run on ``device="cuda"`` unless the caller asks for
   several buffers in flight;
 * timbre transfer: :func:`inference.timbre_transfer.timbre_transfer` and
   ``stream_timbre_transfer`` take audio of any rate to the checkpoint's
-  instrument, extracting f0 (YIN) and loudness with :mod:`data.preprocess`.
+  instrument, extracting f0 (YIN) and loudness with :mod:`data.preprocess`;
+* preprocessing: :func:`data.preprocess.create_dataset` turns wav files
+  into the shard tree the trainer reads (f0 by YIN, pYIN or
+  :mod:`models.crepe`, loudness and MFCC on the card, segments and
+  statistics on the host), driven by ``scripts/torch_create_dataset.py``.
 
 On the card the model's FiLM -> shaper -> FiLM block runs the
 hand-written CUDA kernels of :mod:`kernels.newt_fused`: the control-rate

@@ -2,9 +2,12 @@
 (counterpart of the JAX ``inference/timbre_transfer.py``, the reference
 colab's workflow as a library).
 
-1. :func:`extract_features`: mono float32, resampled to 16 kHz, YIN f0 and
-   confidence (at most 1000 Hz) and perceptual loudness (n_fft 1024, hop
-   128), on the synthesizer's device;
+1. :func:`extract_features`: mono float32, resampled to 16 kHz, YIN (or,
+   with ``f0_extractor="crepe"`` and weights bound to
+   ``extract_f0_with_crepe.weights_path``, CREPE) f0 and confidence (at
+   most 1000 Hz) and perceptual loudness (n_fft 1024, hop 128), on the
+   synthesizer's device; the extractors' other parameters take their gin
+   bindings;
 2. :func:`adjust_controls`: the colab's seven sliders
    (:class:`ControlAdjustments`), then z-scores with the checkpoint's
    statistics;
@@ -16,8 +19,8 @@ colab's workflow as a library).
 Colab quirks kept (cell 15): the model gets the SHIFTED, SMOOTHED f0 in Hz
 while the control stack gets the z-scored values; f0 is smoothed before it
 is z-scored, loudness after; the floor subtracts, x*(x>floor) - floor,
-going negative where it gates. CREPE and time-sharded rendering (``mesh``)
-are not ported.
+going negative where it gates. Time-sharded rendering (``mesh``) is not
+ported.
 """
 import time
 from dataclasses import dataclass

@@ -1,5 +1,6 @@
 """DSP ops on tensors: the port's counterparts of the JAX ``ops`` modules
-that synthesis, streaming and the training loss use."""
+that synthesis, streaming, the training loss and preprocessing use."""
+from .f0 import betainc, pyin_f0, yin_f0
 from .fastmath import fast_cos, fast_sin
 from .fir import (
     fft_convolve_circular,
@@ -18,11 +19,21 @@ from .oscillator import (
     phase_accumulate,
     wrap_phase,
 )
+from .mel import dct_ii, mel_filterbank, mfcc, power_to_db
 from .stft import frame_signal, istft, overlap_add, spectrogram_magnitude, stft
-from .upsample import linear_upsample, segment_interp
+from .upsample import cubic_upsample, linear_upsample, overlap_add_upsample, segment_interp
 from .windows import hann_window
 
 __all__ = [
+    "betainc",
+    "pyin_f0",
+    "yin_f0",
+    "dct_ii",
+    "mel_filterbank",
+    "mfcc",
+    "power_to_db",
+    "cubic_upsample",
+    "overlap_add_upsample",
     "fast_sin",
     "fast_cos",
     "fft_convolve_circular",

@@ -1,5 +1,7 @@
-"""Control-rate -> audio-rate linear upsampling (counterpart of the JAX
-``ops/upsample.py`` ``linear_upsample``).
+"""Control-rate -> audio-rate upsampling (counterpart of the JAX
+``ops/upsample.py``): ``linear_upsample``, and the reference's optional
+interpolators ``cubic_upsample`` (Catmull-Rom) and
+``overlap_add_upsample`` (Hann grains), all on ``(B, T, C)`` tensors.
 
 ``align_corners=False`` semantics, as ``F.interpolate(mode="linear")``,
 but with the JAX package's weight arithmetic copied exactly rather than
@@ -10,6 +12,8 @@ weight the same way — ``(2o+1 ± hop) / (2*hop)``, one float32 division
 of exact integers — and the lerp as ``left*(1-w) + right*w``.
 """
 import torch
+
+from .windows import hann_window
 
 
 def _linear_upsample_integer(x: torch.Tensor, hop: int) -> torch.Tensor:
@@ -74,3 +78,39 @@ def segment_interp(prev: torch.Tensor, frames: torch.Tensor, hop: int) -> torch.
     t = t.to(frames.dtype)[None, None, :, None]
     seg = starts[:, :, None, :] + (frames - starts)[:, :, None, :] * t
     return seg.reshape(b, k * hop, c)
+
+
+def cubic_upsample(x: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Catmull-Rom cubic interpolation along axis 1 of (B, T, C) ->
+    (B, out_len, C), at the align_corners=False source positions."""
+    in_len = x.shape[1]
+    pos = _source_positions(in_len, out_len, x.device)
+    i1 = torch.floor(pos).to(torch.int64)
+    t = (pos - i1.to(torch.float32))[None, :, None]
+    p0 = x[:, torch.clamp(i1 - 1, min=0)]
+    p1 = x[:, i1]
+    p2 = x[:, torch.clamp(i1 + 1, max=in_len - 1)]
+    p3 = x[:, torch.clamp(i1 + 2, max=in_len - 1)]
+    a = 2.0 * p1
+    b = p2 - p0
+    c = 2.0 * p0 - 5.0 * p1 + 4.0 * p2 - p3
+    d = -p0 + 3.0 * p1 - 3.0 * p2 + p3
+    return 0.5 * (a + b * t + c * t * t + d * t * t * t)
+
+
+def overlap_add_upsample(x: torch.Tensor, window_size: int, hop_length: int) -> torch.Tensor:
+    """Hann overlap-add upsampling of frame-rate (B, T, C) -> (B, T * hop,
+    C): each frame value becomes a symmetric Hann grain of ``window_size``
+    samples hopped by ``hop_length``; the grains are summed and the
+    T * hop samples at the centre of the full buffer kept."""
+    b, t, c = x.shape
+    win = hann_window(window_size, periodic=False, device=x.device)
+    grains = x[:, :, None, :] * win[None, None, :, None]  # (B, T, W, C)
+    out_len = window_size + hop_length * (t - 1)
+    idx = (torch.arange(t, device=x.device)[:, None] * hop_length
+           + torch.arange(window_size, device=x.device)[None, :]).reshape(-1)
+    out = x.new_zeros((b, out_len, c))
+    out.index_add_(1, idx, grains.reshape(b, t * window_size, c))
+    target = t * hop_length
+    start = (out_len - target) // 2
+    return out[:, start : start + target, :]

@@ -8,8 +8,13 @@ instrument out, as a 16-kHz 16-bit wav.
 
 Runs on the card unless ``--device cpu`` is given (without a card the
 default raises). Prints the x real time of the render, or with
-``--streaming`` the stream's cadence and latency. Not ported: CREPE
-(``--f0-extractor crepe`` raises), time-sharded rendering and gin files.
+``--streaming`` the stream's cadence and latency. The gin files (default
+``gin/models/newt.gin``) and ``-b`` bindings are parsed in order and
+checked; they reach the model and the feature extractors, so a data gin
+file or ``-b "extract_f0_with_yin.threshold = 0.2"`` sets the extraction
+too (the explicit f0 ceiling and loudness frame win). ``--f0-extractor
+crepe`` needs a torchcrepe ``.pth`` (``--crepe-weights`` or
+``$CREPE_WEIGHTS``). Not ported: time-sharded rendering.
 """
 import argparse
 import sys
@@ -20,6 +25,7 @@ from scipy.io import wavfile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from neural_waveshaping_synthesis_tpu_torch import minigin as gin  # noqa: E402
 from neural_waveshaping_synthesis_tpu_torch.inference import (  # noqa: E402
     ControlAdjustments,
     Synthesizer,
@@ -37,6 +43,10 @@ def write_wav(path: str, audio: np.ndarray, sample_rate: int) -> None:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--gin-file", action="append", default=None,
+                    help="gin file, repeatable (default: gin/models/newt.gin)")
+    ap.add_argument("--gin-binding", "-b", action="append", default=[],
+                    help="extra binding applied after the files")
     ap.add_argument("--input", dest="input_path", required=True)
     ap.add_argument("--checkpoint", required=True,
                     help="reference-format .ckpt (statistics read from its directory)")
@@ -49,6 +59,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--pitch-smoothing", type=int, default=0)
     ap.add_argument("--loudness-smoothing", type=int, default=0)
     ap.add_argument("--f0-extractor", default="yin", choices=["yin", "crepe"])
+    ap.add_argument("--crepe-weights", default=None,
+                    help="a torchcrepe .pth (or the JAX package's .npz cache) for --f0-extractor crepe")
     ap.add_argument("--use-fast-newt", action="store_true",
                     help="render through the baked 4096-point FastNEWT table")
     ap.add_argument("--seed", type=int, default=0)
@@ -59,13 +71,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--pipeline-depth", type=int, default=4,
                     help="buffers in flight with --streaming")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    args.gin_file = args.gin_file or ["gin/models/newt.gin"]
+    return args
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.streaming and args.use_fast_newt:
         raise SystemExit("--streaming and --use-fast-newt are mutually exclusive")
+    for path in args.gin_file:
+        gin.parse_config_file(path)
+    for binding in args.gin_binding:
+        gin.parse_config(binding)
+    gin.validate_config()
+    if args.crepe_weights:
+        gin.bind_parameter("extract_f0_with_crepe.weights_path", args.crepe_weights)
     synth = Synthesizer.from_checkpoint(args.checkpoint, device=args.device)
     sr, audio = wavfile.read(args.input_path)
     adjustments = ControlAdjustments(

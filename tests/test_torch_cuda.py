@@ -3,8 +3,8 @@ streaming forward, the audio-rate forward and backward, the FastNEWT
 lookup, and the exciter-fused forwards and backwards; kernels 1 and 2 in
 their bf16 instances too) against their plain versions, and the model
 (also with ``fuse_exciter`` / ``fuse_out_mixer``, and in bf16), a training
-step, a streamed buffer and timbre transfer on the card against the same on
-the CPU.
+step, a streamed buffer, timbre transfer and the preprocessing extractors
+(pYIN, CREPE, MFCC) on the card against the same on the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it runs where the card is and JAX is not:
@@ -1047,3 +1047,80 @@ def test_fused_training_step_on_the_card_matches_the_cpu(cuda, fields, expect):
         assert torch.count_nonzero(g) > 0, name
         if rel(g, cpu[name]) > 1e-3:
             assert rel(g, exact[name]) <= rel(cpu[name], exact[name]) + 1e-3, name
+
+
+def _vibrato_tone(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    f0 = 220.0 * 2 ** (np.sin(2 * np.pi * 0.2 * t) + 0.02 * np.sin(2 * np.pi * 5.5 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    x = 0.3 * sum(np.sin(k * phase) / k for k in range(1, 6)) + 3e-3 * rng.standard_normal(t.shape)
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _decoded(fn):
+    """fn's result and the bins of its last Viterbi decode."""
+    from neural_waveshaping_synthesis_tpu_torch.models import crepe
+
+    seen = []
+    decode = crepe.viterbi_decode
+
+    def spy(probs, *args, **kwargs):
+        bins = decode(probs, *args, **kwargs)
+        seen.append(bins.cpu().numpy())
+        return bins
+
+    crepe.viterbi_decode = spy
+    try:
+        return fn(), seen[-1]
+    finally:
+        crepe.viterbi_decode = decode
+
+
+def _f0_card_vs_cpu(card, cpu, periodicity_atol):
+    (f0_a, per_a), bins_a = card
+    (f0_b, per_b), bins_b = cpu
+    n = f0_a.shape[0]
+    same = bins_a[:n] == bins_b[:n]
+    assert same.mean() >= 0.99
+    f0_a, per_a, f0_b, per_b = (t.cpu().numpy() for t in (f0_a, per_a, f0_b, per_b))
+    np.testing.assert_allclose(f0_a[same], f0_b[same], rtol=1e-4)
+    np.testing.assert_allclose(per_a[same], per_b[same], rtol=0, atol=periodicity_atol)
+
+
+def test_pyin_on_the_card_matches_the_cpu(cuda):
+    """pYIN (its betainc in float64, the Viterbi recursion and the
+    doubling backtrack on the card): the same bins on >= 99 % of frames, f0
+    rtol 1e-4 and periodicity atol 1e-4 where they agree."""
+    from neural_waveshaping_synthesis_tpu_torch.data.preprocess import extract_f0_with_pyin
+
+    x = _vibrato_tone(3, 1)
+    _f0_card_vs_cpu(*(_decoded(lambda d=d: extract_f0_with_pyin(x.to(d))) for d in (cuda, "cpu")), 1e-4)
+
+
+def test_crepe_predict_on_the_card_matches_the_cpu(cuda):
+    """CREPE at tiny and full capacity with random weights (TF32 off inside
+    ``predict``): the same bins on >= 99 % of frames, f0 rtol 1e-4 and
+    periodicity atol 1e-3 where they agree."""
+    from neural_waveshaping_synthesis_tpu_torch.models import crepe
+
+    x = _vibrato_tone(1, 2)
+    for capacity in ("tiny", "full"):
+        torch.manual_seed(0)
+        model = crepe.Crepe(capacity)
+        runs = []
+        for dev in (cuda, torch.device("cpu")):
+            m = copy.deepcopy(model).to(dev)
+            runs.append(_decoded(lambda: crepe.predict(m, x.to(dev), batch_size=64)))
+        _f0_card_vs_cpu(*runs, 1e-3)
+
+
+def test_extract_mfcc_on_the_card_matches_the_cpu(cuda):
+    """MFCCs (cuFFT and the mel and DCT products on the card): atol 1e-2 on
+    the dB-scale coefficients."""
+    from neural_waveshaping_synthesis_tpu_torch.data.preprocess import extract_mfcc
+
+    x = _vibrato_tone(2.5, 3)
+    card = extract_mfcc(x.to(cuda))
+    assert card.device.type == "cuda" and card.shape == (16, 1 + x.shape[0] // 128)
+    np.testing.assert_allclose(card.cpu().numpy(), extract_mfcc(x).numpy(), rtol=0, atol=1e-2)

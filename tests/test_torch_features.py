@@ -192,11 +192,14 @@ def test_extract_features_matches_jax(source):
     assert len(out[1]) == 1 + len(out[0]) // 128
 
 
-def test_downmix_orientations_and_crepe():
+def test_downmix_orientations_and_crepe(monkeypatch):
+    """The downmix strategies and orientations; CREPE without weights
+    raises the JAX extractor's FileNotFoundError (the repo holds none)."""
+    monkeypatch.delenv("CREPE_WEIGHTS", raising=False)
     stereo = np.stack([np.arange(5.0), -np.arange(5.0)])
     np.testing.assert_array_equal(make_monophonic(stereo.T), np.arange(5.0))
     np.testing.assert_array_equal(make_monophonic(stereo, "diff"), 2 * np.arange(5.0))
     with pytest.raises(ValueError):
         make_monophonic(np.zeros((3, 10)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="CREPE pretrained weights are required"):
         extract_features(np.zeros(4000, np.float32), 16000, f0_extractor="crepe", device="cpu")

@@ -290,7 +290,8 @@ def test_stream_timbre_transfer_contract(cpu_synth):
         stream_timbre_transfer(cpu_synth, audio, sr, buffer_size=100)
 
 
-def test_entry_points_raise_without_a_card(cpu_synth):
+def test_entry_points_raise_without_a_card(cpu_synth, monkeypatch):
+    monkeypatch.delenv("CREPE_WEIGHTS", raising=False)
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     audio = np.zeros(4000, np.float32)
@@ -298,11 +299,22 @@ def test_entry_points_raise_without_a_card(cpu_synth):
         extract_features(audio, 16000)
     with pytest.raises(RuntimeError):
         Synthesizer.from_checkpoint(CKPT)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="CREPE pretrained weights are required"):
         timbre_transfer(cpu_synth, audio, 16000, f0_extractor="crepe")
 
 
-def test_cli(tmp_path, capsys):
+@pytest.fixture
+def clean_gin():
+    """The CLI parses gin files into the port's process-wide registry:
+    start and leave the test with no binding."""
+    from neural_waveshaping_synthesis_tpu_torch import minigin
+
+    minigin.clear_config()
+    yield
+    minigin.clear_config()
+
+
+def test_cli(tmp_path, capsys, clean_gin):
     """``scripts/torch_timbre_transfer.py``: --help, one run at --device
     cpu on a 1-s wav with FastNEWT (a 16-kHz wav of Tc * 128 samples
     comes out), and the default device raising without a card."""
@@ -327,3 +339,40 @@ def test_cli(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             cli.main(args)
+
+
+def test_cli_gin_binding_reaches_the_extractor(tmp_path, monkeypatch, clean_gin):
+    """``--gin-file`` and ``-b`` reach the feature extractors: the data gin
+    file and a bound YIN threshold arrive at ``yin_f0`` (the explicit
+    1000-Hz ceiling wins over the file's), and a binding no configurable
+    takes is reported by ``validate_config``."""
+    import importlib.util
+
+    from neural_waveshaping_synthesis_tpu_torch.data.preprocess import f0_extraction
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_timbre_transfer", REPO / "scripts" / "torch_timbre_transfer.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    seen = []
+    yin = f0_extraction.yin_f0
+
+    def spy(audio, **kwargs):
+        seen.append(kwargs)
+        return yin(audio, **kwargs)
+
+    monkeypatch.setattr(f0_extraction, "yin_f0", spy)
+    sr, audio = wavfile.read(WAV)
+    src, dst = tmp_path / "in.wav", tmp_path / "out.wav"
+    wavfile.write(src, sr, audio[: sr // 2])
+    rc = cli.main(["--input", str(src), "--checkpoint", CKPT, "--output", str(dst),
+                   "--device", "cpu", "--gin-file", "gin/models/newt.gin",
+                   "--gin-file", "gin/data/urmp_4second_crepe.gin",
+                   "-b", "extract_f0_with_yin.threshold = 0.25"])
+    assert rc == 0 and dst.exists()
+    assert seen and all(k["threshold"] == 0.25 and k["fmax"] == 1000.0 and k["hop_length"] == 128
+                        for k in seen)
+    from neural_waveshaping_synthesis_tpu_torch import minigin
+
+    minigin.parse_config("extract_f0_with_yin.no_such_parameter = 1")
+    assert any("no_such_parameter" in p for p in minigin.validate_config())
