@@ -241,11 +241,35 @@ exits non-zero:
    second of audio on the card at 4 and 60 s (medians of 5 after a warm-up),
    the Viterbi decode's seconds and share, the CNN alone and its TFLOP/s,
    the decode's device launches on 4 s (profiler), and the whole
-   ``create_dataset``'s seconds per second of audio on the card and the CPU.
+   ``create_dataset``'s seconds per second of audio on the card and the CPU;
+37. serve_bf16_fl: a bf16 ``Synthesizer`` renders the batch and the single
+   request with ``NEWT.fused = "full_lane"``: one launch of kernel 5's bf16
+   instance a render and nothing else (counted); finite, not silent; from the
+   same offsets and noise the card within 2e-3 nRMS of the CPU (its plain
+   version) and the bf16 render within 0.05 of the float32 one, at least 1e-3
+   from it;
+38. train_cli_bf16_fl: ``scripts/torch_train.py --gin-file
+   gin/train/train_newt_bf16.gin -b "NEWT.fused = 'full_lane'"`` for 20 steps
+   with validation: kernels 5 and 6's bf16 instances only, counted; finite
+   losses; full_lane_cr_fallback_bf16: one step of a bf16 NEWT with
+   ``"full_lane_cr"`` at Ta=130, Tc=4 (the fallback): one launch of each bf16
+   instance and nothing else, finite gradients;
+39. kernel_fl_bf16, kernel_fl_bwd_bf16: both bf16 instances against their
+   plain versions on the inputs phases 37-38 handed them (caught by wrapping
+   the launches: renders at batch 1 and 8 x 4 s, the CLI's first step, the
+   fallback) and made-up odd B*Ta, a ragged last chunk, fewer samples than a
+   chunk and chunks across clips: the output within one bf16 ulp (rtol 2^-7,
+   atol 1e-5), d_exciter and d_film one ulp beyond the float32 gradient bar,
+   d_planes at it, two backward calls bit-identical;
+40. timing_kernel_fl_bf16, timing_bf16_fl_step: both bf16 instances beside
+   the float32 instance on the same shapes, in turns, with plain versions and
+   bounds (the bytes at the tensors' own sizes); the training step at batch 8
+   x 4 s at ``full_lane`` in float32 and in bf16, in turns (three medians of
+   20 each), with each arm's peak memory.
 
-Then the kernels line (the numbers of phases 3-35 per kernel, with its
-least possible time on an H100 from its bytes and operations; kernels 1 and
-2's bf16 instances as entries of their own) and, last,
+Then the kernels line (the numbers of phases 3-40 per kernel, with its
+least possible time on an H100 from its bytes and operations; kernels 1, 2,
+5 and 6's bf16 instances as entries of their own) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN (the GRU), so the card computes in float32 like the CPU reference.
 """
@@ -946,38 +970,54 @@ def caught_launches(name, fn, first=None):
 
 
 def check_fl(label, exc, film_a, packed):
-    """Audio-rate forward kernel vs its plain version -> max abs error."""
+    """Audio-rate forward kernel vs its plain version (rtol 1e-4, atol 1e-5;
+    the bf16 instance within one bf16 ulp, rtol 2^-7) -> max abs error."""
+    bf16 = exc.dtype == BF16
+    rtol = BF16_RTOL if bf16 else RTOL
     weights = nf.unpack_weight_grads(packed)
     with torch.inference_mode():
         out = nf._launch_forward_fl(exc, film_a, packed)
         ref = nf.film_shaper_fl_plain(exc, film_a, weights)
     torch.cuda.synchronize()
-    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    if out.dtype != exc.dtype:
+        raise RuntimeError(f"{label}: the audio-rate forward returned {out.dtype} for {exc.dtype}")
+    out, ref = out.float().cpu().numpy(), ref.float().cpu().numpy()
     err = float(np.max(np.abs(out - ref)))
-    emit({"phase": "kernel_fl", "name": "film_shaper_fused_fl", "case": label, "B": exc.shape[0],
-          "Ta": exc.shape[1], "max_abs_err": err, "rtol": RTOL, "atol": ATOL,
+    emit({"phase": "kernel_fl_bf16" if bf16 else "kernel_fl", "name": "film_shaper_fused_fl",
+          "io": "bf16" if bf16 else "f32", "case": label, "B": exc.shape[0], "Ta": exc.shape[1],
+          "max_abs_err": err, "rtol": rtol, "atol": ATOL,
+          "elements_not_bit_identical": int((out != ref).sum()), "elements": int(out.size),
           "bit_identical": bool(np.array_equal(out, ref))})
-    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL, err_msg=label)
+    np.testing.assert_allclose(out, ref, rtol=rtol, atol=ATOL, err_msg=label)
     return err
 
 
 def check_fl_backward(label, exc, film_a, packed, dy):
-    """Audio-rate backward kernel vs autograd through the plain version, and
-    two calls bit-identical -> max abs error."""
+    """Audio-rate backward kernel vs autograd through the plain version
+    (rtol 1e-3, atol 1e-3 * max|plain| per output; the bf16 instance's
+    d_exciter and d_film one bf16 ulp beyond it, rtol 1e-3 + 2^-7), and two
+    calls bit-identical -> max abs error."""
+    bf16 = exc.dtype == BF16
     out = nf._launch_backward_fl(exc, film_a, packed, dy)
     again = nf._launch_backward_fl(exc, film_a, packed, dy)
     ref = nf.film_shaper_fl_grad_plain(exc, film_a, nf.unpack_weight_grads(packed), dy)
     torch.cuda.synchronize()
     bit_identical = all(torch.equal(a, b) for a, b in zip(out, again))
+    rtols = {"d_exciter": BWD_RTOL + BF16_RTOL * bf16, "d_film": BWD_RTOL + BF16_RTOL * bf16,
+             "d_planes": BWD_RTOL}
     errs = {}
-    for name, o, r in zip(("d_exciter", "d_film", "d_planes"), out, ref):
-        o, r = o.cpu().numpy(), r.cpu().numpy()
+    for name, o, r in zip(rtols, out, ref):
+        if o.dtype != r.dtype:
+            raise RuntimeError(f"{label} {name}: {o.dtype}, the plain version's {r.dtype}")
+        o, r = o.float().cpu().numpy(), r.float().cpu().numpy()
         errs[name] = (float(np.max(np.abs(o - r))), float(np.max(np.abs(r))))
-        np.testing.assert_allclose(o, r, rtol=BWD_RTOL, atol=BWD_RTOL * errs[name][1],
+        np.testing.assert_allclose(o, r, rtol=rtols[name], atol=BWD_RTOL * errs[name][1],
                                    err_msg=f"{label} {name}")
-    emit({"phase": "kernel_fl_bwd", "name": "_fused_bwd_fl", "case": label, "B": exc.shape[0],
-          "Ta": exc.shape[1], "max_abs_err": {k: v[0] for k, v in errs.items()},
-          "max_abs_plain": {k: v[1] for k, v in errs.items()}, "rtol": BWD_RTOL,
+    emit({"phase": "kernel_fl_bwd_bf16" if bf16 else "kernel_fl_bwd", "name": "_fused_bwd_fl",
+          "io": "bf16" if bf16 else "f32", "case": label, "B": exc.shape[0], "Ta": exc.shape[1],
+          "dtypes": [str(t.dtype) for t in out],
+          "max_abs_err": {k: v[0] for k, v in errs.items()},
+          "max_abs_plain": {k: v[1] for k, v in errs.items()}, "rtol": rtols,
           "bit_identical_repeat": bit_identical})
     if not bit_identical:
         raise RuntimeError(f"{label}: two audio-rate backward calls gave different bits")
@@ -1175,6 +1215,7 @@ def reset_counts():
     nf.film_shaper_cr.launches_bf16 = nf.film_shaper_cr.bwd_launches_bf16 = 0
     nf.film_shaper_cr.launches_bf16_f32 = nf.film_shaper_cr.bwd_launches_bf16_f32 = 0
     nf.film_shaper_fl.launches = nf.film_shaper_fl.bwd_launches = 0
+    nf.film_shaper_fl.launches_bf16 = nf.film_shaper_fl.bwd_launches_bf16 = 0
     nf.film_shaper_stream.launches = fast_newt.fast_newt_lookup.launches = 0
     nf.bank_film_shaper_xcr.launches = nf.bank_film_shaper_xcr.bwd_launches = 0
     nf.bank_newt_xfull.launches = nf.bank_newt_xfull.bwd_launches = 0
@@ -1188,7 +1229,8 @@ def counts():
             "xfull": nf.bank_newt_xfull.launches, "xfull_bwd": nf.bank_newt_xfull.bwd_launches,
             "cr_bf16": nf.film_shaper_cr.launches_bf16, "bwd_bf16": nf.film_shaper_cr.bwd_launches_bf16,
             "cr_bf16_f32": nf.film_shaper_cr.launches_bf16_f32,
-            "bwd_bf16_f32": nf.film_shaper_cr.bwd_launches_bf16_f32}
+            "bwd_bf16_f32": nf.film_shaper_cr.bwd_launches_bf16_f32,
+            "fl_bf16": nf.film_shaper_fl.launches_bf16, "fl_bwd_bf16": nf.film_shaper_fl.bwd_launches_bf16}
 
 
 def caught_lookups(fn):
@@ -1807,9 +1849,10 @@ def exciter_fused_phases(dev, synth, root, tmp, batch_requests, single_requests)
 
 
 def cr_bytes(exc, film_c, planes, backward=False):
-    """The bytes kernel 1 (or 2) must move, at the tensors' own element sizes:
-    exciter in and out (and dy in), the FiLM in (and d_film out), the float32
-    planes in (and d_planes out). bf16 halves the exciter, dy and outputs."""
+    """The bytes kernel 1 or 5 (or 2 or 6) must move, at the tensors' own
+    element sizes: exciter in and out (and dy in), the FiLM in (and d_film
+    out), the float32 planes in (and d_planes out). bf16 halves the exciter,
+    dy and outputs."""
     e = exc.numel() * exc.element_size()
     f = film_c.numel() * film_c.element_size()
     w = planes.numel() * planes.element_size()
@@ -2635,6 +2678,201 @@ def preprocess_phases(dev, tmp):
     return {"cr": got["cr"], "bwd": got["bwd"]}
 
 
+def audio_rate_bf16_phases(dev, root, tmp):
+    """Phases 37-40 (kernels 5 and 6's bf16 instances: NEWT's audio-rate
+    path under compute_dtype = "bfloat16") -> their numbers."""
+    synth16 = synth_with({"compute_dtype": "bfloat16"})
+    synth32 = Synthesizer.from_checkpoint(CKPT, device="cuda")
+    newt = synth16.model.newt
+    with torch.no_grad():
+        packed = newt._packed_shaper(BF16)
+    batch_requests, single_requests = make_requests([2, 4, 4, 7], seed=1), make_requests([4], seed=2)
+    timed = make_requests([4] * 8, 6)
+    launches = {"fl_bf16": 0, "fl_bwd_bf16": 0}
+
+    def run_counted(fn, **expect):  # counted, every other kernel 0, and summed
+        out, got, _ = counted(fn, expect)
+        for k in launches:
+            launches[k] += got[k]
+        return out
+
+    # 37. serve_bf16_fl: a bf16 Synthesizer renders with NEWT.fused =
+    # "full_lane" (one launch of kernel 5's bf16 instance a render, nothing
+    # else); the card against the CPU (its plain version) and the bf16 render
+    # against the float32 one, from the same offsets and noise
+    renders = [run_counted(lambda r=r: render_with(synth16, r, "full_lane")[0], fl_bf16=1)
+               for r in (batch_requests, single_requests)]
+    for audio in renders:
+        for a in audio:
+            if not np.all(np.isfinite(a)) or np.sqrt(np.mean(a**2)) < 1e-4:
+                raise RuntimeError("a bf16 full_lane render is not finite or silent")
+    f0_b, ctrl_b, _ = synth16.prepare(make_requests([2], seed=3))
+    rng = np.random.default_rng(4)
+    offset = rng.uniform(-np.pi, np.pi, 101).astype(np.float32)
+    noise = rng.uniform(0, 1, f0_b.shape[1] * HOP - 1).astype(np.float32)
+    outs = {}
+    for label, s in (("card_bf16", synth16), ("cpu_bf16", synth_with({"compute_dtype": "bfloat16"}, "cpu")),
+                     ("card_f32", synth32)):
+        s.model.newt.fused = "full_lane"
+        try:
+            with torch.inference_mode():
+                y = s.model(torch.from_numpy(f0_b).to(s.device), torch.from_numpy(ctrl_b).to(s.device),
+                            phase_offset=torch.from_numpy(offset).to(s.device),
+                            noise=torch.from_numpy(noise).to(s.device))
+        finally:
+            s.model.newt.fused = "cr"
+        outs[label] = y.cpu().numpy()
+    card_vs_cpu = nrms(outs["card_bf16"], outs["cpu_bf16"])
+    vs_f32 = nrms(outs["card_bf16"], outs["card_f32"])
+    emit({"phase": "serve_bf16_fl", "requests_s": [2, 4, 4, 7, 4], "launches_fl_bf16": launches["fl_bf16"],
+          "rms": [float(np.sqrt(np.mean(a**2))) for au in renders for a in au],
+          "nrms_card_vs_cpu": card_vs_cpu, "bar_card_vs_cpu": BF16_CARD_VS_CPU,
+          "nrms_bf16_vs_f32": vs_f32, "bar_bf16_vs_f32": BF16_VS_F32, "floor_bf16_vs_f32": BF16_FLOOR})
+    if not card_vs_cpu <= BF16_CARD_VS_CPU or not BF16_FLOOR < vs_f32 < BF16_VS_F32:
+        raise RuntimeError(f"bf16 full_lane render: card vs CPU {card_vs_cpu}, bf16 vs f32 {vs_f32}")
+    del renders
+
+    # 38. train_cli_bf16_fl: the bf16 recipe through the CLI with NEWT.fused =
+    # 'full_lane', 20 steps with validation: kernels 5 and 6's bf16 instances
+    # only, counted; the first step's kernel inputs caught. Then the
+    # "full_lane_cr" fallback at Ta=130, Tc=4: one bf16 NEWT step, counted
+    cli = load_train_cli()
+    val_batches = len(list(GeneralDataModule(root, batch_size=8).val_batches()))
+    n_fwd = CLI_STEPS + val_batches * (CLI_STEPS // CLI_VAL_EVERY)
+    args = ["--gin-file", "gin/train/train_newt_bf16.gin", "--dataset-path", root, "--device", "cuda",
+            "--checkpoint-dir", str(tmp / "cli_bf16_fl_ckpt"), "--log-dir", str(tmp / "cli_bf16_fl_logs"),
+            "-b", "NEWT.fused = 'full_lane'", "-b", f"TrainConfig.max_steps = {CLI_STEPS}",
+            "-b", f"TrainConfig.val_every_n_steps = {CLI_VAL_EVERY}",
+            "-b", "TrainConfig.log_every_n_steps = 5"]
+    step_fwd, step_bwd = [], []
+    t0 = time.perf_counter()
+    try:
+        run_counted(lambda: step_bwd.extend(caught_launches(
+            "_launch_backward_fl", lambda: step_fwd.extend(
+                caught_launches("_launch_forward_fl", lambda: cli.main(args), first=1)), first=1)),
+            fl_bf16=n_fwd, fl_bwd_bf16=CLI_STEPS)
+    finally:
+        gin.clear_config()
+    cli_s = time.perf_counter() - t0
+    with open(tmp / "cli_bf16_fl_logs" / "metrics.csv") as f:
+        table = list(csv.DictReader(f))
+    losses = [float(r["train/loss"]) for r in table if r["train/loss"]]
+    val = [float(r["val/loss"]) for r in table if r["val/loss"]]
+    emit({"phase": "train_cli_bf16_fl", "steps": CLI_STEPS, "seconds": cli_s,
+          "launches": {"fl_bf16": n_fwd, "fl_bwd_bf16": CLI_STEPS},
+          "first_launch_dtypes": [str(t.dtype) for t in step_fwd[0][:2]],
+          "train_loss_windows": losses, "val_loss": val})
+    if not losses or not val or not np.all(np.isfinite(losses + val)):
+        raise RuntimeError("train_cli_bf16_fl: the losses are not finite")
+    rng = np.random.default_rng(12)
+    emb = torch.from_numpy(rng.standard_normal((1, 4, 128)).astype(np.float32)).to(dev)
+    exc130 = torch.from_numpy((rng.standard_normal((1, 130, 64)) * 0.5).astype(np.float32)).to(dev, BF16)
+    fallback = NeuralWaveshaping(generator=torch.Generator().manual_seed(0), compute_dtype="bfloat16").newt
+    fallback.fused = "full_lane_cr"
+    fallback.to(dev)
+
+    fb_out = []
+
+    def fallback_step():
+        fb_out.append(fallback(exc130, emb))
+        fb_out[0].float().square().sum().backward()
+
+    fb_fwd, fb_bwd = [], []
+    run_counted(lambda: fb_bwd.extend(caught_launches(
+        "_launch_backward_fl", lambda: fb_fwd.extend(caught_launches("_launch_forward_fl", fallback_step)))),
+        fl_bf16=1, fl_bwd_bf16=1)
+    emit({"phase": "full_lane_cr_fallback_bf16", "Ta": 130, "Tc": 4, "output_dtype": str(fb_out[0].dtype),
+          "launches": {"fl_bf16": 1, "fl_bwd_bf16": 1},
+          "grads_finite": all(bool(torch.isfinite(t.grad).all()) for t in fallback.parameters())})
+    if fb_out[0].dtype != BF16 or not all(bool(torch.isfinite(t.grad).all()) for t in fallback.parameters()):
+        raise RuntimeError("the bf16 full_lane_cr fallback step is not bf16 or its gradients not finite")
+
+    # 39. kernel_fl_bf16, kernel_fl_bwd_bf16: both bf16 instances against
+    # their plain versions on the inputs those paths handed them, then an odd
+    # B*Ta and a ragged last chunk (and, backward, fewer samples than one
+    # chunk and chunks across clips)
+    renders = {}
+    for label, requests in (("render_b1_4s", single_requests), ("render_b8_4s", timed)):
+        renders[label] = caught_launches(
+            "_launch_forward_fl", lambda: render_with(synth16, requests, "full_lane"))[0]
+    cases = [(label, *renders[label]) for label in renders]
+    cases += [("cli_train_step", *step_fwd[0]), ("full_lane_cr_fallback_130_4", *fb_fwd[0])]
+    bwd_cases = [("cli_train_step", *step_bwd[0]), ("full_lane_cr_fallback_130_4", *fb_bwd[0])]
+    for label, b, ta in (("odd_rows", 3, 333), ("ragged_block", 2, 1025), ("under_one_chunk", 1, 31),
+                         ("chunks_across_clips", 3, 47)):
+        e = torch.from_numpy((rng.standard_normal((b, ta, 64)) * 0.5).astype(np.float32)).to(dev, BF16)
+        f = torch.from_numpy(rng.standard_normal((b, ta, 256)).astype(np.float32)).to(dev, BF16)
+        g = torch.from_numpy(rng.standard_normal((b, ta, 64)).astype(np.float32)).to(dev, BF16)
+        if label in ("odd_rows", "ragged_block"):
+            cases.append((label, e, f, packed))
+        bwd_cases.append((label, e, f, packed, g))
+    for label, e, f, *_ in cases + bwd_cases:
+        if (e.dtype, f.dtype) != (BF16, BF16):
+            raise RuntimeError(f"{label}: the bf16 path handed the kernel {e.dtype}, {f.dtype}")
+    fwd_err = max(check_fl(*case) for case in cases)
+    bwd_err = max(check_fl_backward(*case) for case in bwd_cases)
+
+    # 40. timing_fl_bf16: both bf16 instances beside the float32 instance on
+    # the same shapes (float32 copies of the same inputs), in turns, with
+    # their plain versions and bounds (the bytes at the tensors' own sizes);
+    # the training step at batch 8 x 4 s at full_lane in float32 and bf16, in
+    # turns (three medians of 20 each), with each arm's peak memory
+    order = ["f32", "bf16", "bf16", "f32"]
+    exc, film_a, w = renders["render_b8_4s"]
+    fwd_in = {"f32": (exc.float(), film_a.float()), "bf16": (exc, film_a)}
+    tree = nf.unpack_weight_grads(w)
+    with torch.inference_mode():
+        fwd_ms = in_turns({k: (lambda e=e, f=f: nf._launch_forward_fl(e, f, w))
+                           for k, (e, f) in fwd_in.items()}, order)
+        fwd_plain = {k: cuda_median_ms(lambda e=e, f=f: nf.film_shaper_fl_plain(e, f, tree))
+                     for k, (e, f) in fwd_in.items()}
+    be, bf, bw, bdy = step_bwd[0]
+    bwd_in = {"f32": (be.float(), bf.float(), bw, bdy.float()), "bf16": (be, bf, bw, bdy)}
+    bwd_ms = in_turns({k: (lambda a=a: nf._launch_backward_fl(*a)) for k, a in bwd_in.items()}, order)
+    bwd_plain = {k: cuda_median_ms(lambda a=a: nf.film_shaper_fl_grad_plain(
+        a[0], a[1], nf.unpack_weight_grads(a[2]), a[3])) for k, a in bwd_in.items()}
+    numbers = {}
+    for k in ("f32", "bf16"):
+        e, f = fwd_in[k]
+        fb = bound(e.numel() * FL_FLOP_PER_ELEMENT, cr_bytes(e, f, w))
+        bb = bound(bwd_in[k][0].numel() * FL_BWD_FLOP_PER_ELEMENT,
+                   cr_bytes(bwd_in[k][0], bwd_in[k][1], bw, backward=True))
+        numbers[k] = ((statistics.mean(fwd_ms[k]), fwd_plain[k], *fb),
+                      (statistics.mean(bwd_ms[k]), bwd_plain[k], *bb))
+    emit({"phase": "timing_kernel_fl_bf16", "order": order, "fwd_shape": list(exc.shape),
+          "bwd_shape": list(be.shape), "fwd_kernel_ms": fwd_ms, "fwd_plain_ms": fwd_plain,
+          "bwd_kernel_ms": bwd_ms, "bwd_plain_ms": bwd_plain,
+          "fwd_bound_ms": {k: v[0][2] for k, v in numbers.items()},
+          "fwd_bound_by": {k: v[0][3] for k, v in numbers.items()},
+          "bwd_bound_ms": {k: v[1][2] for k, v in numbers.items()},
+          "bwd_bound_by": {k: v[1][3] for k, v in numbers.items()},
+          "fwd_bytes": {k: cr_bytes(*fwd_in[k], w) for k in fwd_in},
+          "bwd_bytes": {k: cr_bytes(a[0], a[1], bw, backward=True) for k, a in bwd_in.items()}})
+    del renders, cases, bwd_cases, fwd_in, bwd_in, step_fwd, step_bwd, exc, film_a, be, bf, bdy
+    torch.cuda.empty_cache()
+    batch = GeneralDataModule(root, batch_size=8).dataset("train").batch(np.arange(8))
+    trainers = {}
+    for arm, cd in (("f32_full_lane", "float32"), ("bf16_full_lane", "bfloat16")):
+        model = NeuralWaveshaping(generator=torch.Generator().manual_seed(0), compute_dtype=cd)
+        model.newt.fused = "full_lane"
+        trainers[arm] = Trainer(model, TrainConfig(), device="cuda")
+    step, peak = {}, {}
+    turns = ["f32_full_lane", "bf16_full_lane", "bf16_full_lane", "f32_full_lane", "f32_full_lane",
+             "bf16_full_lane"]
+    for arm in turns:
+        step.setdefault(arm, []).append(cuda_median_ms(lambda: trainers[arm].train_step(batch)))
+        torch.cuda.reset_peak_memory_stats()
+        trainers[arm].train_step(batch)
+        torch.cuda.synchronize()
+        peak.setdefault(arm, []).append(torch.cuda.max_memory_allocated())
+    emit({"phase": "timing_bf16_fl_step", "batch": [8, int(batch["f0"].shape[1])], "order": turns,
+          "step_ms": step, "step_peak_mem_bytes": peak,
+          "x_realtime": {a: [32.0 / (t / 1e3) for t in v] for a, v in step.items()}})
+    del trainers
+    torch.cuda.empty_cache()
+    return {"launches": launches, "fwd_err": fwd_err, "bwd_err": bwd_err, "numbers": numbers["bf16"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -2788,6 +3026,7 @@ def main() -> int:
         mp = mixed_precision_phases(dev, root, tmp)
         rt = runtime_phases(dev, root, tmp)
         pre = preprocess_phases(dev, tmp)
+        fl16 = audio_rate_bf16_phases(dev, root, tmp)
 
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
@@ -2855,7 +3094,16 @@ def main() -> int:
         "library_ms": None,
     } for name, source, line, counter, bwd in (
         ("film_shaper_fused_cr", "newt_fused_cr.cu", 779, "cr", 0),
-        ("_fused_bwd_cr", "newt_fused_cr_bwd.cu", 822, "bwd", 1)) for io in BF16_INSTANCES]})
+        ("_fused_bwd_cr", "newt_fused_cr_bwd.cu", 822, "bwd", 1)) for io in BF16_INSTANCES] + [{
+        "name": name + BF16_INSTANCES["bf16"], "route": "cuda",
+        "source": f"neural_waveshaping_synthesis_tpu_torch/kernels/csrc/{source}",
+        "replaces": f"neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:{lines}",
+        "launches": fl16["launches"][counter], "max_abs_err": fl16["bwd_err" if bwd else "fwd_err"],
+        "ms": fl16["numbers"][bwd][0], "plain_ms": fl16["numbers"][bwd][1],
+        "bound_ms": fl16["numbers"][bwd][2], "bound_by": fl16["numbers"][bwd][3], "library_ms": None,
+    } for name, source, lines, counter, bwd in (
+        ("film_shaper_fused_fl", "newt_fused_fl.cu", "488 and :417", "fl_bf16", 0),
+        ("_fused_bwd_fl", "newt_fused_fl_bwd.cu", "527 and :450", "fl_bwd_bf16", 1))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -21,8 +21,8 @@
 //
 // The arithmetic is float32 whatever the I/O type: load_f32 widens a
 // bfloat16 exciter, FiLM or cotangent exactly on its way in, and store_as
-// rounds a result once, to nearest even, on its way out (kernels 1 and 2
-// take float32 or bfloat16 I/O; the others float32).
+// rounds a result once, to nearest even, on its way out (kernels 1, 2, 5 and
+// 6 take float32 or bfloat16 I/O; the others float32).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -293,9 +293,10 @@ __device__ __forceinline__ void film_shaper_cr_n(const float (&exc)[S], const TF
 // film_shaper_cr_n's bits. The audio-rate FiLM has no clip structure, so a
 // group that straddles two clips needs nothing more. Samples at or past
 // n_samples run on zeros and read nothing; the caller stores nothing for
-// them.
-template <int S>
-__device__ __forceinline__ void film_shaper_fl_n(const float (&exc)[S], const float* film, int s0,
+// them. `film` is float32 or bfloat16 (kernel 5's instances); load_f32 widens
+// each of its four reads.
+template <int S, typename TF>
+__device__ __forceinline__ void film_shaper_fl_n(const float (&exc)[S], const TF* film, int s0,
                                                  int n_samples, const float* sw, int c,
                                                  float (&y)[S]) {
   float x[S], g_out[S], b_out[S];
@@ -303,10 +304,10 @@ __device__ __forceinline__ void film_shaper_fl_n(const float (&exc)[S], const fl
   for (int i = 0; i < S; ++i) {
     x[i] = g_out[i] = b_out[i] = 0.0f;
     if (s0 + i < n_samples) {
-      const float* f = film + static_cast<long long>(s0 + i) * (4 * kC) + c;
-      x[i] = f[0] * exc[i] + f[kC];
-      g_out[i] = f[2 * kC];
-      b_out[i] = f[3 * kC];
+      const TF* f = film + static_cast<long long>(s0 + i) * (4 * kC) + c;
+      x[i] = load_f32(f) * exc[i] + load_f32(f + kC);
+      g_out[i] = load_f32(f + 2 * kC);
+      b_out[i] = load_f32(f + 3 * kC);
     }
   }
   shaper_n<S>(x, sw, c, y);

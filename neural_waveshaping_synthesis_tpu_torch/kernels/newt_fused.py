@@ -31,8 +31,9 @@ float32 between load and store: the output (and d_exciter) comes back in the
 exciter's dtype, d_film in the FiLM's, d_planes in float32. The weights are
 float32 planes always: :func:`pack_weights` of bfloat16 leaves gives exact
 float32 copies. The plain versions compute the same under bfloat16 (widen,
-the float32 chain, round each output once). The other kernels take float32
-only.
+the float32 chain, round each output once). The two audio-rate kernels take
+a bfloat16 exciter, FiLM and cotangent together, in the same way. The other
+kernels take float32 only.
 
 The audio-rate counterpart (JAX ``film_shaper_fused_fl`` and
 ``film_shaper_fused``, the two TPU lane layouts of one function) takes the
@@ -41,7 +42,9 @@ FiLM already upsampled, (B, Ta, 4C): :func:`film_shaper_fl_plain` and
 :func:`film_shaper_fl` its wrapper, which launches ``csrc/newt_fused_fl.cu``
 on CUDA tensors and, for a gradient, ``csrc/newt_fused_fl_bwd.cu`` through
 :class:`_FilmShaperFL`; ``film_shaper_fl.launches`` and
-``film_shaper_fl.bwd_launches`` count them. The backward walks the samples
+``film_shaper_fl.bwd_launches`` count their float32 instances,
+``.launches_bf16`` and ``.bwd_launches_bf16`` their bfloat16 ones (exciter,
+FiLM and cotangent in bfloat16; no mixed pair). The backward walks the samples
 in 32-sample chunks, lanes as samples as in the cr backward, so a chunk may
 cross a clip boundary (:func:`_chunk_blocks` is its grid).
 
@@ -422,12 +425,21 @@ def film_shaper_fl_plain(
 ) -> torch.Tensor:
     """The plain PyTorch version of the audio-rate kernel:
     :func:`film_shaper_chain` of the (B, Ta, C) exciter and the
-    (B, Ta, 4C) audio-rate film."""
+    (B, Ta, 4C) audio-rate film.
+
+    It computes what every instance of the kernel computes, as
+    :func:`film_shaper_cr_plain` does: the exciter, the film and the shaper
+    parameters widened to at least float32 (under float32 they are the
+    tensors given), the chain in that type, the output rounded once to the
+    exciter's dtype. Autograd through it gives d_exciter in the exciter's
+    dtype and d_film in the film's."""
     if film_a.shape[:-1] != exciter.shape[:-1]:
         raise ValueError(
             f"film {tuple(film_a.shape)} and exciter {tuple(exciter.shape)} differ in (B, Ta)"
         )
-    return film_shaper_chain(exciter, film_a, shaper_params)
+    acc = torch.promote_types(exciter.dtype, torch.float32)
+    out = film_shaper_chain(exciter.to(acc), film_a.to(acc), cast_params(shaper_params, acc))
+    return out.to(exciter.dtype)
 
 
 def film_shaper_fl_grad_plain(
@@ -436,7 +448,8 @@ def film_shaper_fl_grad_plain(
     """The plain version of the audio-rate backward (JAX ``_fused_bwd_fl``):
     ``torch.autograd.grad`` through :func:`film_shaper_fl_plain` with
     cotangent ``dy`` -> (d_exciter (B, Ta, C), d_film (B, Ta, 4C), d_planes
-    (170, C) in the :func:`pack_weights` layout)."""
+    (170, C) in the :func:`pack_weights` layout), each in its input's dtype
+    (the planes float32)."""
     with torch.enable_grad():
         exc = exciter.detach().requires_grad_()
         film_a = film_a.detach().requires_grad_()
@@ -445,11 +458,25 @@ def film_shaper_fl_grad_plain(
         return torch.autograd.grad(out, (exc, film_a, planes), dy)
 
 
-def _check_fl(exciter: torch.Tensor, film_a: torch.Tensor, weights: torch.Tensor) -> None:
+# (exciter dtype, film dtype) -> the C symbols' suffix of kernels 5 and 6's instance
+_FL_INSTANCES = {
+    (torch.float32, torch.float32): "",
+    (torch.bfloat16, torch.bfloat16): "_bf16",
+}
+
+
+def _check_fl(exciter: torch.Tensor, film_a: torch.Tensor, weights: torch.Tensor) -> str:
     """What the audio-rate kernels take: (B, Ta, C) exciter and (B, Ta, 4C)
-    film with 1 <= B*Ta <= 2^30 (odd B*Ta included: JAX's even B*Ta and
-    padded tile were TPU layout limits) and the (170, C) planes."""
-    _check_tensors(exciter=exciter, film=film_a, shaper_weights=weights)
+    film, both float32 or both bfloat16, with 1 <= B*Ta <= 2^30 (odd B*Ta
+    included: JAX's even B*Ta and padded tile were TPU layout limits) and
+    the float32 (170, C) planes; -> the suffix of the instance."""
+    _check_tensors(("exciter", "film"), exciter=exciter, film=film_a, shaper_weights=weights)
+    instance = _FL_INSTANCES.get((exciter.dtype, film_a.dtype))
+    if instance is None:
+        raise TypeError(
+            f"the audio-rate kernels take a film of the exciter's dtype: exciter "
+            f"{exciter.dtype}, film {film_a.dtype}"
+        )
     if exciter.dim() != 3 or exciter.shape[2] != C:
         raise ValueError(f"exciter must be (B, Ta, {C}), got {tuple(exciter.shape)}")
     b, ta, _ = exciter.shape
@@ -459,22 +486,24 @@ def _check_fl(exciter: torch.Tensor, film_a: torch.Tensor, weights: torch.Tensor
         raise ValueError(f"need 1 <= B*Ta <= {_MAX_SAMPLES}, got {b * ta}")
     if tuple(weights.shape) != (170, C):
         raise ValueError(f"packed weights must be (170, {C}), got {tuple(weights.shape)}")
+    return instance
 
 
 def _launch_forward_fl(exciter, film_a, weights) -> torch.Tensor:
-    _check_fl(exciter, film_a, weights)
+    instance = _check_fl(exciter, film_a, weights)
+    symbol = "newt_fused_fl_forward" + instance
     out = torch.empty_like(exciter)
     b, ta, _ = exciter.shape
     with torch.cuda.device(exciter.device):
-        lib = _lib("newt_fused_fl", "newt_fused_fl_forward", 4, n_ints=1)
+        lib = _lib("newt_fused_fl", symbol, 4, n_ints=1)
         stream = torch.cuda.current_stream(exciter.device).cuda_stream
-        err = lib.newt_fused_fl_forward(
+        err = getattr(lib, symbol)(
             exciter.data_ptr(), film_a.data_ptr(), weights.data_ptr(), out.data_ptr(),
             b * ta, stream,
         )
     if err != 0:
-        raise RuntimeError(f"newt_fused_fl_forward did not launch: CUDA error {err}")
-    film_shaper_fl.launches += 1
+        raise RuntimeError(f"{symbol} did not launch: CUDA error {err}")
+    _count(film_shaper_fl, "launches" + instance)
     return out
 
 
@@ -489,31 +518,41 @@ def _chunk_blocks(n_samples: int, resident: int) -> int:
     return min(-(-n_samples // _CHUNK), resident)
 
 
+def _word_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh contiguous copy when its data is not 4-byte aligned
+    (a view at an odd bfloat16 offset): the backward's staging copies move
+    4-byte words."""
+    return t if t.data_ptr() % 4 == 0 else t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch_backward_fl(exciter, film_a, weights, dy):
-    """-> (d_exciter, d_film, d_planes) from ``csrc/newt_fused_fl_bwd.cu``.
-    The per-block weight partials are allocated here, for
-    :func:`_chunk_blocks` blocks."""
-    _check_fl(exciter, film_a, weights)
-    if dy.shape != exciter.shape or dy.dtype != torch.float32 or dy.device != exciter.device:
-        raise ValueError(f"dy must be float32 {tuple(exciter.shape)} on {exciter.device}")
+    """-> (d_exciter, d_film, d_planes) from ``csrc/newt_fused_fl_bwd.cu``,
+    d_exciter and d_film in the exciter's dtype, d_planes float32. The
+    per-block weight partials are allocated here, for :func:`_chunk_blocks`
+    blocks."""
+    instance = _check_fl(exciter, film_a, weights)
+    symbol = "newt_fused_fl_backward" + instance
+    if dy.shape != exciter.shape or dy.dtype != exciter.dtype or dy.device != exciter.device:
+        raise ValueError(f"dy must be {exciter.dtype} {tuple(exciter.shape)} on {exciter.device}")
+    exciter, film_a, dy = (_word_aligned(t) for t in (exciter, film_a, dy))
     b, ta, _ = exciter.shape
     d_exc = torch.empty_like(exciter)
     d_film = torch.empty_like(film_a)
     d_planes = torch.empty_like(weights)
     with torch.cuda.device(exciter.device):
-        lib = _lib("newt_fused_fl_bwd", "newt_fused_fl_backward", 8, n_ints=2)
+        lib = _lib("newt_fused_fl_bwd", symbol, 8, n_ints=2)
         blocks = _chunk_blocks(
             b * ta, _resident_blocks(lib, "newt_fused_fl_backward_resident_blocks", exciter.device))
         w_part = torch.empty((blocks, 170, C), dtype=torch.float32, device=exciter.device)
         stream = torch.cuda.current_stream(exciter.device).cuda_stream
-        err = lib.newt_fused_fl_backward(
+        err = getattr(lib, symbol)(
             exciter.data_ptr(), film_a.data_ptr(), weights.data_ptr(), dy.data_ptr(),
             d_exc.data_ptr(), d_film.data_ptr(), d_planes.data_ptr(), w_part.data_ptr(),
             b * ta, blocks, stream,
         )
     if err != 0:
-        raise RuntimeError(f"newt_fused_fl_backward did not launch: CUDA error {err}")
-    film_shaper_fl.bwd_launches += 1
+        raise RuntimeError(f"{symbol} did not launch: CUDA error {err}")
+    _count(film_shaper_fl, "bwd_launches" + instance)
     return d_exc, d_film, d_planes
 
 
@@ -544,8 +583,9 @@ def film_shaper_fl(
 
     CPU tensors take :func:`film_shaper_fl_plain` (autograd differentiates
     it). CUDA tensors launch ``csrc/newt_fused_fl.cu`` on the current
-    stream after :func:`_check_fl`; anything the kernels do not take
-    raises. With grad enabled and an input that needs a gradient, the call
+    stream after :func:`_check_fl` (a float32 exciter and film, or both
+    bfloat16); anything the kernels do not take raises. The output takes
+    the exciter's dtype. With grad enabled and an input that needs a gradient, the call
     goes through :class:`_FilmShaperFL`, whose backward is
     ``csrc/newt_fused_fl_bwd.cu``. ``packed`` as in :func:`film_shaper_cr`."""
     if exciter.device.type == "cpu":
@@ -560,6 +600,7 @@ def film_shaper_fl(
 
 film_shaper_fl.launches = 0
 film_shaper_fl.bwd_launches = 0
+film_shaper_fl.launches_bf16 = film_shaper_fl.bwd_launches_bf16 = 0  # (bf16, bf16)
 
 
 # ---------------------------------------------------------------------------

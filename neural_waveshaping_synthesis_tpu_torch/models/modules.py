@@ -190,12 +190,17 @@ def shaper_apply(
     final_nonlinearity: str = "sine",
 ) -> torch.Tensor:
     """(B, T, C) -> (B, T, C), each channel through its own scalar MLP:
-    the JAX einsum form, ``h <- act(einsum("btcw,cwv->btcv", h, w) + b)``."""
+    the JAX einsum form, ``h <- act(einsum("btcw,cwv->btcv", h, w) + b)``.
+    A float32 ``x`` with bfloat16 parameters runs in float32, as
+    ``jnp.einsum`` promotes (NEWT under bfloat16 at a non-integer hop, whose
+    FiLM lerp is float32); torch's einsum would refuse the pair."""
     act, final_act = _ACTIVATIONS[nonlinearity], _ACTIVATIONS[final_nonlinearity]
     h = (x * p["input_scale"])[..., None]  # (B, T, C, 1)
     layers = p["layers"]
     for i, layer in enumerate(layers):
-        h = torch.einsum("btcw,cwv->btcv", h, layer["w"]) + layer["b"]
+        w = layer["w"]
+        dt = torch.promote_types(h.dtype, w.dtype)
+        h = torch.einsum("btcw,cwv->btcv", h.to(dt), w.to(dt)) + layer["b"]
         h = act(h) if i < len(layers) - 1 else final_act(h)
     return h[..., 0]
 

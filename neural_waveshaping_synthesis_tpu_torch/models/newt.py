@@ -34,7 +34,7 @@ def not_ported_in(dtype: torch.dtype, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} does not take {dtype} yet (ROADMAP.md queue 1, Mixed precision: "
         "its bf16 I/O is still to port); run it with compute_dtype 'float32', or NEWT.fused "
-        "'cr' / 'full_lane_cr' / False"
+        "'cr' / 'full_lane_cr' / 'full_lane' / False without it"
     )
 
 
@@ -61,7 +61,8 @@ class NEWT(nn.Module):
       :func:`newt_fused.supports` refuses raises on CUDA;
     * ``False`` (or ``None`` at construction): the plain chain everywhere.
 
-    On the CPU every value runs the plain chain. Any other value raises
+    On the CPU under float32 every value runs the plain chain (under
+    bfloat16, see below). Any other value raises
     ``ValueError``. With ``remat_shaper`` the plain chain's shaper bank
     runs under ``torch.utils.checkpoint`` (JAX ``jax.checkpoint``): its
     activations are recomputed in the backward instead of kept; the
@@ -91,10 +92,14 @@ class NEWT(nn.Module):
     same, where under float32 the chain is already that plain version.
     ``cr_film_f32`` (JAX's field) hands the kernel a float32 FiLM with a
     bfloat16 exciter; under float32 it changes nothing. The audio-rate
-    kernels, the FastNEWT lookup kernel and the stream kernel take float32
-    only: on CUDA a bfloat16 exciter there raises ``NotImplementedError``
-    (ROADMAP.md queue 1, Mixed precision), and :meth:`forward_stream` runs
-    in float32 whatever the model's ``compute_dtype``, as JAX's stream does.
+    kernels (``True``, ``"full_lane"``, ``"fl"`` and ``"full_lane_cr"``'s
+    fallback) take a bfloat16 exciter with its bfloat16 FiLM in the same
+    way, and on the CPU a bfloat16 exciter there runs their plain version
+    (:func:`newt_fused.film_shaper_fl_plain`). The FastNEWT lookup kernel
+    and the stream kernel take float32 only: on CUDA a bfloat16 exciter with
+    a lookup table raises ``NotImplementedError`` (ROADMAP.md queue 1, Mixed
+    precision), and :meth:`forward_stream` runs in float32 whatever the
+    model's ``compute_dtype``, as JAX's stream does.
     """
 
     def __init__(
@@ -219,7 +224,8 @@ class NEWT(nn.Module):
             x = fast_newt.fast_newt_lookup(lookup_table, film(exciter, gi, bi))
             return self.mixer(film(x, gn, bn))
         params = self._shaper_params(dtype)
-        if fused in _CR and (exciter.is_cuda or narrow):
+        kernel_path = exciter.is_cuda or narrow  # on the CPU under bf16: its plain version
+        if fused in _CR and kernel_path:
             if newt_fused.supports_cr(self.shaping_fn, ta, tc):
                 if self.cr_film_f32:
                     fp = fp.to(torch.float32)
@@ -227,19 +233,21 @@ class NEWT(nn.Module):
                     exciter, fp, params, ta // tc, packed=self._packed_shaper(dtype)
                 )
                 return self.mixer(x)
-            if exciter.is_cuda:
-                if fused == "cr":
-                    raise self._refuse(fused, ta, tc)
+            if exciter.is_cuda and fused == "cr":
+                raise self._refuse(fused, ta, tc)
+            if fused == "full_lane_cr":
                 fused = "full_lane"  # JAX's fallback for the training spelling
         film_a = linear_upsample(fp, ta)  # (B, Ta, 4C)
-        if exciter.is_cuda and fused in _AUDIO_RATE:
-            if narrow:
-                raise not_ported_in(
-                    dtype, f"NEWT fused={fused!r}: the audio-rate kernels (newt_fused_fl*.cu)")
-            if not newt_fused.supports(self.shaping_fn):
+        if fused in _AUDIO_RATE and kernel_path:
+            if newt_fused.supports(self.shaping_fn):
+                # the kernels take the FiLM in the exciter's dtype; at a
+                # non-integer hop the lerp is float32 (ROADMAP.md section 3)
+                x = newt_fused.film_shaper_fl(
+                    exciter, film_a.to(dtype), params, packed=self._packed_shaper(dtype)
+                )
+                return self.mixer(x)
+            if exciter.is_cuda:
                 raise self._refuse(fused, ta, tc)
-            x = newt_fused.film_shaper_fl(exciter, film_a, params, packed=self._packed_shaper())
-            return self.mixer(x)
         return self.mixer(self._chain(exciter, film_a, params))
 
     def forward_stream(

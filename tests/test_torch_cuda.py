@@ -1,7 +1,7 @@
 """The port on the card: the CUDA kernels (forward, backward, the
 streaming forward, the audio-rate forward and backward, the FastNEWT
-lookup, and the exciter-fused forwards and backwards; kernels 1 and 2 in
-their bf16 instances too) against their plain versions, and the model
+lookup, and the exciter-fused forwards and backwards; kernels 1, 2, 5 and
+6 in their bf16 instances too) against their plain versions, and the model
 (also with ``fuse_exciter`` / ``fuse_out_mixer``, and in bf16), a training
 step, a streamed buffer, timbre transfer and the preprocessing extractors
 (pYIN, CREPE, MFCC) on the card against the same on the CPU.
@@ -230,32 +230,26 @@ def test_bf16_model_on_the_card_launches_the_bf16_instances(cuda, params):
 
 
 def test_bf16_paths_not_ported_raise_on_the_card(cuda, params):
-    """Under bf16 on the card the audio-rate kernels, the "full_lane_cr"
-    fallback at a non-integer hop, the FastNEWT lookup and the exciter-fused
-    path raise the named NotImplementedError, and launch nothing."""
+    """Under bf16 on the card the FastNEWT lookup and the exciter-fused path
+    raise the named NotImplementedError, and launch nothing. (The audio-rate
+    kernels and the "full_lane_cr" fallback run their bf16 instances:
+    test_bf16_newt_audio_rate_on_the_card.)"""
     model = NeuralWaveshaping(compute_dtype="bfloat16")
     model.load_params(params)
     model.to(cuda)
     f0 = torch.full((1, 4), 330.0, device=cuda)
     control = torch.zeros(1, 4, 2, device=cuda)
-    exc = torch.zeros(1, 130, 64, device=cuda, dtype=BF16)
-    emb = torch.zeros(1, 4, 128, device=cuda)
-    before = (nf.film_shaper_fl.launches, fast_newt.fast_newt_lookup.launches)
+    before = (nf.film_shaper_fl.launches, nf.film_shaper_fl.launches_bf16,
+              fast_newt.fast_newt_lookup.launches, nf.bank_film_shaper_xcr.launches)
     with torch.inference_mode():
-        for fused in (True, "full_lane", "fl"):
-            model.newt.fused = fused
-            with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
-                model(f0, control)
-        with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
-            model.newt(exc, emb, fused="full_lane_cr")
-        model.newt.fused = "cr"
         table = model.newt.bake_lookup_table(256)
         with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
             model(f0, control, lookup_table=table)
         model.fuse_exciter = True
         with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
             model(f0, control)
-    assert (nf.film_shaper_fl.launches, fast_newt.fast_newt_lookup.launches) == before
+    assert (nf.film_shaper_fl.launches, nf.film_shaper_fl.launches_bf16,
+            fast_newt.fast_newt_lookup.launches, nf.bank_film_shaper_xcr.launches) == before
 
 
 def test_newt_on_the_card_launches_the_kernel(cuda, params):
@@ -592,6 +586,127 @@ def test_newt_audio_rate_refuses_a_shaper_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError, match="fused=False"):
             newt(exc, emb, fused=fused)
     newt(exc, emb, fused=False).sum().backward()
+
+
+def _fl_counts():
+    f = nf.film_shaper_fl
+    return {"fl": f.launches, "fl_bwd": f.bwd_launches, "fl_bf16": f.launches_bf16,
+            "fl_bwd_bf16": f.bwd_launches_bf16, "cr": nf.film_shaper_cr.launches,
+            "cr_bf16": nf.film_shaper_cr.launches_bf16}
+
+
+def _moved(before, **expect):
+    """The counters that moved since ``before``, each by its ``expect``."""
+    after = _fl_counts()
+    assert {k: after[k] - before[k] for k in after} == {k: expect.get(k, 0) for k in after}
+
+
+@pytest.mark.parametrize("b,ta", _FL_SHAPES + [(8, 65536)])
+def test_bf16_fl_kernel_matches_plain(cuda, params, b, ta):
+    """Kernel 5's (bf16, bf16) instance vs its plain version (float32
+    between bf16 load and store, rounded once) within one bf16 ulp (rtol
+    2^-7, atol 1e-5); the output bf16; one launch of the bf16 instance and
+    none of the float32 one; the shapes of the float32 test (odd B*Ta,
+    ragged groups, groups across clips, a batch-8 render's (8, 65536))."""
+    exc, film_a = (t.to(cuda, BF16) for t in _fl_inputs(b, ta, seed=ta + 2))
+    packed, tree = _bf16_planes(params, cuda)
+    before = _fl_counts()
+    with torch.inference_mode():
+        out = nf.film_shaper_fl(exc, film_a, tree, packed=packed)
+    _moved(before, fl_bf16=1)
+    with torch.inference_mode():
+        ref = nf.film_shaper_fl_plain(exc, film_a, tree)
+    torch.cuda.synchronize()
+    assert out.dtype == BF16
+    _ulp_close(out, ref)
+
+
+@pytest.mark.parametrize("b,ta", _FL_SHAPES + [(8, 64000)])
+def test_bf16_fl_backward_kernel_matches_plain(cuda, params, b, ta):
+    """Kernel 6's (bf16, bf16) instance vs autograd through the plain
+    version: d_exciter and d_film bf16 within one bf16 ulp beyond the
+    float32 gradient bar (rtol 1e-3 + 2^-7, atol 1e-3 * max|plain|),
+    d_planes float32 at the float32 bar; two calls bit-identical (in the
+    bf16 tiles lanes write adjacent halves of a word); two launches of the
+    bf16 instance and none of the float32 one; at the full_lane training
+    step's (8, 64000) too."""
+    exc, film_a = (t.to(cuda, BF16) for t in _fl_inputs(b, ta, seed=ta + 3))
+    dy = torch.randn(exc.shape, generator=torch.Generator().manual_seed(ta)).to(cuda, BF16)
+    packed, tree = _bf16_planes(params, cuda)
+    before = _fl_counts()
+    out = nf._launch_backward_fl(exc, film_a, packed, dy)
+    again = nf._launch_backward_fl(exc, film_a, packed, dy)
+    _moved(before, fl_bwd_bf16=2)
+    ref = nf.film_shaper_fl_grad_plain(exc, film_a, tree, dy)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in out] == [BF16, BF16, torch.float32]
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+    for o, r in zip(out[:2], ref[:2]):
+        np.testing.assert_allclose(o.float().cpu().numpy(), r.float().cpu().numpy(),
+                                   rtol=1e-3 + 2.0**-7, atol=1e-3 * float(r.float().abs().max()))
+    _grad_close(out[2], ref[2])
+
+
+def test_bf16_fl_kernels_take_views_at_an_odd_offset(cuda, params):
+    """The backward's 4-byte staging copies need word-aligned bf16 data: a
+    contiguous view at an odd bf16 offset is copied first, and gives the
+    aligned tensors' bits; the forward reads 2-byte elements and takes it
+    as it is. Mixed pairs are refused."""
+    exc, film_a = (t.to(cuda, BF16) for t in _fl_inputs(1, 40, seed=5))
+    dy = torch.randn(exc.shape, generator=torch.Generator().manual_seed(1)).to(cuda, BF16)
+    packed, tree = _bf16_planes(params, cuda)
+
+    def odd(t):
+        flat = torch.empty(t.numel() + 1, dtype=BF16, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 4 == 2
+        return view
+
+    grads = nf._launch_backward_fl(exc, film_a, packed, dy)
+    moved = nf._launch_backward_fl(odd(exc), odd(film_a), packed, odd(dy))
+    assert all(torch.equal(a, c) for a, c in zip(grads, moved))
+    with torch.inference_mode():
+        assert torch.equal(nf._launch_forward_fl(odd(exc), odd(film_a), packed),
+                           nf._launch_forward_fl(exc, film_a, packed))
+        with pytest.raises(TypeError, match="film of the exciter's dtype"):
+            nf.film_shaper_fl(exc, film_a.float(), tree, packed=packed)
+        with pytest.raises(TypeError, match="film of the exciter's dtype"):
+            nf.film_shaper_fl(exc.float(), film_a, tree, packed=packed)
+    with pytest.raises(ValueError, match="dy must be"):
+        nf._launch_backward_fl(exc, film_a, packed, dy.float())
+
+
+@pytest.mark.parametrize("fused,ta,tc", [(True, 15 * 128, 15), ("full_lane", 15 * 128, 15),
+                                         ("fl", 15 * 128, 15), ("full_lane_cr", 130, 4)])
+def test_bf16_newt_audio_rate_on_the_card(cuda, params, fused, ta, tc):
+    """Under bf16 on the card, NEWT with True / "full_lane" / "fl", and
+    "full_lane_cr" at Ta=130, Tc=4 (the fallback), launches the audio-rate
+    kernels' bf16 instances (forward, and backward with a gradient) and no
+    float32 instance and no control-rate kernel; the output bf16 within one
+    bf16 ulp of the same NEWT on the CPU (its plain version; atol 2^-8 for
+    the bf16 FiLM MLP's roundings, which cuBLAS and the CPU may place
+    apart), and every float32 master gets a gradient within 2e-2
+    normalised of the CPU's."""
+    rng = np.random.default_rng(13)
+    exc = torch.from_numpy((rng.standard_normal((2, ta, 64)) * 0.5).astype(np.float32)).to(BF16)
+    emb = torch.from_numpy(rng.standard_normal((2, tc, 128)).astype(np.float32))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        newt = NEWT(fused=fused)
+        newt.load_params(params["newt"])
+        newt.to(dev)
+        before = _fl_counts()
+        out = newt(exc.to(dev), emb.to(dev))
+        out.float().square().sum().backward()
+        if dev.type == "cuda":
+            _moved(before, fl_bf16=1, fl_bwd_bf16=1)
+        runs.append((out.detach().float().cpu(), {n: t.grad.cpu() for n, t in newt.named_parameters()}))
+    (card, card_g), (cpu, cpu_g) = runs
+    np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=2.0**-7, atol=2.0**-8)
+    for name, g in card_g.items():
+        assert g.dtype == torch.float32 and torch.count_nonzero(g) > 0, name
+        assert torch.linalg.norm(g - cpu_g[name]) <= 2e-2 * torch.linalg.norm(cpu_g[name]), name
 
 
 # ---------------------------------------------------------------------------

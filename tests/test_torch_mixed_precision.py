@@ -3,11 +3,14 @@
 On the CPU, against the JAX package: the dense layer's contract, LayerNorm
 and the polynomial sine in bfloat16, the shaper bank, the plain versions of
 kernels 1 and 2 under bfloat16 I/O against the JAX kernel
-``film_shaper_fused_cr`` and its VJP in interpret mode, ``NEWT.cr_film_f32``,
-the whole model against its float32 render and the JAX bfloat16 apply, one
-training step against JAX's, the bf16 checkpoint's render, and the paths
-whose bf16 I/O is not ported. The card's cases (the bf16 kernel instances
-against their plain versions) are in tests/test_torch_cuda.py.
+``film_shaper_fused_cr`` and its VJP in interpret mode, those of kernels 5
+and 6 (the audio-rate pair) against ``film_shaper_fused_fl`` /
+``film_shaper_fused`` and the full-lane VJP, NEWT's audio-rate dispatch under
+bf16, ``NEWT.cr_film_f32``, the whole model against its float32 render and
+the JAX bfloat16 apply, one training step against JAX's, the bf16
+checkpoint's render, and the paths whose bf16 I/O is not ported. The card's
+cases (the bf16 kernel instances against their plain versions) are in
+tests/test_torch_cuda.py.
 """
 from pathlib import Path
 
@@ -28,6 +31,7 @@ from neural_waveshaping_synthesis_tpu.models.modules import (
     layer_norm_apply as j_layer_norm_apply,
 )
 from neural_waveshaping_synthesis_tpu.ops.fastmath import fast_sin as j_fast_sin
+from neural_waveshaping_synthesis_tpu.ops.upsample import linear_upsample as j_linear_upsample
 from neural_waveshaping_synthesis_tpu.training.loss import (
     multi_resolution_stft_loss as j_multi_resolution_stft_loss,
 )
@@ -42,6 +46,7 @@ from neural_waveshaping_synthesis_tpu_torch.models.modules import (
     layer_norm_apply,
     shaper_apply,
 )
+from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample
 from neural_waveshaping_synthesis_tpu_torch.ops.fastmath import fast_sin
 from neural_waveshaping_synthesis_tpu_torch.streaming import StreamingSynth
 from neural_waveshaping_synthesis_tpu_torch.training import Optimizer, TrainConfig, train_step
@@ -301,6 +306,204 @@ def test_cr_wrapper_on_the_cpu_takes_the_bf16_pairs_and_refuses_others(jax_newt)
 
 
 # ---------------------------------------------------------------------------
+# kernels 5 and 6 (the audio-rate pair): their plain versions under bf16 I/O
+# ---------------------------------------------------------------------------
+FL_BAR = 0.06  # JAX's bf16 bar for its full-lane kernel (tests/test_newt_fused.py:146)
+FL_B, FL_TA = 2, 128  # one 128-row tile of row pairs for the full-lane JAX kernel
+# the two TPU lane layouts of one function: (JAX kernel, its weight packing)
+FL_LAYOUTS = {
+    "full_lane": (jnf.film_shaper_fused_fl, jnf.pack_weights_fl),
+    "half_lane": (jnf.film_shaper_fused, jnf.pack_weights),
+}
+
+
+def _fl_inputs(seed=21):
+    """bf16 exciter, audio-rate FiLM and cotangent, as (torch, JAX) pairs."""
+    rng = np.random.default_rng(seed)
+    exc = _bf16(rng.standard_normal((FL_B, FL_TA, 64)) * 0.5)
+    film = _bf16(rng.standard_normal((FL_B, FL_TA, 256)))
+    dy = _bf16(rng.standard_normal((FL_B, FL_TA, 64)))
+    return exc, film, dy
+
+
+def test_fl_plain_in_bf16_is_the_float32_chain_rounded_once(jax_newt):
+    """What kernel 5's bf16 instance computes: the float32 plain version on
+    the widened exciter, FiLM and shaper weights, rounded once to bf16, bit
+    for bit; the output bf16. Under float32 the plain version is the chain
+    itself (the parent's code), bit for bit."""
+    _, p = jax_newt
+    (exc, _), (film, _), _ = _fl_inputs()
+    sp = cast_params(params_from_jax(p["shaping_fn"]), BF16)
+    out = nf.film_shaper_fl_plain(exc, film, sp)
+    sp32 = cast_params(sp, torch.float32)
+    ref = nf.film_shaper_fl_plain(exc.float(), film.float(), sp32)
+    assert out.dtype == BF16 and torch.equal(out, ref.to(BF16))
+    assert torch.equal(ref, nf.film_shaper_chain(exc.float(), film.float(), sp32))
+
+
+@pytest.mark.parametrize("layout", sorted(FL_LAYOUTS))
+def test_fl_plain_forward_in_bf16_matches_jax_kernel(jax_newt, layout):
+    """Kernel 5's plain version with (bf16, bf16) I/O against each JAX
+    layout's kernel in interpret mode (tile 128) on the same bf16 inputs and
+    bf16-cast weights: bf16 out, rtol 0.06, atol 0.06, JAX's own bar for its
+    bf16 full-lane kernel (the JAX kernel rounds its FiLM planes and each
+    layer to bf16, the port computes in float32 between load and store).
+    Measured when written: max |diff| 0.066 in both layouts, on an element
+    whose rtol share keeps it under the bar."""
+    _, p = jax_newt
+    kernel, pack = FL_LAYOUTS[layout]
+    (exc, jexc), (film, jfilm), _ = _fl_inputs()
+    jsp = jax.tree_util.tree_map(lambda t: t.astype(jnp.bfloat16), p["shaping_fn"])
+    ref = kernel(jexc, jfilm, pack(jsp), 128, True)
+    out = nf.film_shaper_fl_plain(exc, film, cast_params(params_from_jax(p["shaping_fn"]), BF16))
+    assert out.dtype == BF16 and ref.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=FL_BAR, atol=FL_BAR)
+
+
+def test_fl_plain_backward_in_bf16_matches_jax_vjp(jax_newt):
+    """Kernel 6's plain version with (bf16, bf16) I/O, by autograd through
+    the plain forward, against the VJP of JAX's full-lane kernel in
+    interpret mode on the same bf16 inputs, cotangent and bf16-cast weights:
+    d_exciter and d_film bf16, d_planes float32, every leaf finite;
+    d_exciter and d_film within relative norm 0.08 of JAX's, and each shaper
+    weight gradient within 0.08 of the float32 chain's on the widened inputs
+    (JAX's bar, tests/test_newt_fused.py:146) and of JAX's. Measured when
+    written: d_exciter 0.043, d_film 0.025 from JAX; the weight gradients
+    at most 0.058 from the float32 chain and 0.052 from JAX."""
+    _, p = jax_newt
+    (exc, jexc), (film, jfilm), (dy, jdy) = _fl_inputs()
+    jsp = jax.tree_util.tree_map(lambda t: t.astype(jnp.bfloat16), p["shaping_fn"])
+    sp32 = params_from_jax(p["shaping_fn"])
+    d_exc, d_film, d_planes = nf.film_shaper_fl_grad_plain(exc, film, cast_params(sp32, BF16), dy)
+    assert (d_exc.dtype, d_film.dtype, d_planes.dtype) == (BF16, BF16, torch.float32)
+    assert all(torch.isfinite(g.float()).all() for g in (d_exc, d_film, d_planes))
+
+    def f(e, fa, sp):
+        return jnf.film_shaper_fused_fl(e, fa, jnf.pack_weights_fl(sp), 128, True)
+
+    _, vjp = jax.vjp(f, jexc, jfilm, jsp)
+    jd_exc, jd_film, jd_sp = vjp(jdy)
+    assert _rel(_f32(d_exc), _f32(jd_exc)) < KERNEL_BAR
+    assert _rel(_f32(d_film), _f32(jd_film)) < KERNEL_BAR
+    _, _, chain32 = nf.film_shaper_fl_grad_plain(exc.float(), film.float(), sp32, dy.float())
+    for a, j, c in zip(_weight_grads(d_planes), _leaves(jd_sp), _weight_grads(chain32)):
+        assert _rel(a, c) < KERNEL_BAR and _rel(a, _f32(j)) < KERNEL_BAR
+
+
+def test_fl_check_takes_the_two_instances_and_refuses_mixed_pairs():
+    """_check_fl (the audio-rate kernels' check, here on CPU tensors) takes
+    (float32, float32) and (bf16, bf16) and names the instance; a mixed
+    pair, a float16 exciter and bf16 planes raise TypeError. The backward's
+    4-byte staging copies get a word-aligned view: a bf16 view at an odd
+    offset is copied, an aligned one passed through."""
+    exc = torch.zeros(1, 7, 64, dtype=BF16)
+    film = torch.zeros(1, 7, 256, dtype=BF16)
+    w = torch.zeros(170, 64)
+    assert nf._check_fl(exc, film, w) == "_bf16"
+    assert nf._check_fl(exc.float(), film.float(), w) == ""
+    with pytest.raises(TypeError, match="film of the exciter's dtype"):
+        nf._check_fl(exc, film.float(), w)
+    with pytest.raises(TypeError, match="film of the exciter's dtype"):
+        nf._check_fl(exc.float(), film, w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        nf._check_fl(exc.half(), film, w)
+    with pytest.raises(TypeError, match="shaper_weights must be float32"):
+        nf._check_fl(exc, film, w.to(BF16))
+    flat = torch.arange(1 + 7 * 64, dtype=BF16)
+    odd = flat[1:].view(1, 7, 64)
+    assert odd.is_contiguous() and odd.data_ptr() % 4 == 2
+    fixed = nf._word_aligned(odd)
+    assert fixed.data_ptr() % 4 == 0 and torch.equal(fixed, odd)
+    assert nf._word_aligned(exc) is exc
+
+
+def _count_fl_plain(monkeypatch):
+    calls = []
+    plain = nf.film_shaper_fl_plain
+
+    def counted(*args):
+        calls.append(args[0].dtype)
+        return plain(*args)
+
+    monkeypatch.setattr(nf, "film_shaper_fl_plain", counted)
+    return calls
+
+
+@pytest.mark.parametrize("fused,ta,tc", [(True, 128, 4), ("full_lane", 128, 4), ("fl", 128, 4),
+                                         ("full_lane_cr", 130, 4)])
+def test_newt_audio_rate_in_bf16_on_the_cpu_runs_the_plain_version(jax_newt, monkeypatch, fused,
+                                                                    ta, tc):
+    """NEWT under bf16 on the CPU with True / "full_lane" / "fl", and with
+    "full_lane_cr" at Ta=130, Tc=4 (a non-integer hop: JAX's fallback to the
+    audio-rate kernel), runs kernel 5's plain version once (float32 between
+    bf16 load and store, as the card's bf16 instance), not the per-op bf16
+    chain: its output is the mixer of that plain version bit for bit and
+    differs from the chain's; float32 runs the chain. Against JAX's NEWT
+    with the same ``fused`` on its bf16-cast tree (its Pallas kernel in
+    interpret mode): within JAX's bar, 0.06. At Ta=130 the port rounds the
+    float32 FiLM lerp to bf16 for the kernel (ROADMAP.md section 3), where
+    JAX's NEWT raises; there the reference is JAX's kernel and mixer on the
+    bf16 FiLM. Measured when written: max |diff| 0.0039 in every case."""
+    newt_j, p = jax_newt
+    rng = np.random.default_rng(22)
+    exc = torch.from_numpy((rng.standard_normal((1, ta, 64)) * 0.5).astype(np.float32)).to(BF16)
+    emb = torch.from_numpy(rng.standard_normal((1, tc, 128)).astype(np.float32))
+    newt = NEWT(fused=fused)
+    newt.load_params(params_from_jax(p))
+    calls = _count_fl_plain(monkeypatch)
+    with torch.no_grad():
+        out = newt(exc, emb)
+        assert calls == [BF16]
+        chain = newt(exc, emb, fused=False)
+        newt(exc.float(), emb)
+    assert calls == [BF16] and out.dtype == BF16
+    with torch.no_grad():
+        film_a = linear_upsample(newt.film_params(emb.to(BF16)), ta).to(BF16)
+        plain = nf.film_shaper_fl_plain(exc, film_a, newt._shaper_params(BF16))
+        assert torch.equal(out, newt.mixer(plain))
+    assert not torch.equal(out, chain)
+    jp16 = jax.tree_util.tree_map(lambda t: t.astype(jnp.bfloat16), p)
+    jexc = jnp.asarray(_f32(exc)).astype(jnp.bfloat16)
+    jemb = jnp.asarray(emb.numpy()).astype(jnp.bfloat16)
+    if ta % tc == 0:
+        ref = newt_j.apply(jp16, jexc, jemb, fused=fused)
+    else:
+        # JAX's own fallback raises here: its lerp promotes the FiLM to
+        # float32, and its kernel cannot store the float32 result in the bf16
+        # output. The port hands the kernel the FiLM in the exciter's dtype;
+        # the reference is JAX's kernel on those inputs.
+        with pytest.raises(ValueError, match="dtype"):
+            newt_j.apply(jp16, jexc, jemb, fused=fused)
+        jfilm = j_linear_upsample(newt_j.film_params(jp16, jemb), ta).astype(jnp.bfloat16)
+        shaped = jnf.film_shaper_fused_fl(jexc, jfilm, jnf.pack_weights_fl(jp16["shaping_fn"]),
+                                          128, True)
+        ref = j_dense_apply(jp16["mixer"], shaped)
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=FL_BAR, atol=FL_BAR)
+
+
+def test_bf16_chain_at_a_non_integer_hop_promotes_as_jax(jax_newt):
+    """NEWT(fused=False) under bf16 at Ta=130, Tc=4: the FiLM lerp at a
+    non-integer hop is float32 (bf16 frames times float32 weights, in both
+    frameworks), so the chain runs in float32 from the first FiLM on, its
+    shaper einsums promoting the bf16 weights as ``jnp.einsum`` does, and
+    returns float32, as JAX's NEWT does. Within atol 1e-2 of JAX's (the bf16
+    FiLM MLPs differ by a bf16 ulp here and there; 0.0028 when written)."""
+    newt_j, p = jax_newt
+    rng = np.random.default_rng(23)
+    exc = torch.from_numpy((rng.standard_normal((2, 130, 64)) * 0.5).astype(np.float32)).to(BF16)
+    emb = torch.from_numpy(rng.standard_normal((2, 4, 128)).astype(np.float32))
+    newt = NEWT(fused=False)
+    newt.load_params(params_from_jax(p))
+    with torch.no_grad():
+        out = newt(exc, emb)
+    jp16 = jax.tree_util.tree_map(lambda t: t.astype(jnp.bfloat16), p)
+    ref = newt_j.apply(jp16, jnp.asarray(_f32(exc)).astype(jnp.bfloat16),
+                       jnp.asarray(emb.numpy()).astype(jnp.bfloat16), fused=False)
+    assert out.dtype == torch.float32 and ref.dtype == jnp.float32
+    np.testing.assert_allclose(out.numpy(), _f32(ref), rtol=0, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
 # NEWT and the model
 # ---------------------------------------------------------------------------
 def test_newt_cr_film_f32_is_bit_exact_under_float32(jax_newt):
@@ -385,11 +588,11 @@ def _render(model, f0, control, offset, noise):
 # float32 gap (0.0046 against 0.0059) and keeps JAX's looser 0.02; the floor on
 # its distance from the float32 render (below both 0.005s, above 0) is what
 # tells it from a float32 run.
-JAX_BF16_BAR = {False: 0.003, "cr": 0.02}
+JAX_BF16_BAR = {False: 0.003, "cr": 0.02, "full_lane": 0.02}
 BF16_FLOOR = 1e-3
 
 
-@pytest.mark.parametrize("fused", [False, "cr"])
+@pytest.mark.parametrize("fused", [False, "cr", "full_lane"])
 def test_bf16_model_tracks_float32_and_the_jax_bf16_apply(jax_ckpt, fused):
     """NeuralWaveshaping(compute_dtype="bfloat16") on the shipped
     architecture (run120k_cr weights), with injected phase offsets and
@@ -397,8 +600,10 @@ def test_bf16_model_tracks_float32_and_the_jax_bf16_apply(jax_ckpt, fused):
     render (JAX's bar, tests/test_model_golden.py) but at least 1e-3 from it
     (it computes in bf16), and within JAX_BF16_BAR of the JAX bf16 apply
     (its chain on the CPU) at Tc=16, where the float32 phase's drift stays
-    out. ``"cr"`` runs kernel 1's plain version, which computes in float32
-    between bf16 load and store."""
+    out. ``"cr"`` runs kernel 1's plain version and ``"full_lane"`` kernel
+    5's, each computing in float32 between bf16 load and store;
+    ``"full_lane"`` keeps ``"cr"``'s bar (measured when written: 0.0043
+    from JAX's bf16 apply, 0.0055 from the port's float32 render)."""
     f0, control, offset, noise = _model_inputs(16, 16)
     ref16 = np.asarray(jax.jit(
         lambda p, f, c, o, n: JNeuralWaveshaping(compute_dtype="bfloat16").apply(
