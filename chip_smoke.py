@@ -265,11 +265,44 @@ exits non-zero:
    the float32 instance on the same shapes, in turns, with plain versions and
    bounds (the bytes at the tensors' own sizes); the training step at batch 8
    x 4 s at ``full_lane`` in float32 and in bf16, in turns (three medians of
-   20 each), with each arm's peak memory.
+   20 each), with each arm's peak memory;
+41. serve_bf16_fused: a bf16 ``Synthesizer`` with ``fuse_exciter`` (xcr) and
+   with ``fuse_out_mixer`` (xfull) renders 4-s requests at batch 8 and 1 (one
+   launch of kernel 7's (bf16 mixer, bf16 FiLM) instance a render and nothing
+   else, counted) and, with ``NEWT.cr_film_f32``, one request (its (bf16,
+   f32 FiLM) instance); finite, not silent; from the same offsets and noise
+   the card within 2e-3 nRMS of the CPU (the plain versions) and 1e-3 to 0.05
+   from the float32 fused render;
+42. train_cli_bf16_fused: ``scripts/torch_train.py --gin-file
+   gin/train/train_newt_bf16.gin -b "NEWT.fused = 'full_lane_cr'" -b
+   "NeuralWaveshaping.fuse_exciter = True"`` for 20 steps with validation:
+   kernels 7 and 8's xcr (bf16, bf16) instances only, counted; finite losses;
+   train_step_bf16_fused: one bf16 ``Trainer`` step at batch 8 x 4 s per
+   field and FiLM dtype, each launching its instance pair once;
+43. timbre_bf16_fast_newt: a bf16 ``timbre_transfer`` with FastNEWT of the
+   repo's 4-s wav and a batch-8 x 4-s FastNEWT render (one launch of kernel
+   4's bf16-x instance each, nothing else); a FastNEWT render of the wav's
+   controls on the card within 2e-3 nRMS of the CPU's and 1e-3 to 0.05 from
+   the float32 one;
+44. kernel_x_bf16, kernel_x_bwd_bf16, kernel_fast_newt_bf16: each bf16
+   instance against its plain version on the inputs phases 41-43 handed it
+   (caught by wrapping the launches) and on made-up shapes (odd Tc, hop 64,
+   H = 2 and 128, a ragged last pass, groups across clips; hops 33 and 300;
+   the lookup beyond both table edges, S = 256, ragged rows, views at a bf16
+   offset of 1 (scalar path) and 4 (vec4)): the output within one bf16 ulp,
+   the gradients one ulp beyond the float32 bar (d_planes at it), two
+   backward calls bit-identical, the lookup bit for bit;
+45. timing_kernel_x_bf16, timing_kernel_fast_newt_bf16: kernels 7 and 8's
+   bf16 instances beside their float32 instance on the same shapes, in turns,
+   with plain versions and bounds (the bytes at the tensors' own sizes); the
+   lookup's bf16-x instance beside its float32 one;
+46. timing_bf16_fused: the forward and the training step at batch 8 x 4 s
+   with xcr and xfull, in float32 and bf16, in turns, with each arm's peak
+   memory.
 
-Then the kernels line (the numbers of phases 3-40 per kernel, with its
+Then the kernels line (the numbers of phases 3-46 per kernel, with its
 least possible time on an H100 from its bytes and operations; kernels 1, 2,
-5 and 6's bf16 instances as entries of their own) and, last,
+4, 5, 6, 7 and 8's bf16 instances as entries of their own) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN (the GRU), so the card computes in float32 like the CPU reference.
 """
@@ -389,10 +422,17 @@ BF16_RTOL = 2.0**-7  # one bf16 ulp, relative: 8 significant bits
 # where the float32 render reads 3.5e-3 from the card's bf16 one, so a card
 # path that computed in float32 fails it
 BF16_CARD_VS_CPU = 2e-3
+# nRMS, a bf16 FastNEWT render on the card vs the CPU: the bf16 lookup index
+# moves in steps of up to 16 bins of 4096, so the bf16 FiLM MLP's roundings
+# (placed apart by cuBLAS and the CPU) reach the output as whole bins: 1.89e-3
+# measured on the H100, where the float32 render reads 2.3e-2 from the card's
+# bf16 one
+BF16_FAST_NEWT_CARD_VS_CPU = 5e-3
 BF16_VS_F32 = 0.05  # nRMS, a bf16 render vs the float32 one (JAX tests/test_model_golden.py)
 BF16_FLOOR = 1e-3  # nRMS, and at least this far from it: the render computed in bf16
-# kernel 1 and 2's bf16 instances: the counters' suffix -> the name's suffix in
-# the kernels line ((bf16 exciter, bf16 FiLM) and (bf16 exciter, f32 FiLM))
+# kernels 1, 2, 7 and 8's bf16 instances: the counters' suffix -> the name's
+# suffix in the kernels line ((bf16 I/O, bf16 FiLM) and (bf16 I/O, f32 FiLM);
+# the I/O is kernels 1-2's exciter, kernels 7-8's mixer and output)
 BF16_INSTANCES = {"bf16": "[bf16]", "bf16_f32": "[bf16, f32 film]"}
 # the tone dataset's splits; the test split is drawn after train and val, so
 # their bytes are those of a dataset written without it
@@ -1217,20 +1257,27 @@ def reset_counts():
     nf.film_shaper_fl.launches = nf.film_shaper_fl.bwd_launches = 0
     nf.film_shaper_fl.launches_bf16 = nf.film_shaper_fl.bwd_launches_bf16 = 0
     nf.film_shaper_stream.launches = fast_newt.fast_newt_lookup.launches = 0
-    nf.bank_film_shaper_xcr.launches = nf.bank_film_shaper_xcr.bwd_launches = 0
-    nf.bank_newt_xfull.launches = nf.bank_newt_xfull.bwd_launches = 0
+    fast_newt.fast_newt_lookup.launches_bf16 = 0
+    for wrapper in (nf.bank_film_shaper_xcr, nf.bank_newt_xfull):
+        for io in ("", "_bf16", "_bf16_f32"):
+            setattr(wrapper, "launches" + io, 0)
+            setattr(wrapper, "bwd_launches" + io, 0)
 
 
 def counts():
-    return {"cr": nf.film_shaper_cr.launches, "bwd": nf.film_shaper_cr.bwd_launches,
-            "fl": nf.film_shaper_fl.launches, "fl_bwd": nf.film_shaper_fl.bwd_launches,
-            "stream": nf.film_shaper_stream.launches, "lookup": fast_newt.fast_newt_lookup.launches,
-            "xcr": nf.bank_film_shaper_xcr.launches, "xcr_bwd": nf.bank_film_shaper_xcr.bwd_launches,
-            "xfull": nf.bank_newt_xfull.launches, "xfull_bwd": nf.bank_newt_xfull.bwd_launches,
-            "cr_bf16": nf.film_shaper_cr.launches_bf16, "bwd_bf16": nf.film_shaper_cr.bwd_launches_bf16,
-            "cr_bf16_f32": nf.film_shaper_cr.launches_bf16_f32,
-            "bwd_bf16_f32": nf.film_shaper_cr.bwd_launches_bf16_f32,
-            "fl_bf16": nf.film_shaper_fl.launches_bf16, "fl_bwd_bf16": nf.film_shaper_fl.bwd_launches_bf16}
+    got = {"cr": nf.film_shaper_cr.launches, "bwd": nf.film_shaper_cr.bwd_launches,
+           "fl": nf.film_shaper_fl.launches, "fl_bwd": nf.film_shaper_fl.bwd_launches,
+           "stream": nf.film_shaper_stream.launches, "lookup": fast_newt.fast_newt_lookup.launches,
+           "lookup_bf16": fast_newt.fast_newt_lookup.launches_bf16,
+           "cr_bf16": nf.film_shaper_cr.launches_bf16, "bwd_bf16": nf.film_shaper_cr.bwd_launches_bf16,
+           "cr_bf16_f32": nf.film_shaper_cr.launches_bf16_f32,
+           "bwd_bf16_f32": nf.film_shaper_cr.bwd_launches_bf16_f32,
+           "fl_bf16": nf.film_shaper_fl.launches_bf16, "fl_bwd_bf16": nf.film_shaper_fl.bwd_launches_bf16}
+    for kind, wrapper in (("xcr", nf.bank_film_shaper_xcr), ("xfull", nf.bank_newt_xfull)):
+        for io in ("", "_bf16", "_bf16_f32"):  # e.g. xcr, xcr_bwd, xcr_bf16, xcr_bwd_bf16
+            got[kind + io] = getattr(wrapper, "launches" + io)
+            got[kind + "_bwd" + io] = getattr(wrapper, "bwd_launches" + io)
+    return got
 
 
 def caught_lookups(fn):
@@ -1447,16 +1494,18 @@ def x_flop(args, backward):
 
 
 def x_bytes(args, backward):
-    """Each input read once and each output written once: phase and f0, the
-    film, offsets, mixer, planes (and w_out); out (or dy, d_film and the
-    summed gradient table)."""
+    """Each input read once and each output written once, at the tensors'
+    own element sizes: phase and f0, the film, offsets, mixer, planes (and
+    w_out); out (or dy, d_film and the float32 summed gradient table). bf16
+    halves the mixer, the film and out or dy."""
     phase, f0, off, film_c, w, b, packed, w_out = args[:8]
-    n = phase.numel() * 2 + off.numel() + film_c.numel() + w.numel() + b.numel() + packed.numel()
-    n += 0 if w_out is None else w_out.numel()
-    out = phase.numel() * (1 if w_out is not None else 64)
+    inputs = (phase, f0, off, film_c, w, b, packed, w_out)
+    n = sum(t.numel() * t.element_size() for t in inputs if t is not None)
+    out = phase.numel() * (1 if w_out is not None else 64) * w.element_size()
     if backward:  # dy in; d_film and the (170 + H + 1 [+ 1], 64) table out
-        out += film_c.numel() + (packed.numel() + w.numel() + b.numel() + (0 if w_out is None else 64))
-    return 4 * (n + out)
+        out += film_c.numel() * film_c.element_size() + 4 * (
+            packed.numel() + w.numel() + b.numel() + (0 if w_out is None else 64))
+    return n + out
 
 
 def x_plain(args):
@@ -2873,6 +2922,396 @@ def audio_rate_bf16_phases(dev, root, tmp):
     return {"launches": launches, "fwd_err": fwd_err, "bwd_err": bwd_err, "numbers": numbers["bf16"]}
 
 
+def x_instance(args):
+    """The exciter-fused instance of these launch arguments: "f32", "bf16"
+    (bf16 mixer and FiLM) or "bf16_f32" (bf16 mixer, float32 FiLM)."""
+    return "f32" if args[4].dtype == torch.float32 else ("bf16" if args[3].dtype == BF16 else "bf16_f32")
+
+
+def x_as(args, io):
+    """Launch arguments cast to instance ``io``: the mixer (w, b, w_out), the
+    output's cotangent (if any) and the FiLM; phase, f0, offsets, planes kept."""
+    mixer = torch.float32 if io == "f32" else BF16
+    film = BF16 if io == "bf16" else torch.float32
+    phase, f0, off, film_c, w, b, packed, w_out, h, sr, hop = args[:11]
+    out = (phase, f0, off, film_c.to(film), w.to(mixer), b.to(mixer), packed,
+           None if w_out is None else w_out.to(mixer), h, sr, hop)
+    return out + tuple(dy.to(mixer) for dy in args[11:])
+
+
+def check_x_bf16(label, args):
+    """A bf16 instance of the exciter-fused forward vs its plain version
+    (float32 between bf16 load and store, rounded once) within one bf16 ulp
+    (rtol 2^-7, atol 1e-5) -> max abs error."""
+    with torch.inference_mode():
+        out = nf._launch_forward_x(*args)
+        ref = x_plain(args)
+    torch.cuda.synchronize()
+    o, r = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    err = float(np.max(np.abs(o - r)))
+    xfull = args[7] is not None
+    emit({"phase": "kernel_x_bf16", "name": "bank_newt_fused_xfull" if xfull else "bank_film_shaper_fused_xcr",
+          "io": x_instance(args), "case": label, "B": args[0].shape[0], "Tc": args[3].shape[1],
+          "hop": args[10], "H": args[8], "max_abs_err": err,
+          "elements_not_bit_identical": int((o != r).sum()), "elements": int(o.size),
+          "rtol": BF16_RTOL, "atol": ATOL})
+    if out.dtype != BF16 or ref.dtype != BF16:
+        raise RuntimeError(f"{label}: the bf16 instance returned {out.dtype}, its plain version {ref.dtype}")
+    np.testing.assert_allclose(o, r, rtol=BF16_RTOL, atol=ATOL, err_msg=label)
+    return err
+
+
+def check_x_bwd_bf16(label, args):
+    """A bf16 instance of the exciter-fused backward vs autograd through the
+    plain version: d_film, d_w, d_b (and d_w_out) one bf16 ulp beyond the
+    float32 gradient bar (rtol 1e-3 + 2^-7, atol 1e-3 * max|plain|), d_planes
+    (float32) at that bar, each in its plain version's dtype; two calls
+    bit-identical -> max abs error."""
+    out = nf._launch_backward_x(*args)
+    again = nf._launch_backward_x(*args)
+    ref = x_grad_plain(args)
+    torch.cuda.synchronize()
+    bit_identical = all(torch.equal(a, b) for a, b in zip(out, again))
+    errs = {}
+    for name, o, r in zip(("d_film_c", "d_w", "d_b", "d_planes", "d_w_out"), out, ref):
+        if o.dtype != r.dtype:
+            raise RuntimeError(f"{label} {name}: {o.dtype}, the plain version's {r.dtype}")
+        rtol = BWD_RTOL if name == "d_planes" else BWD_RTOL + BF16_RTOL
+        o, r = o.float().cpu().numpy(), r.float().cpu().numpy()
+        errs[name] = (float(np.max(np.abs(o - r))), float(np.max(np.abs(r))))
+        np.testing.assert_allclose(o, r, rtol=rtol, atol=BWD_RTOL * errs[name][1], err_msg=f"{label} {name}")
+    xfull = args[7] is not None
+    emit({"phase": "kernel_x_bwd_bf16", "name": "_fused_bwd_xfull" if xfull else "_fused_bwd_xcr",
+          "io": x_instance(args), "case": label, "B": args[0].shape[0], "Tc": args[3].shape[1],
+          "hop": args[10], "H": args[8], "dtypes": [str(t.dtype) for t in out],
+          "max_abs_err": {k: v[0] for k, v in errs.items()},
+          "max_abs_plain": {k: v[1] for k, v in errs.items()},
+          "rtol": {"d_planes": BWD_RTOL, "others": BWD_RTOL + BF16_RTOL}, "bit_identical_repeat": bit_identical})
+    if len(out) != len(ref) or len(out) != (5 if xfull else 4):
+        raise RuntimeError(f"{label}: {len(out)} backward outputs, plain {len(ref)}")
+    if not bit_identical:
+        raise RuntimeError(f"{label}: two bf16 exciter-fused backward calls gave different bits")
+    return max(v[0] for v in errs.values())
+
+
+def check_lookup_bf16(label, table, x, expected_path):
+    """The lookup's bf16-x instance vs its plain version on the same CUDA
+    tensors: bit for bit (the bf16 index rounded after each operation, the
+    interpolation float32), and the path expected -> max abs error (0)."""
+    with torch.inference_mode():
+        out = fast_newt._launch(table, x)
+        ref = fast_newt.fast_newt_lookup_plain(table, x)
+        widened = fast_newt.fast_newt_lookup_plain(table, x.float())
+    torch.cuda.synchronize()
+    path = fast_newt._lookup_path(x, out)
+    err = float((out - ref).abs().max())
+    n_diff = int((out != ref).sum())
+    emit({"phase": "kernel_fast_newt_bf16", "name": "fast_newt_lookup_pallas", "io": "bf16 x",
+          "case": label, "x_shape": list(x.shape), "S": table.shape[0], "x_offset_bytes": x.data_ptr() % 16,
+          "path": path, "expected_path": expected_path, "output_dtype": str(out.dtype), "max_abs_err": err,
+          "elements_not_bit_exact": n_diff, "elements": x.numel(),
+          "elements_off_the_float32_index": int((ref != widened).sum())})
+    if x.dtype != BF16 or out.dtype != torch.float32 or n_diff:
+        raise RuntimeError(f"{label}: the bf16 lookup ({x.dtype} -> {out.dtype}) differs from its plain "
+                           f"version in {n_diff} elements")
+    if path != expected_path:
+        raise RuntimeError(f"{label}: the lookup took the {path} path, expected {expected_path}")
+    return err
+
+
+X_BF16_COUNTERS = [f"{kind}{bwd}_{io}" for kind in ("xcr", "xfull") for bwd in ("", "_bwd")
+                   for io in ("bf16", "bf16_f32")]
+
+
+def exciter_fused_bf16_phases(dev, root, tmp):
+    """Phases 41-46 (kernels 7 and 8's bf16 instances under
+    NeuralWaveshaping.fuse_exciter / fuse_out_mixer, and kernel 4's bf16-x
+    instance under FastNEWT, at compute_dtype = "bfloat16") -> their
+    numbers."""
+    launches = {k: 0 for k in X_BF16_COUNTERS + ["lookup_bf16"]}
+
+    def run_counted(fn, **expect):  # counted, every other kernel 0, and summed
+        out, got, _ = counted(fn, expect)
+        for k in launches:
+            launches[k] += got[k]
+        return out
+
+    synths = {kind: synth_with({"compute_dtype": "bfloat16", **fields}) for kind, fields in X_FIELDS.items()}
+    with torch.no_grad():
+        packed = synths["xcr"].model.newt._packed_shaper(BF16)
+    batch8, single = make_requests([4] * 8, 6), make_requests([4], 5)
+
+    # 41. serve_bf16_fused: a bf16 Synthesizer with fuse_exciter (xcr) and with
+    # fuse_out_mixer (xfull) renders 4-s requests at batch 8 and 1 (one launch
+    # of the (bf16, bf16) instance a render and nothing else), then with
+    # NEWT.cr_film_f32 one request (the (bf16, f32) instance); the card against
+    # the CPU (its plain versions) and the float32 fused render, from the same
+    # offsets and noise
+    renders = {}
+    for kind, s in synths.items():
+        rms = []
+        for label, requests, film_f32 in (("render_b8_4s", batch8, False), ("render_b1_4s", single, False),
+                                          ("render_b1_4s_film_f32", single, True)):
+            s.model.newt.cr_film_f32 = film_f32
+            audio = []
+            try:
+                renders[(kind, label)] = run_counted(lambda: caught_launches(
+                    "_launch_forward_x", lambda: audio.extend(s.render(requests, seed=0))),
+                    **{f"{kind}_{'bf16_f32' if film_f32 else 'bf16'}": 1})[0]
+            finally:
+                s.model.newt.cr_film_f32 = False
+            for (f0, _), a in zip(requests, audio):
+                rms.append(float(np.sqrt(np.mean(a**2))))
+                if a.shape != (f0.shape[0] * HOP,) or not np.all(np.isfinite(a)) or rms[-1] < 1e-4:
+                    raise RuntimeError(f"serve_bf16_fused {kind}: bad render ({a.shape}, rms {rms[-1]})")
+        f0_b, ctrl_b, _ = s.prepare(make_requests([2], seed=3))
+        rng = np.random.default_rng(4)
+        offset = rng.uniform(-np.pi, np.pi, 101).astype(np.float32)
+        noise = rng.uniform(0, 1, f0_b.shape[1] * HOP - 1).astype(np.float32)
+        outs = {}
+        for label, model in (("card_bf16", s.model),
+                             ("cpu_bf16", synth_with({"compute_dtype": "bfloat16", **X_FIELDS[kind]}, "cpu").model),
+                             ("card_f32", synth_with(X_FIELDS[kind]).model)):
+            d = next(model.parameters()).device
+            with torch.inference_mode():
+                y = model(torch.from_numpy(f0_b).to(d), torch.from_numpy(ctrl_b).to(d),
+                          phase_offset=torch.from_numpy(offset).to(d), noise=torch.from_numpy(noise).to(d))
+            outs[label] = y.cpu().numpy()
+        card_vs_cpu = nrms(outs["card_bf16"], outs["cpu_bf16"])
+        vs_f32 = nrms(outs["card_bf16"], outs["card_f32"])
+        emit({"phase": "serve_bf16_fused", "kind": kind, "fields": X_FIELDS[kind], "requests_s": [4] * 8 + [4, 4],
+              "launches": {k: launches[k] for k in launches if k.startswith(kind + "_b")}, "rms": rms,
+              "output_dtype": str(outs["card_bf16"].dtype), "nrms_card_vs_cpu": card_vs_cpu,
+              "bar_card_vs_cpu": BF16_CARD_VS_CPU, "nrms_bf16_vs_f32": vs_f32, "bar_bf16_vs_f32": BF16_VS_F32,
+              "floor_bf16_vs_f32": BF16_FLOOR})
+        if outs["card_bf16"].dtype != np.float32:
+            raise RuntimeError("the bf16 fused model does not return float32")
+        if not card_vs_cpu <= BF16_CARD_VS_CPU or not BF16_FLOOR < vs_f32 < BF16_VS_F32:
+            raise RuntimeError(f"bf16 {kind} render: card vs CPU {card_vs_cpu}, bf16 vs f32 {vs_f32}")
+
+    # 42. train_cli_bf16_fused: the bf16 recipe through the CLI with NEWT.fused
+    # = 'full_lane_cr' and fuse_exciter, 20 steps with validation: kernels 7 and
+    # 8's (bf16, bf16) xcr instances only, counted; the first step's kernel
+    # inputs caught. Then one Trainer step at batch 8 x 4 s per field and FiLM
+    # dtype (cr_film_f32), counted, its backward inputs caught
+    cli = load_train_cli()
+    dm = GeneralDataModule(root, batch_size=8)
+    val_batches = len(list(dm.val_batches()))
+    n_fwd = CLI_STEPS + val_batches * (CLI_STEPS // CLI_VAL_EVERY)
+    args = ["--gin-file", "gin/train/train_newt_bf16.gin", "--dataset-path", root, "--device", "cuda",
+            "--checkpoint-dir", str(tmp / "cli_bf16_x_ckpt"), "--log-dir", str(tmp / "cli_bf16_x_logs"),
+            "-b", "NEWT.fused = 'full_lane_cr'", "-b", "NeuralWaveshaping.fuse_exciter = True",
+            "-b", f"TrainConfig.max_steps = {CLI_STEPS}", "-b", f"TrainConfig.val_every_n_steps = {CLI_VAL_EVERY}",
+            "-b", "TrainConfig.log_every_n_steps = 5"]
+    step_fwd, step_bwd = [], []
+    t0 = time.perf_counter()
+    try:
+        run_counted(lambda: step_bwd.extend(caught_launches(
+            "_launch_backward_x", lambda: step_fwd.extend(
+                caught_launches("_launch_forward_x", lambda: cli.main(args), first=1)), first=1)),
+            xcr_bf16=n_fwd, xcr_bwd_bf16=CLI_STEPS)
+    finally:
+        gin.clear_config()
+    cli_s = time.perf_counter() - t0
+    with open(tmp / "cli_bf16_x_logs" / "metrics.csv") as f:
+        table = list(csv.DictReader(f))
+    losses = [float(r["train/loss"]) for r in table if r["train/loss"]]
+    val = [float(r["val/loss"]) for r in table if r["val/loss"]]
+    emit({"phase": "train_cli_bf16_fused", "steps": CLI_STEPS, "seconds": cli_s,
+          "launches": {"xcr_bf16": n_fwd, "xcr_bwd_bf16": CLI_STEPS},
+          "first_launch_io": x_instance(step_fwd[0]), "train_loss_windows": losses, "val_loss": val})
+    if not losses or not val or not np.all(np.isfinite(losses + val)):
+        raise RuntimeError("train_cli_bf16_fused: the losses are not finite")
+    batch = dm.dataset("train").batch(np.arange(8))
+    trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0), compute_dtype="bfloat16"),
+                      TrainConfig(), device="cuda")
+    step_args = {}
+    for kind, fields in X_FIELDS.items():
+        for io in ("bf16", "bf16_f32"):
+            set_fields(trainer.model, fields)
+            trainer.model.newt.cr_film_f32 = io == "bf16_f32"
+            metrics = {}
+            step_args[(kind, io)] = run_counted(lambda: caught_launches(
+                "_launch_backward_x", lambda: metrics.update(trainer.train_step(batch))),
+                **{f"{kind}_{io}": 1, f"{kind}_bwd_{io}": 1})[0]
+            loss = float(metrics["loss"])
+            emit({"phase": "train_step_bf16_fused", "kind": kind, "io": io, "B": 8, "loss": loss})
+            if not np.isfinite(loss) or x_instance(step_args[(kind, io)]) != io:
+                raise RuntimeError(f"a bf16 {kind} step: loss {loss}, instance {x_instance(step_args[(kind, io)])}")
+    set_fields(trainer.model, {})
+    trainer.model.newt.cr_film_f32 = False
+
+    # 43. timbre_bf16_fast_newt: bf16 FastNEWT timbre transfer of the repo's
+    # 4-s wav (two launches of the lookup's bf16 instance, its warm-up and
+    # timed forwards, and nothing else) and a batch-8 FastNEWT render (one),
+    # their lookups caught; a FastNEWT render of the wav's controls on the card
+    # against the CPU and the float32 one
+    synth16 = synth_with({"compute_dtype": "bfloat16"})
+    sr_wav, wav = wavfile.read(WAV)
+    got_audio = []
+    lookups = run_counted(lambda: caught_lookups(lambda: got_audio.append(
+        timbre_transfer(synth16, wav, sr_wav, use_fast_newt=True))), lookup_bf16=2)[:1]
+    out, speed = got_audio[0]
+    f0_b, ctrl_b, _ = synth16.prepare(batch8)
+    with torch.inference_mode():
+        table = synth16.model.newt.bake_lookup_table()
+        f0_t, ctrl_t = torch.from_numpy(f0_b).to(dev), torch.from_numpy(ctrl_b).to(dev)
+        lookups += run_counted(lambda: caught_lookups(lambda: synth16.model(
+            f0_t, ctrl_t, generator=torch.Generator().manual_seed(0), lookup_table=table)), lookup_bf16=1)
+    feats = extract_features(wav, sr_wav, device=dev)
+    f0_hz, control = adjust_controls(*feats[1:], synth16.data_mean, synth16.data_std, ControlAdjustments())
+    rng = np.random.default_rng(8)
+    offset = rng.uniform(-np.pi, np.pi, 101).astype(np.float32)
+    noise = rng.uniform(0, 1, f0_hz.shape[0] * HOP - 1).astype(np.float32)
+    outs = {}
+    for label, model in (("card_bf16", synth16.model),
+                         ("cpu_bf16", synth_with({"compute_dtype": "bfloat16"}, "cpu").model),
+                         ("card_f32", Synthesizer.from_checkpoint(CKPT, device="cuda").model)):
+        d = next(model.parameters()).device
+        with torch.inference_mode():
+            y = model(torch.from_numpy(f0_hz[None]).to(d), torch.from_numpy(control[None]).to(d),
+                      phase_offset=torch.from_numpy(offset).to(d), noise=torch.from_numpy(noise).to(d),
+                      lookup_table=model.newt.bake_lookup_table())
+        outs[label] = y.cpu().numpy()
+    card_vs_cpu = nrms(outs["card_bf16"], outs["cpu_bf16"])
+    vs_f32 = nrms(outs["card_bf16"], outs["card_f32"])
+    rms = float(np.sqrt(np.mean(out**2)))
+    emit({"phase": "timbre_bf16_fast_newt", "input": "wav_16k", "samples": int(out.shape[0]), "rms": rms,
+          "x_realtime": speed, "launches_lookup_bf16": 3, "nrms_card_vs_cpu": card_vs_cpu,
+          "bar_card_vs_cpu": BF16_FAST_NEWT_CARD_VS_CPU, "nrms_bf16_vs_f32": vs_f32,
+          "bar_bf16_vs_f32": BF16_VS_F32, "floor_bf16_vs_f32": BF16_FLOOR,
+          "output_dtype": str(outs["card_bf16"].dtype)})
+    if not np.all(np.isfinite(out)) or rms < 1e-4:
+        raise RuntimeError(f"bf16 FastNEWT timbre transfer: bad audio (rms {rms})")
+    if not card_vs_cpu <= BF16_FAST_NEWT_CARD_VS_CPU or not BF16_FLOOR < vs_f32 < BF16_VS_F32:
+        raise RuntimeError(f"bf16 FastNEWT render: card vs CPU {card_vs_cpu}, bf16 vs f32 {vs_f32}")
+
+    # 44. kernel_x_bf16, kernel_x_bwd_bf16, kernel_fast_newt_bf16: each bf16
+    # instance against its plain version on the inputs those paths handed it,
+    # then made-up shapes (odd Tc, hop 64, H = 2 and 128, a ragged last pass,
+    # groups across clips; backward hops 33 and 300)
+    fwd_err = {(kind, io): 0.0 for kind in X_FIELDS for io in ("bf16", "bf16_f32")}
+    bwd_err = dict(fwd_err)
+    cases = [(f"{label}_{kind}", a) for (kind, label), a in renders.items()]
+    cases.append(("cli_train_step_xcr", step_fwd[0]))
+    bwd_cases = [("cli_train_step_xcr", step_bwd[0])]
+    bwd_cases += [(f"train_step_b8_4s_{kind}", a) for (kind, _), a in step_args.items()]
+    for kind in X_FIELDS:
+        xfull = kind == "xfull"
+        for io in ("bf16", "bf16_f32"):
+            for label, b, tc, hop, h in (("odd_tc", 1, 37, HOP, 101), ("hop_64", 2, 50, 64, 101),
+                                         ("h2", 2, 8, HOP, 2), ("h128", 2, 8, HOP, 128),
+                                         ("ragged_block", 1, 37, 5, 101), ("straddle", 3, 1, 3, 101)):
+                a = made_up_x_args(b, tc, hop, h, 80 + tc + h, dev, packed, xfull)
+                cases.append((f"{label}_{kind}", x_as(a, io)))
+            for label, b, tc, hop, h in (("odd_tc", 1, 37, HOP, 101), ("h2", 1, 8, HOP, 2),
+                                         ("hop_33", 2, 40, 33, 128), ("hop_300", 1, 30, 300, 101)):
+                a = made_up_x_args(b, tc, hop, h, 90 + tc + h, dev, packed, xfull, True)
+                bwd_cases.append((f"{label}_{kind}", x_as(a, io)))
+    for label, a in cases:
+        key = ("xfull" if a[7] is not None else "xcr", x_instance(a))
+        fwd_err[key] = max(fwd_err[key], check_x_bf16(label, a))
+    for label, a in bwd_cases:
+        key = ("xfull" if a[7] is not None else "xcr", x_instance(a))
+        bwd_err[key] = max(bwd_err[key], check_x_bwd_bf16(label, a))
+    del cases, bwd_cases
+    torch.cuda.empty_cache()
+    lookup_cases = [("timbre_transfer_4s", *lookups[0]), ("render_b8_4s", *lookups[1])]
+    rng = np.random.default_rng(17)
+    for label, s, shape, offset_el, path in (("beyond_edges", 4096, (2, 4000, 64), 0, "vec4"),
+                                             ("s256", 256, (2, 1000, 64), 0, "vec4"),
+                                             ("ragged_rows", 4096, (3, 333, 64), 0, "vec4"),
+                                             ("offset1_view", 4096, (2, 1000, 64), 1, "scalar"),
+                                             ("offset4_view", 4096, (2, 1000, 64), 4, "vec4")):
+        t = table if s == 4096 else torch.from_numpy(rng.standard_normal((s, 64)).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.uniform(-4, 4, shape).astype(np.float32)).to(dev, BF16)
+        x = torch.empty(x.numel() + offset_el, dtype=BF16, device=dev)[offset_el:].view(shape).copy_(x)
+        lookup_cases.append((label, t, x, path))
+    lookup_err = max(check_lookup_bf16(label, t, x, "vec4" if len(rest) == 0 else rest[0])
+                     for label, t, x, *rest in lookup_cases)
+
+    # 45. timing_kernel_x_bf16: the bf16 instances beside the float32 instance
+    # on the same shapes (the batch-8 render's and the training step's inputs
+    # cast), in turns, with plain versions and bounds (the bytes at the
+    # tensors' own sizes); the lookup's bf16-x instance beside its float32 one
+    order = ["f32", "bf16", "bf16_f32", "bf16_f32", "bf16", "f32"]
+    numbers, timing = {}, {}
+    for kind in X_FIELDS:
+        fa = renders[(kind, "render_b8_4s")]
+        ba = step_args[(kind, "bf16")]
+        fwd_in = {io: x_as(fa, io) for io in ("f32", "bf16", "bf16_f32")}
+        bwd_in = {io: x_as(ba, io) for io in ("f32", "bf16", "bf16_f32")}
+        with torch.inference_mode():
+            f_ms = in_turns({io: (lambda a=a: nf._launch_forward_x(*a)) for io, a in fwd_in.items()}, order)
+            f_plain = {io: cuda_median_ms(lambda a=a: x_plain(a)) for io, a in fwd_in.items()}
+        b_ms = in_turns({io: (lambda a=a: nf._launch_backward_x(*a)) for io, a in bwd_in.items()}, order)
+        b_plain = {io: cuda_median_ms(lambda a=a: x_grad_plain(a)) for io, a in bwd_in.items()}
+        for io in ("f32", "bf16", "bf16_f32"):
+            fb = bound(x_flop(fwd_in[io], False), x_bytes(fwd_in[io], False))
+            bb = bound(x_flop(bwd_in[io], True), x_bytes(bwd_in[io], True))
+            numbers[(kind, io)] = ((statistics.mean(f_ms[io]), f_plain[io], *fb),
+                                   (statistics.mean(b_ms[io]), b_plain[io], *bb))
+        timing[kind] = {"fwd_shape": list(fa[0].shape), "bwd_shape": list(ba[0].shape), "fwd_kernel_ms": f_ms,
+                        "fwd_plain_ms": f_plain, "bwd_kernel_ms": b_ms, "bwd_plain_ms": b_plain,
+                        "fwd_bound_ms": {io: numbers[(kind, io)][0][2] for io in fwd_in},
+                        "fwd_bound_by": {io: numbers[(kind, io)][0][3] for io in fwd_in},
+                        "bwd_bound_ms": {io: numbers[(kind, io)][1][2] for io in bwd_in},
+                        "bwd_bound_by": {io: numbers[(kind, io)][1][3] for io in bwd_in},
+                        "fwd_bytes": {io: x_bytes(a, False) for io, a in fwd_in.items()},
+                        "bwd_bytes": {io: x_bytes(a, True) for io, a in bwd_in.items()}}
+        emit({"phase": "timing_kernel_x_bf16", "kind": kind, "order": order, **timing[kind]})
+        del fwd_in, bwd_in
+    lt, lx = lookups[1]
+    with torch.inference_mode():
+        lx32 = lx.float()
+        lookup_ms = in_turns({"f32": lambda: fast_newt._launch(lt, lx32),
+                              "bf16": lambda: fast_newt._launch(lt, lx)}, ["f32", "bf16", "bf16", "f32"])
+        lookup_plain = cuda_median_ms(lambda: fast_newt.fast_newt_lookup_plain(lt, lx))
+    n_el = lx.numel()
+    lookup_bound = bound(n_el * LOOKUP_FLOP_PER_ELEMENT, n_el * (2 + 4) + 4 * lt.numel())
+    emit({"phase": "timing_kernel_fast_newt_bf16", "x_shape": list(lx.shape), "order": ["f32", "bf16", "bf16", "f32"],
+          "kernel_ms": lookup_ms, "plain_ms_bf16": lookup_plain,
+          "bytes": {"f32": n_el * 8 + 4 * lt.numel(), "bf16": n_el * 6 + 4 * lt.numel()},
+          "bound_ms": {"f32": bound(n_el * LOOKUP_FLOP_PER_ELEMENT, n_el * 8 + 4 * lt.numel())[0],
+                       "bf16": lookup_bound[0]}, "bound_by": lookup_bound[1]})
+    del renders, step_args, step_fwd, step_bwd, lookups, lookup_cases
+    torch.cuda.empty_cache()
+
+    # 46. timing_bf16_fused: the fused forward (batch 8 x 4 s) and training step
+    # (batch 8 x 4 s) in float32 and bf16, xcr and xfull, in turns, with each
+    # arm's peak memory
+    arms = {f"{cd}_{kind}": (cd, kind) for kind in X_FIELDS for cd in ("f32", "bf16")}
+    models, trainers = {}, {}
+    for arm, (cd, kind) in arms.items():
+        model = NeuralWaveshaping(generator=torch.Generator().manual_seed(0),
+                                  compute_dtype="bfloat16" if cd == "bf16" else "float32")
+        model.newt.fused = "full_lane_cr"
+        set_fields(model, X_FIELDS[kind])
+        trainers[arm] = Trainer(model, TrainConfig(), device="cuda")
+        models[arm] = trainers[arm].model
+    turns = ["f32_xcr", "bf16_xcr", "f32_xfull", "bf16_xfull", "bf16_xfull", "f32_xfull", "bf16_xcr", "f32_xcr"]
+    fwd, step, peak = {}, {}, {}
+    for arm in turns:
+        gen = torch.Generator().manual_seed(0)
+        with torch.inference_mode():
+            fwd.setdefault(arm, []).append(cuda_median_ms(lambda: models[arm](f0_t, ctrl_t, generator=gen)))
+        step.setdefault(arm, []).append(cuda_median_ms(lambda: trainers[arm].train_step(batch)))
+        torch.cuda.reset_peak_memory_stats()
+        trainers[arm].train_step(batch)
+        torch.cuda.synchronize()
+        peak.setdefault(arm, []).append(torch.cuda.max_memory_allocated())
+    emit({"phase": "timing_bf16_fused", "batch": [8, int(batch["f0"].shape[1])], "order": turns,
+          "forward_b8_4s_ms": fwd, "step_ms": step, "step_peak_mem_bytes": peak,
+          "x_realtime_forward": {a: [32.0 / (t / 1e3) for t in v] for a, v in fwd.items()},
+          "x_realtime_step": {a: [32.0 / (t / 1e3) for t in v] for a, v in step.items()}})
+    del trainers, models, trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches, "fwd_err": fwd_err, "bwd_err": bwd_err, "numbers": numbers,
+            "lookup": {"launches": launches["lookup_bf16"], "max_abs_err": lookup_err,
+                       "ms": statistics.mean(lookup_ms["bf16"]), "plain_ms": lookup_plain,
+                       "bound_ms": lookup_bound[0], "bound_by": lookup_bound[1]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -3027,6 +3466,7 @@ def main() -> int:
         rt = runtime_phases(dev, root, tmp)
         pre = preprocess_phases(dev, tmp)
         fl16 = audio_rate_bf16_phases(dev, root, tmp)
+        xb = exciter_fused_bf16_phases(dev, root, tmp)
 
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
@@ -3103,7 +3543,24 @@ def main() -> int:
         "bound_ms": fl16["numbers"][bwd][2], "bound_by": fl16["numbers"][bwd][3], "library_ms": None,
     } for name, source, lines, counter, bwd in (
         ("film_shaper_fused_fl", "newt_fused_fl.cu", "488 and :417", "fl_bf16", 0),
-        ("_fused_bwd_fl", "newt_fused_fl_bwd.cu", "527 and :450", "fl_bwd_bf16", 1))]})
+        ("_fused_bwd_fl", "newt_fused_fl_bwd.cu", "527 and :450", "fl_bwd_bf16", 1))] + [{
+        "name": name + BF16_INSTANCES[io],
+        "route": "cuda", "source": f"neural_waveshaping_synthesis_tpu_torch/kernels/csrc/{source}",
+        "replaces": f"neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:{line}",
+        "launches": xb["launches"][f"{kind}{'_bwd' if bwd else ''}_{io}"],
+        "max_abs_err": (xb["bwd_err"] if bwd else xb["fwd_err"])[(kind, io)],
+        "ms": xb["numbers"][(kind, io)][bwd][0], "plain_ms": xb["numbers"][(kind, io)][bwd][1],
+        "bound_ms": xb["numbers"][(kind, io)][bwd][2], "bound_by": xb["numbers"][(kind, io)][bwd][3],
+        "library_ms": None,
+    } for name, source, line, kind, bwd in (
+        ("bank_film_shaper_fused_xcr", "newt_fused_x.cu", 1136, "xcr", 0),
+        ("_fused_bwd_xcr", "newt_fused_x_bwd.cu", 1199, "xcr", 1),
+        ("bank_newt_fused_xfull", "newt_fused_x.cu", 1383, "xfull", 0),
+        ("_fused_bwd_xfull", "newt_fused_x_bwd.cu", 1447, "xfull", 1)) for io in BF16_INSTANCES] + [{
+        "name": "fast_newt_lookup[bf16 x]", "route": "cuda",
+        "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/fast_newt_lookup.cu",
+        "replaces": "neural_waveshaping_synthesis_tpu/kernels/fast_newt.py:68", **xb["lookup"],
+        "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,6 +1,6 @@
-// Exciter-fused synthesis, forward, float32: harmonic bank -> H -> 64 mixer
-// -> control-rate FiLM -> sine-shaper bank -> FiLM, and for xfull NEWT's
-// 64 -> 1 output mix, in one pass.
+// Exciter-fused synthesis, forward: harmonic bank -> H -> 64 mixer ->
+// control-rate FiLM -> sine-shaper bank -> FiLM, and for xfull NEWT's 64 -> 1
+// output mix, in one pass; float32 arithmetic on float32 or bfloat16 I/O.
 //
 // Replaces the TPU kernels kernels/newt_fused.py:1136
 // bank_film_shaper_fused_xcr (xcr; Pallas _fwd_kernel_xcr, _exciter_il) and
@@ -70,6 +70,21 @@
 // 0); no --use_fast_math. A sample's bits do not depend on its slot in a
 // group. Samples are counted in 32-bit ints (the wrapper refuses B*Ta >
 // 2^30), element offsets in 64-bit.
+//
+// Mixed precision (the model's compute_dtype = "bfloat16"): the kernel is a
+// template on TM, the type of the mixer (w, b, and xfull's w_out) and of the
+// output, and TF, the type of the control-rate FiLM, as kernel 1 is on its
+// exciter and FiLM. Three instances: (float, float), (bf16, bf16) and (bf16,
+// float), the NEWT.cr_film_f32 call. phase, f0 and the offsets are float32
+// always (JAX casts phase and f0 to float32 too), and the shaper weights are
+// the float32 planes (exact copies of the bf16-rounded weights). A bf16
+// mixer entry, bias or FiLM value is widened exactly as it is loaded
+// (newt::load_f32), the bank tile, the mix, the chain and xfull's warp sums
+// run in float32 as above, and the output is rounded once, to nearest even,
+// as it is stored (newt::store_as). The JAX kernel rounds the in-kernel
+// exciter and its FiLM planes to bf16 instead; the port keeps float32 between
+// load and store (ROADMAP.md, deviations).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "newt_bank.cuh"
@@ -93,13 +108,13 @@ __device__ __forceinline__ void group_sync(int g) {
   asm volatile("bar.sync %0, %1;" : : "r"(1 + g), "n"(kC) : "memory");
 }
 
-template <bool kOutMix>
+template <bool kOutMix, typename TM, typename TF>
 __global__ void __launch_bounds__(kThreads, 2)
 bank_film_shaper_x_kernel(const float* __restrict__ phase, const float* __restrict__ f0,
-                          const float* __restrict__ offsets, const float* __restrict__ film,
-                          const float* __restrict__ mixer_w, const float* __restrict__ mixer_b,
-                          const float* __restrict__ weights, const float* __restrict__ w_out,
-                          float* __restrict__ out, int n_samples, int ta, int tc, int hop,
+                          const float* __restrict__ offsets, const TF* __restrict__ film,
+                          const TM* __restrict__ mixer_w, const TM* __restrict__ mixer_b,
+                          const float* __restrict__ weights, const TM* __restrict__ w_out,
+                          TM* __restrict__ out, int n_samples, int ta, int tc, int hop,
                           int n_harm, float half_sr) {
   extern __shared__ __align__(16) float smem[];
   float* sw = smem;                            // (64, kLd) shaper rows
@@ -107,15 +122,16 @@ bank_film_shaper_x_kernel(const float* __restrict__ phase, const float* __restri
   float* stiles = smw + kMaxHarmonics * kC;    // (kGroups, 128, kS) bank tiles
   float* ssums = stiles + kGroups * kTile;      // (kGroups, 2, kS) xfull warp sums
   newt::stage_weight_rows(sw, weights, kThreads);
-  for (int i = threadIdx.x; i < n_harm * kC; i += kThreads) smw[i] = mixer_w[i];
+  for (int i = threadIdx.x; i < n_harm * kC; i += kThreads)
+    smw[i] = newt::load_f32(mixer_w + i);
   __syncthreads();
 
   const int c = threadIdx.x % kC;
   const int grp = threadIdx.x / kC;
   const float off_lo = c < n_harm ? offsets[c] : 0.0f;
   const float off_hi = c + kC < n_harm ? offsets[c + kC] : 0.0f;
-  const float bias = mixer_b[c];
-  const float wo = kOutMix ? w_out[c] : 0.0f;
+  const float bias = newt::load_f32(mixer_b + c);
+  const float wo = kOutMix ? newt::load_f32(w_out + c) : 0.0f;
   const int n_groups = (n_samples + kS - 1) / kS;
   const int stride = gridDim.x * kGroups;
   float* tile = stiles + grp * kTile;
@@ -132,7 +148,8 @@ bank_film_shaper_x_kernel(const float* __restrict__ phase, const float* __restri
     if (!kOutMix) {
 #pragma unroll
       for (int i = 0; i < kS; ++i)
-        if (s0 + i < n_samples) out[static_cast<long long>(s0 + i) * kC + c] = y[i];
+        if (s0 + i < n_samples)
+          newt::store_as(out + static_cast<long long>(s0 + i) * kC + c, y[i]);
     } else {
 #pragma unroll
       for (int i = 0; i < kS; ++i) {
@@ -142,61 +159,108 @@ bank_film_shaper_x_kernel(const float* __restrict__ phase, const float* __restri
         if (c % 32 == 0) sums[(c / 32) * kS + i] = v;
       }
       group_sync(grp);  // the sums are written and the tile read
-      if (c < kS && s0 + c < n_samples) out[s0 + c] = sums[c] + sums[kS + c];
+      if (c < kS && s0 + c < n_samples) newt::store_as(out + s0 + c, sums[c] + sums[kS + c]);
     }
   }
 }
 
-template <bool kOutMix>
+template <bool kOutMix, typename TM, typename TF>
 int resident_blocks() {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(bank_film_shaper_x_kernel<kOutMix>,
+    err = cudaFuncSetAttribute(bank_film_shaper_x_kernel<kOutMix, TM, TF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kSmemBytes));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bank_film_shaper_x_kernel<kOutMix>, kThreads, kSmemBytes);
+        &per_sm, bank_film_shaper_x_kernel<kOutMix, TM, TF>, kThreads, kSmemBytes);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (per_sm < 1) return -static_cast<int>(cudaErrorLaunchOutOfResources);
   return sms * per_sm;
 }
 
+template <typename TM, typename TF>
+int launch(const float* phase, const float* f0, const float* offsets, const TF* film,
+           const TM* mixer_w, const TM* mixer_b, const float* weights, const TM* w_out, TM* out,
+           int n_samples, int ta, int tc, int hop, int n_harm, int blocks, float half_sr,
+           void* stream) {
+  if (n_samples <= 0 || blocks <= 0 || n_harm < 2 || n_harm > kMaxHarmonics)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_out != nullptr)
+    bank_film_shaper_x_kernel<true, TM, TF><<<blocks, kThreads, kSmemBytes, s>>>(
+        phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, out, n_samples, ta, tc,
+        hop, n_harm, half_sr);
+  else
+    bank_film_shaper_x_kernel<false, TM, TF><<<blocks, kThreads, kSmemBytes, s>>>(
+        phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, out, n_samples, ta, tc,
+        hop, n_harm, half_sr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using bf16 = __nv_bfloat16;
+
 }  // namespace
 
 // The number of forward blocks resident on the current device at once (SMs
-// x blocks per SM), for xcr and for xfull; each also allows its kernel the
-// dynamic shared memory there, so call it once per device before the first
-// launch. The caller launches min(this, ceil(B*Ta / 24)) blocks (24 samples
-// a block pass: kernels/newt_fused.py _SAMPLES_PER_PASS). Returns -(CUDA
-// error) on failure.
-extern "C" int newt_fused_xcr_resident_blocks() { return resident_blocks<false>(); }
-extern "C" int newt_fused_xfull_resident_blocks() { return resident_blocks<true>(); }
+// x blocks per SM), for xcr and for xfull, one query per instance (the
+// suffix as newt_fused_x_forward's); each also allows its kernel the dynamic
+// shared memory there, so call it once per device before the instance's
+// first launch. The caller launches min(this, ceil(B*Ta / 24)) blocks (24
+// samples a block pass: kernels/newt_fused.py _SAMPLES_PER_PASS). Returns
+// -(CUDA error) on failure.
+extern "C" int newt_fused_xcr_resident_blocks() { return resident_blocks<false, float, float>(); }
+extern "C" int newt_fused_xfull_resident_blocks() { return resident_blocks<true, float, float>(); }
+extern "C" int newt_fused_xcr_resident_blocks_bf16() {
+  return resident_blocks<false, bf16, bf16>();
+}
+extern "C" int newt_fused_xfull_resident_blocks_bf16() {
+  return resident_blocks<true, bf16, bf16>();
+}
+extern "C" int newt_fused_xcr_resident_blocks_bf16_f32() {
+  return resident_blocks<false, bf16, float>();
+}
+extern "C" int newt_fused_xfull_resident_blocks_bf16_f32() {
+  return resident_blocks<true, bf16, float>();
+}
+
 // phase, f0 (B, Ta) with the phase wrapped to [0, tau); offsets (H,); film
 // (B, Tc, 256) at control rate; mixer_w (H, 64), mixer_b (64,); weights
 // (170, 64); w_out (64,) for xfull or null for xcr; out (B, Ta) for xfull,
-// (B, Ta, 64) for xcr: contiguous float32 on the current device, Ta =
-// Tc*hop, 2 <= H <= 128, half_sr = sample rate / 2. Launches on `stream` and
-// returns cudaGetLastError() (0 = launched).
+// (B, Ta, 64) for xcr: contiguous on the current device, Ta = Tc*hop, 2 <= H
+// <= 128, half_sr = sample rate / 2. All float32 here; in the two instances
+// below the mixer, w_out and out are bfloat16 (the film too in _bf16, not in
+// _bf16_f32), phase, f0, offsets and weights float32 always. Launches on
+// `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int newt_fused_x_forward(const float* phase, const float* f0, const float* offsets,
                                     const float* film, const float* mixer_w,
                                     const float* mixer_b, const float* weights,
                                     const float* w_out, float* out, int n_samples, int ta,
                                     int tc, int hop, int n_harm, int blocks, float half_sr,
                                     void* stream) {
-  if (n_samples <= 0 || blocks <= 0 || n_harm < 2 || n_harm > kMaxHarmonics)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_out != nullptr)
-    bank_film_shaper_x_kernel<true><<<blocks, kThreads, kSmemBytes, s>>>(
-        phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, out, n_samples, ta, tc,
-        hop, n_harm, half_sr);
-  else
-    bank_film_shaper_x_kernel<false><<<blocks, kThreads, kSmemBytes, s>>>(
-        phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, out, n_samples, ta, tc,
-        hop, n_harm, half_sr);
-  return static_cast<int>(cudaGetLastError());
+  return launch(phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, out, n_samples, ta,
+                tc, hop, n_harm, blocks, half_sr, stream);
+}
+
+extern "C" int newt_fused_x_forward_bf16(const float* phase, const float* f0,
+                                         const float* offsets, const bf16* film,
+                                         const bf16* mixer_w, const bf16* mixer_b,
+                                         const float* weights, const bf16* w_out, bf16* out,
+                                         int n_samples, int ta, int tc, int hop, int n_harm,
+                                         int blocks, float half_sr, void* stream) {
+  return launch(phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, out, n_samples, ta,
+                tc, hop, n_harm, blocks, half_sr, stream);
+}
+
+extern "C" int newt_fused_x_forward_bf16_f32(const float* phase, const float* f0,
+                                             const float* offsets, const float* film,
+                                             const bf16* mixer_w, const bf16* mixer_b,
+                                             const float* weights, const bf16* w_out, bf16* out,
+                                             int n_samples, int ta, int tc, int hop, int n_harm,
+                                             int blocks, float half_sr, void* stream) {
+  return launch(phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, out, n_samples, ta,
+                tc, hop, n_harm, blocks, half_sr, stream);
 }

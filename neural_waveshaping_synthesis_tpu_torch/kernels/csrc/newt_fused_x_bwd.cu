@@ -1,5 +1,6 @@
-// Exciter-fused synthesis, backward, float32: the backward of newt_fused_x.cu
-// for xcr and, with the compile-time flag kOutMix, xfull.
+// Exciter-fused synthesis, backward: the backward of newt_fused_x.cu for xcr
+// and, with the compile-time flag kOutMix, xfull; float32 arithmetic on
+// float32 or bfloat16 I/O.
 //
 // Replaces the TPU kernels kernels/newt_fused.py:1199 _fused_bwd_xcr
 // (Pallas _bwd_kernel_xcr) and :1447 _fused_bwd_xfull (_bwd_kernel_xfull) of
@@ -72,6 +73,17 @@
 // Exactness: the bank as newt_bank.cuh says, the FiLM lerp as kernel 2's; no
 // --use_fast_math. Segments and samples in 32-bit ints (the wrapper refuses
 // B*Ta > 2^30), offsets in 64-bit.
+//
+// Mixed precision: the instances of newt_fused_x.cu's, a template on TM (the
+// mixer w and b, w_out and dy) and TF (the FiLM and d_film): (float, float),
+// (bf16, bf16) and (bf16, float). Each bf16 value is widened exactly where
+// it is loaded (newt::load_f32): the staged mixer, the bias in step 2, the
+// FiLM frames (FilmSegment), w_out, and each dy as step 1 stages it into the
+// float32 dy tile (plain loads, so a bf16 dy needs no staging of its own).
+// Everything after runs in float32 as above; d_film is rounded once as
+// fold_film stores it, and the gradient table (planes, dW, db, dw_out) stays
+// float32, rounded to the mixer's dtype by the caller (kernels/newt_fused.py).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "newt_bank.cuh"
@@ -107,14 +119,13 @@ constexpr size_t kSmemBytes =
 static_assert(kThreads == kLanes * kQuads, "product A: one thread per (sample, 4 channels)");
 static_assert(kThreads * 4 == kMaxHarmonics * kQuads, "product B: 16 dW entries a thread");
 
-template <bool kOutMix>
+template <bool kOutMix, typename TM, typename TF>
 __global__ void __launch_bounds__(kThreads, 1)
 bank_film_shaper_x_bwd_kernel(const float* __restrict__ phase, const float* __restrict__ f0,
-                              const float* __restrict__ offsets, const float* __restrict__ film,
-                              const float* __restrict__ mixer_w,
-                              const float* __restrict__ mixer_b,
-                              const float* __restrict__ weights, const float* __restrict__ w_out,
-                              const float* __restrict__ dy, float* __restrict__ film_part,
+                              const float* __restrict__ offsets, const TF* __restrict__ film,
+                              const TM* __restrict__ mixer_w, const TM* __restrict__ mixer_b,
+                              const float* __restrict__ weights, const TM* __restrict__ w_out,
+                              const TM* __restrict__ dy, float* __restrict__ film_part,
                               float* __restrict__ part, int n_seg, int tc, int hop, int n_harm,
                               float half_sr) {
   extern __shared__ float4 smem4[];
@@ -134,7 +145,8 @@ bank_film_shaper_x_bwd_kernel(const float* __restrict__ phase, const float* __re
     const int k = i / kC;
     sw[(i - k * kC) * kLd + row_pos(k)] = weights[i];
   }
-  for (int i = threadIdx.x; i < n_harm * kC; i += kThreads) smw[i] = mixer_w[i];
+  for (int i = threadIdx.x; i < n_harm * kC; i += kThreads)
+    smw[i] = newt::load_f32(mixer_w + i);
   for (int i = threadIdx.x; i < n_harm; i += kThreads) soff[i] = offsets[i];
   __syncthreads();
 
@@ -148,7 +160,7 @@ bank_film_shaper_x_bwd_kernel(const float* __restrict__ phase, const float* __re
   for (int seg = blockIdx.x; seg < n_seg; seg += gridDim.x) {
     const int b = seg / tc;
     const int m = seg - b * tc;
-    const float* clip = film + static_cast<long long>(b) * tc * (4 * kC);
+    const TF* clip = film + static_cast<long long>(b) * tc * (4 * kC);
     for (int j = 0; j < n_chunk; ++j) {
       const int o0 = j * kLanes;
       const int n = min(kLanes, hop - o0);  // live samples of the chunk
@@ -166,11 +178,11 @@ bank_film_shaper_x_bwd_kernel(const float* __restrict__ phase, const float* __re
         }
       }
       if (kOutMix) {
-        if (warp == 0) sdy[lane] = lane < n ? dy[s0 + lane] : 0.0f;
+        if (warp == 0) sdy[lane] = lane < n ? newt::load_f32(dy + s0 + lane) : 0.0f;
       } else {
         const long long base = static_cast<long long>(s0) * kC;
         for (int i = threadIdx.x; i < kLanes * kC; i += kThreads)
-          sdy[(i / kC) * kTileLd + i % kC] = i < n * kC ? dy[base + i] : 0.0f;
+          sdy[(i / kC) * kTileLd + i % kC] = i < n * kC ? newt::load_f32(dy + base + i) : 0.0f;
       }
       __syncthreads();
 
@@ -189,7 +201,7 @@ bank_film_shaper_x_bwd_kernel(const float* __restrict__ phase, const float* __re
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          se[row * kTileLd + 4 * quad + i] = acc[i] + mixer_b[4 * quad + i];
+          se[row * kTileLd + 4 * quad + i] = acc[i] + newt::load_f32(mixer_b + 4 * quad + i);
       }
       __syncthreads();
 
@@ -206,7 +218,7 @@ bank_film_shaper_x_bwd_kernel(const float* __restrict__ phase, const float* __re
         fs.at(active ? o : hop - 1, film_a, &w, &omw, &lo);
         const float g_in = film_a[0], b_in = film_a[1], g_out = film_a[2], b_out = film_a[3];
         const float exc = se[lane * kTileLd + c];
-        const float g = kOutMix ? d_out * w_out[c] : sdy[lane * kTileLd + c];
+        const float g = kOutMix ? d_out * newt::load_f32(w_out + c) : sdy[lane * kTileLd + c];
         const float x = g_in * exc + b_in;
         float y, dx, t[kLanes];
         shaper_backward_lanes(x, g * g_out, sw_addr + woff(c * kLd), sg + c * kLd, lane, t, &y,
@@ -287,60 +299,40 @@ bank_film_shaper_x_bwd_kernel(const float* __restrict__ phase, const float* __re
   }
 }
 
-template <bool kOutMix>
+template <bool kOutMix, typename TM, typename TF>
 int resident_blocks() {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(bank_film_shaper_x_bwd_kernel<kOutMix>,
+    err = cudaFuncSetAttribute(bank_film_shaper_x_bwd_kernel<kOutMix, TM, TF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kSmemBytes));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bank_film_shaper_x_bwd_kernel<kOutMix>, kThreads, kSmemBytes);
+        &per_sm, bank_film_shaper_x_bwd_kernel<kOutMix, TM, TF>, kThreads, kSmemBytes);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (per_sm < 1) return -static_cast<int>(cudaErrorLaunchOutOfResources);
   return sms * per_sm;
 }
 
-}  // namespace
-
-// The number of backward blocks resident on the current device at once, for
-// xcr and for xfull; each also allows its kernel the dynamic shared memory
-// there, so call it once per device before the first launch. The caller
-// launches min(this, B*Tc) blocks (one control segment per block at a time)
-// and sizes the (blocks, rows, 64) partials with it. Returns -(CUDA error)
-// on failure.
-extern "C" int newt_fused_xcr_backward_resident_blocks() { return resident_blocks<false>(); }
-extern "C" int newt_fused_xfull_backward_resident_blocks() { return resident_blocks<true>(); }
-
-// Inputs as newt_fused_x_forward's, with dy ((B, Ta, 64) for xcr, (B, Ta) for
-// xfull, where w_out is not null). Outputs: d_film (B, Tc, 256) and grads
-// (rows, 64), rows = 170 + H + 1 (+ 1 for xfull): the planes, dW, db and
-// dw_out. Scratch: film_part (B*Tc, 3, 256) and part (blocks, rows, 64), with
-// blocks as the resident-blocks query says. Contiguous float32 on the current
-// device, Ta = Tc*hop. Launches the three kernels on `stream` and returns the
-// first CUDA error (0 = launched).
-extern "C" int newt_fused_x_backward(const float* phase, const float* f0, const float* offsets,
-                                     const float* film, const float* mixer_w,
-                                     const float* mixer_b, const float* weights,
-                                     const float* w_out, const float* dy, float* d_film,
-                                     float* grads, float* film_part, float* part, int b, int ta,
-                                     int tc, int n_harm, int blocks, float half_sr,
-                                     void* stream) {
+template <typename TM, typename TF>
+int launch(const float* phase, const float* f0, const float* offsets, const TF* film,
+           const TM* mixer_w, const TM* mixer_b, const float* weights, const TM* w_out,
+           const TM* dy, TF* d_film, float* grads, float* film_part, float* part, int b, int ta,
+           int tc, int n_harm, int blocks, float half_sr, void* stream) {
   if (b <= 0 || tc <= 0 || blocks <= 0 || n_harm < 2 || n_harm > kMaxHarmonics)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hop = ta / tc;
   const bool out_mix = w_out != nullptr;
   if (out_mix)
-    bank_film_shaper_x_bwd_kernel<true><<<blocks, kThreads, kSmemBytes, s>>>(
+    bank_film_shaper_x_bwd_kernel<true, TM, TF><<<blocks, kThreads, kSmemBytes, s>>>(
         phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, dy, film_part, part,
         b * tc, tc, hop, n_harm, half_sr);
   else
-    bank_film_shaper_x_bwd_kernel<false><<<blocks, kThreads, kSmemBytes, s>>>(
+    bank_film_shaper_x_bwd_kernel<false, TM, TF><<<blocks, kThreads, kSmemBytes, s>>>(
         phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, dy, film_part, part,
         b * tc, tc, hop, n_harm, half_sr);
   cudaError_t err = cudaGetLastError();
@@ -350,4 +342,77 @@ extern "C" int newt_fused_x_backward(const float* phase, const float* f0, const 
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(newt::fold_film(film_part, d_film, b, tc, s));
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+// The number of backward blocks resident on the current device at once, for
+// xcr and for xfull, one query per instance (the suffix as
+// newt_fused_x_backward's); each also allows its kernel the dynamic shared
+// memory there, so call it once per device before the instance's first
+// launch. The caller launches min(this, B*Tc) blocks (one control segment per
+// block at a time) and sizes the (blocks, rows, 64) partials with it.
+// Returns -(CUDA error) on failure.
+extern "C" int newt_fused_xcr_backward_resident_blocks() {
+  return resident_blocks<false, float, float>();
+}
+extern "C" int newt_fused_xfull_backward_resident_blocks() {
+  return resident_blocks<true, float, float>();
+}
+extern "C" int newt_fused_xcr_backward_resident_blocks_bf16() {
+  return resident_blocks<false, bf16, bf16>();
+}
+extern "C" int newt_fused_xfull_backward_resident_blocks_bf16() {
+  return resident_blocks<true, bf16, bf16>();
+}
+extern "C" int newt_fused_xcr_backward_resident_blocks_bf16_f32() {
+  return resident_blocks<false, bf16, float>();
+}
+extern "C" int newt_fused_xfull_backward_resident_blocks_bf16_f32() {
+  return resident_blocks<true, bf16, float>();
+}
+
+// Inputs as newt_fused_x_forward's, with dy ((B, Ta, 64) for xcr, (B, Ta) for
+// xfull, where w_out is not null). Outputs: d_film (B, Tc, 256) and grads
+// (rows, 64), rows = 170 + H + 1 (+ 1 for xfull): the planes, dW, db and
+// dw_out. Scratch: film_part (B*Tc, 3, 256) and part (blocks, rows, 64), with
+// blocks as the resident-blocks query says. Contiguous on the current
+// device, Ta = Tc*hop; float32 here; in the two instances below the mixer,
+// w_out and dy bfloat16 (the film and d_film too in _bf16, not in
+// _bf16_f32), grads and the scratch float32 always. Launches the three
+// kernels on `stream` and returns the first CUDA error (0 = launched).
+extern "C" int newt_fused_x_backward(const float* phase, const float* f0, const float* offsets,
+                                     const float* film, const float* mixer_w,
+                                     const float* mixer_b, const float* weights,
+                                     const float* w_out, const float* dy, float* d_film,
+                                     float* grads, float* film_part, float* part, int b, int ta,
+                                     int tc, int n_harm, int blocks, float half_sr,
+                                     void* stream) {
+  return launch(phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, dy, d_film, grads,
+                film_part, part, b, ta, tc, n_harm, blocks, half_sr, stream);
+}
+
+extern "C" int newt_fused_x_backward_bf16(const float* phase, const float* f0,
+                                          const float* offsets, const bf16* film,
+                                          const bf16* mixer_w, const bf16* mixer_b,
+                                          const float* weights, const bf16* w_out,
+                                          const bf16* dy, bf16* d_film, float* grads,
+                                          float* film_part, float* part, int b, int ta, int tc,
+                                          int n_harm, int blocks, float half_sr, void* stream) {
+  return launch(phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, dy, d_film, grads,
+                film_part, part, b, ta, tc, n_harm, blocks, half_sr, stream);
+}
+
+extern "C" int newt_fused_x_backward_bf16_f32(const float* phase, const float* f0,
+                                              const float* offsets, const float* film,
+                                              const bf16* mixer_w, const bf16* mixer_b,
+                                              const float* weights, const bf16* w_out,
+                                              const bf16* dy, float* d_film, float* grads,
+                                              float* film_part, float* part, int b, int ta,
+                                              int tc, int n_harm, int blocks, float half_sr,
+                                              void* stream) {
+  return launch(phase, f0, offsets, film, mixer_w, mixer_b, weights, w_out, dy, d_film, grads,
+                film_part, part, b, ta, tc, n_harm, blocks, half_sr, stream);
 }

@@ -21,10 +21,19 @@ reference's, for the bake and the lookup alike.
 * :func:`fast_newt_lookup` is the wrapper: a CPU tensor goes to the plain
   version, a CUDA tensor launches ``csrc/fast_newt_lookup.cu`` or raises
   (there is no fallback). ``fast_newt_lookup.launches`` counts the
-  launches. Forward only, as in JAX;
+  launches of its float32 instance, ``.launches_bf16`` those of its bf16-x
+  instance. Forward only, as in JAX;
 * :func:`_lookup_path` chooses the kernel's path for a launch: ``"vec4"``
   (16-B accesses of 4 channels) or ``"scalar"`` (one channel a thread),
   both branches of the one kernel, bit for bit the same.
+
+The table is float32 always; x is float32 or bfloat16 (NEWT under the
+model's ``compute_dtype = "bfloat16"``), and the output float32. On a bf16 x
+the index arithmetic runs in bf16 as in the JAX model's lookup (XLA's type
+promotion: ``x - min``, ``S * (...)``, ``/ span`` and ``idx - lower`` each
+rounded to bf16) and the interpolation in float32 against the table, so the
+bf16 index may sit bins away from the float32 one; the kernel's bf16
+instance computes the same bits.
 """
 import ctypes
 
@@ -40,22 +49,33 @@ _MAX_ROWS = 1 << 31  # rows N and table entries S*C: the kernel's 32-bit indices
 def fast_newt_lookup_plain(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(S, C) table, (..., C) x -> (..., C), in plain PyTorch. The divisor
     is a tensor on x's device, so the card divides (PyTorch's CUDA division
-    by a host scalar multiplies by its reciprocal instead)."""
+    by a host scalar multiplies by its reciprocal instead).
+
+    The index is computed in x's dtype (each operation rounded to bf16 for a
+    bf16 x, as the JAX lookup does) and its floor clamped in float32 before
+    the conversion; ``idx - lower`` takes lower back in x's dtype (a clamped
+    4095 is 4096 in bf16, as JAX's ``lower.astype(idx.dtype)``); the result
+    is in the table's float32."""
     s, c = table.shape
     span = torch.full((), SPAN, dtype=x.dtype, device=x.device)
     idx = (s * (x - TABLE_MIN)) / span
-    lower_f = torch.clamp(torch.floor(idx), 0, s - 1)
-    lower = lower_f.to(torch.int64)
+    lower = torch.clamp(torch.floor(idx).float(), 0, s - 1).to(torch.int64)
     upper = torch.clamp(lower + 1, max=s - 1)
     lo = torch.take_along_dim(table, lower.reshape(-1, c), dim=0).reshape(x.shape)
     hi = torch.take_along_dim(table, upper.reshape(-1, c), dim=0).reshape(x.shape)
-    return (hi - lo) * (idx - lower_f) + lo
+    return (hi - lo) * (idx - lower.to(idx.dtype)) + lo
 
 
-def _check(table: torch.Tensor, x: torch.Tensor) -> None:
-    for name, t in (("table", table), ("x", x)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+# x's dtype -> the C symbol's suffix of its instance (the table is float32)
+_INSTANCES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def _check(table: torch.Tensor, x: torch.Tensor) -> str:
+    """Checks what the kernel takes; -> the suffix of the instance."""
+    if table.dtype != torch.float32:
+        raise TypeError(f"table must be float32, got {table.dtype}")
+    if x.dtype not in _INSTANCES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, t in (("table", table), ("x", x)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -72,25 +92,28 @@ def _check(table: torch.Tensor, x: torch.Tensor) -> None:
     if n_rows >= _MAX_ROWS or table.numel() >= _MAX_ROWS:
         raise ValueError(f"the kernel indexes rows and table entries in 32 bits: need N and "
                          f"S*C below {_MAX_ROWS}, got N = {n_rows}, S*C = {table.numel()}")
+    return _INSTANCES[x.dtype]
 
 
 def _lookup_path(x: torch.Tensor, out: torch.Tensor) -> str:
     """The kernel's path for this launch: ``"vec4"`` where C is a multiple
-    of 4 and x and out start on 16 bytes (a thread then moves 4 channels by
-    one 16-B load and one 16-B store), else ``"scalar"`` (C = 5, or a view
-    at an odd storage offset). The table is gathered 4 bytes at a time on
-    either path, so its alignment does not matter."""
-    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    of 4, x starts on 4 of its elements (16 bytes for float32, 8 for bf16)
+    and the float32 out on 16 bytes (a thread then moves 4 channels by one
+    load and one 16-B store), else ``"scalar"`` (C = 5, or a view at an odd
+    storage offset). The table is gathered 4 bytes at a time on either path,
+    so its alignment does not matter."""
+    aligned = x.data_ptr() % (4 * x.element_size()) == 0 and out.data_ptr() % 16 == 0
     return "vec4" if x.shape[-1] % 4 == 0 and aligned else "scalar"
 
 
 def _launch(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    _check(table, x)
-    out = torch.empty_like(x)
+    instance = _check(table, x)
+    symbol = "fast_newt_lookup_rows" + instance
+    out = torch.empty_like(x, dtype=torch.float32)
     s, c = table.shape
     with torch.cuda.device(x.device):
         lib = _build.load("fast_newt_lookup")
-        fn = lib.fast_newt_lookup_rows
+        fn = getattr(lib, symbol)
         if fn.argtypes is None:
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -100,8 +123,9 @@ def _launch(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         err = fn(x.data_ptr(), table.data_ptr(), out.data_ptr(), x.numel() // c, s, c, int(vec4),
                  TABLE_MIN, SPAN, stream)
     if err != 0:
-        raise RuntimeError(f"fast_newt_lookup_rows did not launch: CUDA error {err}")
-    fast_newt_lookup.launches += 1
+        raise RuntimeError(f"{symbol} did not launch: CUDA error {err}")
+    counter = "launches" + instance
+    setattr(fast_newt_lookup, counter, getattr(fast_newt_lookup, counter) + 1)
     return out
 
 
@@ -110,9 +134,10 @@ def fast_newt_lookup(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
     x on the CPU takes :func:`fast_newt_lookup_plain` (the table must be
     there too). x on CUDA launches the kernel on the current stream after
-    checking device, dtype (float32), shapes and contiguity; what it does
-    not take raises, and so does a call that would need a gradient (the
-    kernel has none, as the JAX one has none)."""
+    checking device, dtype (a float32 table; a float32 or bfloat16 x: its
+    two instances), shapes and contiguity; what it does not take raises, and
+    so does a call that would need a gradient (the kernel has none, as the
+    JAX one has none). The output is float32."""
     if x.device.type == "cpu":
         if table.device != x.device:
             raise ValueError(f"table is on {table.device}, x on {x.device}")
@@ -126,3 +151,4 @@ def fast_newt_lookup(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 fast_newt_lookup.launches = 0
+fast_newt_lookup.launches_bf16 = 0

@@ -32,8 +32,10 @@ exciter's dtype, d_film in the FiLM's, d_planes in float32. The weights are
 float32 planes always: :func:`pack_weights` of bfloat16 leaves gives exact
 float32 copies. The plain versions compute the same under bfloat16 (widen,
 the float32 chain, round each output once). The two audio-rate kernels take
-a bfloat16 exciter, FiLM and cotangent together, in the same way. The other
-kernels take float32 only.
+a bfloat16 exciter, FiLM and cotangent together, in the same way. The
+exciter-fused kernels take a bfloat16 mixer (w, b and xfull's w_out, with the
+output and its cotangent in that dtype) with a bfloat16 or float32 FiLM, phase,
+f0 and offsets float32 always. The stream kernel takes float32 only.
 
 The audio-rate counterpart (JAX ``film_shaper_fused_fl`` and
 ``film_shaper_fused``, the two TPU lane layouts of one function) takes the
@@ -66,7 +68,10 @@ versions, the ``..._grad_plain`` functions their backwards', and
 :func:`bank_film_shaper_xcr` / :func:`bank_newt_xfull` the wrappers, which
 launch ``csrc/newt_fused_x.cu`` on CUDA tensors and, for a gradient,
 ``csrc/newt_fused_x_bwd.cu`` through :class:`_BankFilmShaperX`; each counts
-``.launches`` and ``.bwd_launches``. :func:`supports_xcr` is their gate.
+``.launches`` and ``.bwd_launches`` (float32), ``.launches_bf16`` and
+``.bwd_launches_bf16`` (bf16 mixer, bf16 FiLM) and ``.launches_bf16_f32`` and
+``.bwd_launches_bf16_f32`` (bf16 mixer, float32 FiLM). :func:`supports_xcr` is
+their gate.
 """
 import ctypes
 from typing import Dict, Optional, Tuple
@@ -221,7 +226,8 @@ def _check_tensors(bf16_ok=(), **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-# (exciter dtype, film dtype) -> the C symbols' suffix of kernels 1 and 2's instance
+# (exciter dtype, film dtype) -> the C symbols' suffix of kernels 1 and 2's instance;
+# kernels 7 and 8 take the same pairs with the mixer in the exciter's place
 _CR_INSTANCES = {
     (torch.float32, torch.float32): "",
     (torch.bfloat16, torch.bfloat16): "_bf16",
@@ -709,6 +715,16 @@ def supports_xcr(shaper, n_audio: int, n_control: int, n_harmonics: int) -> bool
     return supports_cr(shaper, n_audio, n_control) and 2 <= n_harmonics <= H_MAX
 
 
+def _x_pre_plain(phase_w, f0_up, offsets, film_c, mixer_params, shaper_params, n_harmonics,
+                 sample_rate, hop) -> torch.Tensor:
+    """The exciter-fused chain in float32 (at least), before any rounding to
+    the mixer's dtype: the bank, the mixer widened, then
+    :func:`film_shaper_cr_plain` (which widens the film and the shaper)."""
+    bank = bank_from_wrapped_phase(phase_w, f0_up, n_harmonics, sample_rate, offsets)
+    exciter = dense_apply(cast_params(mixer_params, bank.dtype), bank)
+    return film_shaper_cr_plain(exciter, film_c, shaper_params, hop)
+
+
 def bank_film_shaper_xcr_plain(
     phase_w: torch.Tensor,
     f0_up: torch.Tensor,
@@ -723,9 +739,15 @@ def bank_film_shaper_xcr_plain(
     """The plain version of the xcr kernel: (B, Ta) wrapped phase and f0 ->
     ``bank_from_wrapped_phase`` (B, Ta, H) -> the harmonic mixer ``x @ w +
     b`` (B, Ta, C) -> :func:`film_shaper_cr_plain` with the (B, Tc, 4C)
-    control-rate film -> (B, Ta, C)."""
-    bank = bank_from_wrapped_phase(phase_w, f0_up, n_harmonics, sample_rate, offsets)
-    return film_shaper_cr_plain(dense_apply(mixer_params, bank), film_c, shaper_params, hop)
+    control-rate film -> (B, Ta, C) in the mixer's dtype.
+
+    It computes what every instance of the kernel computes: the mixer, the
+    film and the shaper widened to float32 (under float32 the tensors given),
+    the chain in float32, the output rounded once to the mixer's dtype
+    (bfloat16 with a bfloat16 or float32 film). Autograd through it gives
+    the mixer's and the film's gradients in their own dtypes."""
+    return _x_pre_plain(phase_w, f0_up, offsets, film_c, mixer_params, shaper_params,
+                        n_harmonics, sample_rate, hop).to(mixer_params["w"].dtype)
 
 
 def bank_newt_xfull_plain(
@@ -742,11 +764,12 @@ def bank_newt_xfull_plain(
 ) -> torch.Tensor:
     """The plain version of the xfull kernel: :func:`bank_film_shaper_xcr_plain`
     then NEWT's C -> 1 output mix with the (C,) weights ``w_out``, its bias
-    left out -> (B, Ta)."""
-    shaped = bank_film_shaper_xcr_plain(
-        phase_w, f0_up, offsets, film_c, mixer_params, shaper_params, n_harmonics, sample_rate, hop
-    )
-    return torch.matmul(shaped, w_out)
+    left out -> (B, Ta) in the mixer's dtype: under bfloat16 the (B, Ta, C)
+    chain and the mix stay float32 and only the mixed output is rounded, as
+    in the kernel."""
+    shaped = _x_pre_plain(phase_w, f0_up, offsets, film_c, mixer_params, shaper_params,
+                          n_harmonics, sample_rate, hop)
+    return torch.matmul(shaped, w_out.to(shaped.dtype)).to(mixer_params["w"].dtype)
 
 
 def _x_grad_plain(phase_w, f0_up, offsets, film_c, mixer_params, w_out, shaper_params,
@@ -772,7 +795,8 @@ def bank_film_shaper_xcr_grad_plain(
     """The plain version of the xcr backward (JAX ``_fused_bwd_xcr``):
     ``torch.autograd.grad`` through :func:`bank_film_shaper_xcr_plain` with
     cotangent ``dy`` (B, Ta, C) -> (d_film_c (B, Tc, 4C), d_w (H, C), d_b
-    (C,), d_planes (170, C)). Phase, f0 and offsets get none, as in JAX."""
+    (C,), d_planes (170, C)), each in its input's dtype (the planes
+    float32). Phase, f0 and offsets get none, as in JAX."""
     return _x_grad_plain(phase_w, f0_up, offsets, film_c, mixer_params, None, shaper_params,
                          n_harmonics, sample_rate, hop, dy)
 
@@ -788,16 +812,25 @@ def bank_newt_xfull_grad_plain(
                          n_harmonics, sample_rate, hop, dy)
 
 
-def _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop):
+def _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop) -> str:
     """What the exciter-fused kernels take: (B, Ta) phase and f0, (B, Tc, 4C)
     film with Ta = Tc * hop, (H,) offsets, (H, C) and (C,) mixer, the (170,
     C) planes and, for xfull, the (C,) output-mix weights; 2 <= H <= 128,
-    1 <= B*Ta <= 2^30."""
+    1 <= B*Ta <= 2^30. Phase, f0, offsets and planes float32; the mixer (w,
+    b and w_out in one dtype) and the film float32, both bfloat16, or a
+    bfloat16 mixer with a float32 film. -> the suffix of the instance."""
     tensors = dict(phase=phase, f0=f0, offsets=offsets, film_c=film_c, mixer_w=w, mixer_b=b,
                    shaper_weights=weights)
     if w_out is not None:
         tensors["w_out"] = w_out
-    _check_tensors(**tensors)
+    _check_tensors(("film_c", "mixer_w", "mixer_b", "w_out"), **tensors)
+    mixer_dtypes = {t.dtype for t in (w, b, w_out) if t is not None}
+    instance = _CR_INSTANCES.get((w.dtype, film_c.dtype))  # kernels 7-8: (mixer, film) dtypes
+    if len(mixer_dtypes) > 1 or instance is None:
+        raise TypeError(
+            f"the exciter-fused kernels take a mixer (w, b, w_out) of one dtype and a film of "
+            f"its dtype or float32: mixer {sorted(map(str, mixer_dtypes))}, film {film_c.dtype}"
+        )
     if phase.dim() != 2 or f0.shape != phase.shape:
         raise ValueError(f"phase and f0 must be one (B, Ta), got {tuple(phase.shape)}, {tuple(f0.shape)}")
     bsz, ta = phase.shape
@@ -818,46 +851,51 @@ def _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop)
         raise ValueError(f"packed weights must be (170, {C}), got {tuple(weights.shape)}")
     if w_out is not None and w_out.shape != (C,):
         raise ValueError(f"w_out must be ({C},), got {tuple(w_out.shape)}")
+    return instance
 
 
 def _launch_forward_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, sample_rate, hop):
     """``csrc/newt_fused_x.cu``: xcr -> (B, Ta, C) when ``w_out`` is None,
-    xfull -> (B, Ta) otherwise."""
-    _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop)
+    xfull -> (B, Ta) otherwise, in the mixer's dtype."""
+    instance = _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop)
+    symbol = "newt_fused_x_forward" + instance
     bsz, ta = phase.shape
     xfull = w_out is not None
-    out = phase.new_empty((bsz, ta) if xfull else (bsz, ta, C))
-    query = "newt_fused_xfull_resident_blocks" if xfull else "newt_fused_xcr_resident_blocks"
+    out = torch.empty((bsz, ta) if xfull else (bsz, ta, C), dtype=w.dtype, device=phase.device)
+    query = ("newt_fused_xfull_resident_blocks" if xfull else "newt_fused_xcr_resident_blocks") + instance
     with torch.cuda.device(phase.device):
-        lib = _lib("newt_fused_x", "newt_fused_x_forward", 9, n_ints=6, n_floats=1)
+        lib = _lib("newt_fused_x", symbol, 9, n_ints=6, n_floats=1)
         needed = -(-bsz * ta // _SAMPLES_PER_PASS)
         blocks = min(needed, _resident_blocks(lib, query, phase.device))
         stream = torch.cuda.current_stream(phase.device).cuda_stream
-        err = lib.newt_fused_x_forward(
+        err = getattr(lib, symbol)(
             phase.data_ptr(), f0.data_ptr(), offsets.data_ptr(), film_c.data_ptr(),
             w.data_ptr(), b.data_ptr(), weights.data_ptr(), w_out.data_ptr() if xfull else None,
             out.data_ptr(), bsz * ta, ta, film_c.shape[1], hop, n_harmonics, blocks,
             sample_rate / 2.0, stream,
         )
     if err != 0:
-        raise RuntimeError(f"newt_fused_x_forward did not launch: CUDA error {err}")
-    (bank_newt_xfull if xfull else bank_film_shaper_xcr).launches += 1
+        raise RuntimeError(f"{symbol} did not launch: CUDA error {err}")
+    _count(bank_newt_xfull if xfull else bank_film_shaper_xcr, "launches" + instance)
     return out
 
 
 def _launch_backward_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics,
                        sample_rate, hop, dy):
     """``csrc/newt_fused_x_bwd.cu`` -> (d_film_c, d_w, d_b, d_planes) and,
-    for xfull (``w_out`` given), d_w_out. The block partials of the summed
-    gradients (planes, mixer w, b and w_out in one (rows, C) table) and the
+    for xfull (``w_out`` given), d_w_out: d_film_c in the film's dtype, the
+    mixer's gradients in the mixer's, d_planes float32. The kernel sums them
+    in float32 in one (rows, C) table (planes, mixer w, b and w_out), rounded
+    here once to the mixer's dtype. The table's block partials and the
     per-segment FiLM partials are allocated here, for :func:`_segment_blocks`
     blocks."""
-    _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop)
+    instance = _check_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmonics, hop)
+    symbol = "newt_fused_x_backward" + instance
     xfull = w_out is not None
     out_shape = phase.shape if xfull else (*phase.shape, C)
-    if (dy.shape != out_shape or dy.dtype != torch.float32 or dy.device != phase.device
+    if (dy.shape != out_shape or dy.dtype != w.dtype or dy.device != phase.device
             or not dy.is_contiguous()):
-        raise ValueError(f"dy must be contiguous float32 {tuple(out_shape)} on {phase.device}")
+        raise ValueError(f"dy must be contiguous {w.dtype} {tuple(out_shape)} on {phase.device}")
     bsz, ta = phase.shape
     tc = film_c.shape[1]
     h = n_harmonics
@@ -865,31 +903,32 @@ def _launch_backward_x(phase, f0, offsets, film_c, w, b, weights, w_out, n_harmo
     d_film = torch.empty_like(film_c)
     grads = phase.new_empty((rows, C))
     query = ("newt_fused_xfull_backward_resident_blocks" if xfull
-             else "newt_fused_xcr_backward_resident_blocks")
+             else "newt_fused_xcr_backward_resident_blocks") + instance
     with torch.cuda.device(phase.device):
-        lib = _lib("newt_fused_x_bwd", "newt_fused_x_backward", 13, n_ints=5, n_floats=1)
+        lib = _lib("newt_fused_x_bwd", symbol, 13, n_ints=5, n_floats=1)
         blocks = _segment_blocks(bsz * tc, _resident_blocks(lib, query, phase.device))
         film_part = phase.new_empty((bsz * tc, 3, 4 * C))
         part = phase.new_empty((blocks, rows, C))
         stream = torch.cuda.current_stream(phase.device).cuda_stream
-        err = lib.newt_fused_x_backward(
+        err = getattr(lib, symbol)(
             phase.data_ptr(), f0.data_ptr(), offsets.data_ptr(), film_c.data_ptr(),
             w.data_ptr(), b.data_ptr(), weights.data_ptr(), w_out.data_ptr() if xfull else None,
             dy.data_ptr(), d_film.data_ptr(), grads.data_ptr(), film_part.data_ptr(),
             part.data_ptr(), bsz, ta, tc, h, blocks, sample_rate / 2.0, stream,
         )
     if err != 0:
-        raise RuntimeError(f"newt_fused_x_backward did not launch: CUDA error {err}")
-    (bank_newt_xfull if xfull else bank_film_shaper_xcr).bwd_launches += 1
-    out = (d_film, grads[170:170 + h], grads[170 + h], grads[:170])
-    return (*out, grads[171 + h]) if xfull else out
+        raise RuntimeError(f"{symbol} did not launch: CUDA error {err}")
+    _count(bank_newt_xfull if xfull else bank_film_shaper_xcr, "bwd_launches" + instance)
+    out = (d_film, grads[170:170 + h].to(w.dtype), grads[170 + h].to(w.dtype), grads[:170])
+    return (*out, grads[171 + h].to(w.dtype)) if xfull else out
 
 
 class _BankFilmShaperX(torch.autograd.Function):
     """The exciter-fused kernel pair as one differentiable function of
     (film_c, mixer w, mixer b, packed planes, w_out); phase, f0 and offsets
     are data and get no gradient, as in JAX. Forward saves only its inputs;
-    backward recomputes the bank, the mix and the chain in the kernel."""
+    backward recomputes the bank, the mix and the chain in the kernel, and
+    returns each gradient in its input's dtype."""
 
     @staticmethod
     def forward(ctx, phase, f0, offsets, film_c, w, b, packed, w_out, n_harmonics, sample_rate, hop):
@@ -940,12 +979,14 @@ def bank_film_shaper_xcr(
     (B, Ta, 64) exciter is written to device memory.
 
     CPU tensors take :func:`bank_film_shaper_xcr_plain`. CUDA tensors launch
-    ``csrc/newt_fused_x.cu`` on the current stream after :func:`_check_x`;
-    anything the kernel does not take raises. With a gradient needed the
-    call goes through :class:`_BankFilmShaperX`, whose backward is
-    ``csrc/newt_fused_x_bwd.cu``. ``packed`` as in :func:`film_shaper_cr`.
-    ``bank_film_shaper_xcr.launches`` / ``.bwd_launches`` count the
-    launches."""
+    ``csrc/newt_fused_x.cu`` on the current stream after :func:`_check_x` (a
+    float32 mixer and film, or a bfloat16 mixer with a bfloat16 or float32
+    film); anything the kernel does not take raises. The output takes the
+    mixer's dtype. With a gradient needed the call goes through
+    :class:`_BankFilmShaperX`, whose backward is ``csrc/newt_fused_x_bwd.cu``.
+    ``packed`` as in :func:`film_shaper_cr`. ``bank_film_shaper_xcr.launches``
+    / ``.bwd_launches`` count the float32 instance's launches, the
+    ``_bf16`` and ``_bf16_f32`` counters the bf16 ones'."""
     if phase_w.device.type == "cpu":
         return bank_film_shaper_xcr_plain(phase_w, f0_up, offsets, film_c, mixer_params,
                                           shaper_params, n_harmonics, sample_rate, hop)
@@ -971,8 +1012,9 @@ def bank_newt_xfull(
     mixer's bias (JAX ``bank_newt_fused_xfull``; add the bias outside).
     CPU tensors take :func:`bank_newt_xfull_plain`; CUDA tensors launch the
     xfull instance of ``csrc/newt_fused_x.cu`` and, for a gradient, of
-    ``csrc/newt_fused_x_bwd.cu``. ``bank_newt_xfull.launches`` /
-    ``.bwd_launches`` count them."""
+    ``csrc/newt_fused_x_bwd.cu``, in the dtypes :func:`bank_film_shaper_xcr`
+    takes (``w_out`` in the mixer's). ``bank_newt_xfull.launches`` /
+    ``.bwd_launches`` count them, with the same bf16 counters."""
     if phase_w.device.type == "cpu":
         return bank_newt_xfull_plain(phase_w, f0_up, offsets, film_c, mixer_params, w_out,
                                      shaper_params, n_harmonics, sample_rate, hop)
@@ -980,7 +1022,8 @@ def bank_newt_xfull(
                                shaper_params, n_harmonics, sample_rate, hop, packed)
 
 
-bank_film_shaper_xcr.launches = 0
-bank_film_shaper_xcr.bwd_launches = 0
-bank_newt_xfull.launches = 0
-bank_newt_xfull.bwd_launches = 0
+for _x in (bank_film_shaper_xcr, bank_newt_xfull):
+    _x.launches = _x.bwd_launches = 0
+    _x.launches_bf16 = _x.bwd_launches_bf16 = 0  # (bf16 mixer, bf16 film)
+    _x.launches_bf16_f32 = _x.bwd_launches_bf16_f32 = 0  # (bf16 mixer, float32 film)
+del _x

@@ -23,9 +23,9 @@ fold the harmonic bank and the 101 -> 64 mixer, and with
 ``fuse_out_mixer`` also NEWT's 64 -> 1 output mix, into the exciter-fused
 kernels (``kernels/newt_fused.py`` ``bank_film_shaper_xcr`` /
 ``bank_newt_xfull``): on CUDA the hand-written kernels and their backwards,
-on the CPU their plain versions. See :meth:`NeuralWaveshaping._fused_exciter_newt`
-for when the path engages; otherwise the bank, the mixer and NEWT run as
-before.
+on the CPU their plain versions, under either ``compute_dtype``. See
+:meth:`NeuralWaveshaping._fused_exciter_newt` for when the path engages;
+otherwise the bank, the mixer and NEWT run as before.
 
 The model and its submodules are gin configurables (:mod:`..minigin`), so
 the repo's ``gin/models/newt.gin`` bindings reach them as they reach the
@@ -42,8 +42,8 @@ from ..kernels import newt_fused
 from ..ops.oscillator import draw_phase_offset, phase_accumulate, wrap_phase
 from ..ops.upsample import linear_upsample
 from .generators import FIRNoiseSynth, HarmonicOscillator, Reverb
-from .modules import ControlModule, Dense, Params, TimeDistributedMLP, dense_apply
-from .newt import _CR, NEWT, not_ported_in
+from .modules import ControlModule, Dense, Params, TimeDistributedMLP, cast_params, dense_apply
+from .newt import _CR, NEWT
 
 # the compute dtypes the port takes: JAX's field takes any jnp.dtype name
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -155,9 +155,16 @@ class NeuralWaveshaping(nn.Module):
         ``bank_from_phase`` expands. With ``fuse_out_mixer`` and one output
         channel the xfull kernel also mixes to audio and NEWT's mixer bias is
         added here; otherwise the xcr kernel's (B, Ta, C) goes through
-        NEWT's mixer. Where it would apply under a ``compute_dtype`` other
-        than float32 it raises ``NotImplementedError``, on every device: the
-        exciter-fused kernels' bf16 I/O is not ported."""
+        NEWT's mixer.
+
+        Under ``compute_dtype = "bfloat16"``, as JAX's: NEWT's parameters and
+        the embedding are cast to bfloat16 (inside autograd), so the FiLM is
+        bfloat16 (float32 with ``NEWT.cr_film_f32``); the harmonic mixer's
+        ``w`` and ``b`` are both cast (JAX ``pack_mixer``; the unfused path
+        keeps ``b`` float32), and so are xfull's ``w_out`` and NEWT's bias,
+        added in bfloat16; the kernels' bf16 instances compute in float32
+        between load and store and return bfloat16; the result comes back as
+        float32."""
         newt = self.newt
         n_harm = self.osc.n_harmonics
         ta, tc = f0_up.shape[1], embedding.shape[1]
@@ -168,22 +175,21 @@ class NeuralWaveshaping(nn.Module):
             and newt_fused.supports_xcr(newt.shaping_fn, ta, tc, n_harm)
         ):
             return None
-        if self.compute_dtype != "float32":
-            raise not_ported_in(
-                COMPUTE_DTYPES[self.compute_dtype],
-                "NeuralWaveshaping.fuse_exciter: the exciter-fused kernels (newt_fused_x*.cu)")
+        cd = COMPUTE_DTYPES[self.compute_dtype]
         sr = self.osc.sample_rate
         phase = wrap_phase(phase_accumulate(f0_up, sr), f0_up.dtype)
-        fp = newt.film_params(embedding)
-        args = (phase, f0_up, phase_offset, fp, self.harmonic_mixer.params())
-        shaper, packed = newt.shaping_fn.params(), newt._packed_shaper()
+        fp = newt.film_params(embedding.to(cd))
+        if newt.cr_film_f32:
+            fp = fp.to(torch.float32)
+        args = (phase, f0_up, phase_offset, fp, cast_params(self.harmonic_mixer.params(), cd))
+        shaper, packed = newt._shaper_params(cd), newt._packed_shaper(cd)
         if self.fuse_out_mixer and newt.mixer.w.shape[1] == 1:
             audio = newt_fused.bank_newt_xfull(
-                *args, newt.mixer.w[:, 0], shaper, n_harm, sr, ta // tc, packed=packed
+                *args, newt.mixer.w[:, 0].to(cd), shaper, n_harm, sr, ta // tc, packed=packed
             )
-            return (audio + newt.mixer.b[0])[..., None]
+            return (audio + newt.mixer.b[0].to(cd))[..., None].float()
         x = newt_fused.bank_film_shaper_xcr(*args, shaper, n_harm, sr, ta // tc, packed=packed)
-        return newt.mixer(x)
+        return newt.mixer(x).float()
 
     def forward(
         self,

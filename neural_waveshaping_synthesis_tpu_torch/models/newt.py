@@ -20,6 +20,7 @@ from .modules import (
     TimeDistributedMLP,
     TrainableNonlinearity,
     cast_params,
+    dense_apply,
     film,
     shaper_apply,
 )
@@ -27,15 +28,6 @@ from .modules import (
 _CR = ("cr", "full_lane_cr")
 _AUDIO_RATE = (True, "full_lane", "fl")
 _FUSED = (*_CR, *_AUDIO_RATE, None, False)
-
-
-def not_ported_in(dtype: torch.dtype, what: str) -> NotImplementedError:
-    """The error of a kernel path whose bfloat16 I/O is not ported."""
-    return NotImplementedError(
-        f"{what} does not take {dtype} yet (ROADMAP.md queue 1, Mixed precision: "
-        "its bf16 I/O is still to port); run it with compute_dtype 'float32', or NEWT.fused "
-        "'cr' / 'full_lane_cr' / 'full_lane' / False without it"
-    )
 
 
 @gin.configurable
@@ -95,11 +87,16 @@ class NEWT(nn.Module):
     kernels (``True``, ``"full_lane"``, ``"fl"`` and ``"full_lane_cr"``'s
     fallback) take a bfloat16 exciter with its bfloat16 FiLM in the same
     way, and on the CPU a bfloat16 exciter there runs their plain version
-    (:func:`newt_fused.film_shaper_fl_plain`). The FastNEWT lookup kernel
-    and the stream kernel take float32 only: on CUDA a bfloat16 exciter with
-    a lookup table raises ``NotImplementedError`` (ROADMAP.md queue 1, Mixed
-    precision), and :meth:`forward_stream` runs in float32 whatever the
-    model's ``compute_dtype``, as JAX's stream does.
+    (:func:`newt_fused.film_shaper_fl_plain`). With a FastNEWT table a
+    bfloat16 exciter runs as JAX's: the FiLM in bfloat16, the lookup's index
+    in bfloat16 and its interpolation against the float32 table in float32
+    (the lookup kernel's bf16-x instance on CUDA, its plain version on the
+    CPU), the second FiLM and the mixer (its weights rounded to bfloat16)
+    in float32; that path returns float32. :meth:`forward_stream` runs in
+    float32 whatever the model's ``compute_dtype``, as JAX's stream does: the
+    stream kernel takes float32 only. Every kernel spelling thus runs under
+    either ``compute_dtype`` (the exciter-fused path too, in
+    ``NeuralWaveshaping``).
     """
 
     def __init__(
@@ -207,7 +204,8 @@ class NEWT(nn.Module):
         fused: Optional[Union[str, bool]] = None,
     ) -> torch.Tensor:
         """(B, Ta, C) exciter + (B, Tc, E) embedding -> (B, Ta, out_channels),
-        in the exciter's dtype (the embedding is cast to it).
+        in the exciter's dtype (the embedding is cast to it), but float32
+        with a ``lookup_table``, whose lookup returns float32 as JAX's does.
 
         ``fused=None`` defers to the ``fused`` given at construction;
         ``lookup_table`` (S, C) takes the FastNEWT path instead."""
@@ -218,11 +216,11 @@ class NEWT(nn.Module):
         fp = self.film_params(control_embedding.to(dtype))  # (B, Tc, 4C) control-rate FiLM
         ta, tc = exciter.shape[1], fp.shape[1]
         if lookup_table is not None:
-            if exciter.is_cuda and narrow:
-                raise not_ported_in(dtype, "The FastNEWT lookup kernel (fast_newt_lookup.cu)")
             gi, bi, gn, bn = linear_upsample(fp, ta).split(self.n_waveshapers, dim=-1)
-            x = fast_newt.fast_newt_lookup(lookup_table, film(exciter, gi, bi))
-            return self.mixer(film(x, gn, bn))
+            x = fast_newt.fast_newt_lookup(lookup_table, film(exciter, gi, bi))  # float32
+            # the mixer's weights in NEWT's dtype, applied in float32 (JAX's
+            # dense_apply of a bf16 tree on a float32 x)
+            return dense_apply(cast_params(self.mixer.params(), dtype), film(x, gn, bn))
         params = self._shaper_params(dtype)
         kernel_path = exciter.is_cuda or narrow  # on the CPU under bf16: its plain version
         if fused in _CR and kernel_path:

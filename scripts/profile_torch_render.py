@@ -2,14 +2,15 @@
 """Where the time of one offline render goes on the card (PyTorch port).
 
     python3 scripts/profile_torch_render.py [--batch 8] [--seconds 4] [--runs 3] [--fast-newt]
-        [--fuse off|xcr|xfull]
+        [--fuse off|xcr|xfull] [--compute-dtype float32|bfloat16]
 
 Renders ``--batch`` requests of ``--seconds`` each through the port's
 ``Synthesizer`` with the run120k_cr checkpoint (with ``--fast-newt``, the
 same prepared batch through the model with the baked FastNEWT table, the
 copy to the host included; with ``--fuse xcr`` or ``xfull``,
-``NeuralWaveshaping.fuse_exciter`` and for xfull ``fuse_out_mixer`` set),
-warms up, then traces
+``NeuralWaveshaping.fuse_exciter`` and for xfull ``fuse_out_mixer`` set;
+with ``--compute-dtype bfloat16`` the model's mixed precision), warms up,
+then traces
 ``--runs`` renders with ``torch.profiler`` and prints JSON lines: the
 device kernels by total time, and the device's busy and idle share of
 the traced wall time (busy = union of kernel and copy intervals). Falls
@@ -66,6 +67,7 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--fast-newt", action="store_true")
     ap.add_argument("--fuse", default="off", choices=["off", "xcr", "xfull"])
+    ap.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -75,6 +77,7 @@ def main() -> int:
     synth = Synthesizer.from_checkpoint(CKPT, device="cuda")
     synth.model.fuse_exciter = args.fuse != "off"
     synth.model.fuse_out_mixer = args.fuse == "xfull"
+    synth.model.compute_dtype = args.compute_dtype
     requests = _requests(args.batch, args.seconds)
     if args.fast_newt:
         f0_b, ctrl_b, _ = synth.prepare(requests)
@@ -113,12 +116,13 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "batch": args.batch, "fast_newt": args.fast_newt,
-        "fuse": args.fuse,
+        "fuse": args.fuse, "compute_dtype": args.compute_dtype,
         "seconds": args.seconds, "runs": args.runs,
         "wall_ms_per_render": wall_ms / args.runs,
         "device_busy_ms_per_render": busy / args.runs,
         "device_idle_share": 1.0 - busy / wall_ms,
         "device_events": len(device_events),
+        "device_events_per_render": len(device_events) / args.runs,
     }))
     for name, (ms, count) in top:
         print(json.dumps({"kernel": name[:120], "ms_per_render": ms / args.runs,

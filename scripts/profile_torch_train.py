@@ -2,14 +2,15 @@
 """Where the time of one training step goes on the card (PyTorch port).
 
     python3 scripts/profile_torch_train.py [--batch 8] [--seconds 4] [--runs 5] \
-        [--fused cr|full_lane] [--fuse off|xcr|xfull]
+        [--fused cr|full_lane] [--fuse off|xcr|xfull] [--compute-dtype float32|bfloat16]
 
 Takes ``Trainer.train_step``s of a seeded random init on a batch of
 ``--batch`` harmonic tones of ``--seconds`` each, with ``NEWT.fused`` set to
 ``--fused`` (``cr``: the control-rate kernels, the default; ``full_lane``:
 the audio-rate kernels) and, with ``--fuse xcr`` or ``xfull``,
 ``NeuralWaveshaping.fuse_exciter`` (and ``fuse_out_mixer``) set: the
-exciter-fused kernels), warms up, then traces
+exciter-fused kernels) and the model's ``--compute-dtype``, warms up, then
+traces
 ``--runs`` steps with ``torch.profiler`` and prints JSON lines: the
 device kernels by total time, and the device's busy and idle share of the
 traced wall time (busy = union of kernel and copy intervals), as
@@ -48,11 +49,13 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--fused", default="cr", choices=["cr", "full_lane"])
     ap.add_argument("--fuse", default="off", choices=["off", "xcr", "xfull"])
+    ap.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)),
+    trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0),
+                                        compute_dtype=args.compute_dtype),
                       TrainConfig(), device="cuda")
     trainer.model.newt.fused = args.fused
     trainer.model.fuse_exciter = args.fuse != "off"
@@ -82,7 +85,7 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "batch": args.batch, "fused": args.fused,
-        "fuse": args.fuse,
+        "fuse": args.fuse, "compute_dtype": args.compute_dtype,
         "seconds": args.seconds, "runs": args.runs,
         "wall_ms_per_step": wall_ms / args.runs,
         "device_busy_ms_per_step": busy / args.runs,

@@ -1,10 +1,11 @@
 """The port on the card: the CUDA kernels (forward, backward, the
 streaming forward, the audio-rate forward and backward, the FastNEWT
-lookup, and the exciter-fused forwards and backwards; kernels 1, 2, 5 and
-6 in their bf16 instances too) against their plain versions, and the model
-(also with ``fuse_exciter`` / ``fuse_out_mixer``, and in bf16), a training
-step, a streamed buffer, timbre transfer and the preprocessing extractors
-(pYIN, CREPE, MFCC) on the card against the same on the CPU.
+lookup, and the exciter-fused forwards and backwards; kernels 1, 2, 4, 5,
+6, 7 and 8 in their bf16 instances too) against their plain versions, and
+the model (also with ``fuse_exciter`` / ``fuse_out_mixer`` and FastNEWT,
+each in bf16 too), a training step, a streamed buffer, timbre transfer and
+the preprocessing extractors (pYIN, CREPE, MFCC) on the card against the
+same on the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it runs where the card is and JAX is not:
@@ -227,29 +228,6 @@ def test_bf16_model_on_the_card_launches_the_bf16_instances(cuda, params):
 
     assert 1e-3 < nrms(outs["bf16"], outs["f32"]) < 0.05, nrms(outs["bf16"], outs["f32"])
     assert nrms(outs["bf16"], outs["bf16_cpu"]) < 2e-3, nrms(outs["bf16"], outs["bf16_cpu"])
-
-
-def test_bf16_paths_not_ported_raise_on_the_card(cuda, params):
-    """Under bf16 on the card the FastNEWT lookup and the exciter-fused path
-    raise the named NotImplementedError, and launch nothing. (The audio-rate
-    kernels and the "full_lane_cr" fallback run their bf16 instances:
-    test_bf16_newt_audio_rate_on_the_card.)"""
-    model = NeuralWaveshaping(compute_dtype="bfloat16")
-    model.load_params(params)
-    model.to(cuda)
-    f0 = torch.full((1, 4), 330.0, device=cuda)
-    control = torch.zeros(1, 4, 2, device=cuda)
-    before = (nf.film_shaper_fl.launches, nf.film_shaper_fl.launches_bf16,
-              fast_newt.fast_newt_lookup.launches, nf.bank_film_shaper_xcr.launches)
-    with torch.inference_mode():
-        table = model.newt.bake_lookup_table(256)
-        with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
-            model(f0, control, lookup_table=table)
-        model.fuse_exciter = True
-        with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
-            model(f0, control)
-    assert (nf.film_shaper_fl.launches, nf.film_shaper_fl.launches_bf16,
-            fast_newt.fast_newt_lookup.launches, nf.bank_film_shaper_xcr.launches) == before
 
 
 def test_newt_on_the_card_launches_the_kernel(cuda, params):
@@ -1239,3 +1217,250 @@ def test_extract_mfcc_on_the_card_matches_the_cpu(cuda):
     card = extract_mfcc(x.to(cuda))
     assert card.device.type == "cuda" and card.shape == (16, 1 + x.shape[0] // 128)
     np.testing.assert_allclose(card.cpu().numpy(), extract_mfcc(x).numpy(), rtol=0, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# mixed precision on the exciter-fused path (kernels 7 and 8's bf16
+# instances) and FastNEWT (kernel 4's bf16-x instance)
+# ---------------------------------------------------------------------------
+X_BF16_PAIRS = [(BF16, BF16, "_bf16"), (BF16, torch.float32, "_bf16_f32")]
+
+
+def _x_bf16_counts():
+    return {f"{kind}_{p}launches{s}": getattr(w, f"{p}launches{s}")
+            for kind, w in (("xcr", nf.bank_film_shaper_xcr), ("xfull", nf.bank_newt_xfull))
+            for p in ("", "bwd_") for s in ("", "_bf16", "_bf16_f32")}
+
+
+def _x_moved(before, **expect):
+    after = _x_bf16_counts()
+    assert {k: after[k] - before[k] for k in after} == {k: expect.get(k, 0) for k in after}
+
+
+def _x_bf16_inputs(b, tc, hop, h, mixer_dtype, film_dtype, cuda, seed):
+    phase, f0, off, film_c, w, bias, w_out = _x_inputs(b, tc, hop, h, seed=seed)
+    return (phase.to(cuda), f0.to(cuda), off.to(cuda), film_c.to(cuda, film_dtype),
+            w.to(cuda, mixer_dtype), bias.to(cuda, mixer_dtype), w_out.to(cuda, mixer_dtype))
+
+
+_X_BF16_SHAPES = [(2, 6, 16, 101), (1, 37, 128, 101), (2, 5, 33, 128), (3, 1, 3, 101), (1, 4, 300, 2),
+                  (8, 500, 128, 101)]
+
+
+@pytest.mark.parametrize("mixer_dtype,film_dtype,suffix", X_BF16_PAIRS)
+@pytest.mark.parametrize("kind", ["xcr", "xfull"])
+@pytest.mark.parametrize("b,tc,hop,h", _X_BF16_SHAPES)
+def test_bf16_x_kernel_matches_plain(cuda, params, mixer_dtype, film_dtype, suffix, kind, b, tc, hop, h):
+    """Kernel 7's bf16 instances ((bf16 mixer, bf16 FiLM) and (bf16 mixer,
+    float32 FiLM)) vs the plain version (float32 between bf16 load and
+    store, rounded once) within one bf16 ulp (rtol 2^-7, atol 1e-5); the
+    output bf16; one launch of the instance and of nothing else; odd Tc, a
+    partial lane group, groups across clips, H = 2 and 128, and a batch-8
+    render's (8, 500 x 128)."""
+    phase, f0, off, film_c, w, bias, w_out = _x_bf16_inputs(b, tc, hop, h, mixer_dtype, film_dtype, cuda,
+                                                            seed=tc + h + 1)
+    packed, tree = _bf16_planes(params, cuda)
+    before = _x_bf16_counts()
+    with torch.inference_mode():
+        out = _x_call(kind, nf.bank_film_shaper_xcr, nf.bank_newt_xfull, phase, f0, off, film_c, w, bias,
+                      w_out, tree, hop, packed)
+    _x_moved(before, **{f"{kind}_launches{suffix}": 1})
+    with torch.inference_mode():
+        ref = _x_call(kind, nf.bank_film_shaper_xcr_plain, nf.bank_newt_xfull_plain, phase, f0, off, film_c,
+                      w, bias, w_out, tree, hop)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype == BF16
+    _ulp_close(out, ref)
+
+
+@pytest.mark.parametrize("mixer_dtype,film_dtype,suffix", X_BF16_PAIRS)
+@pytest.mark.parametrize("kind", ["xcr", "xfull"])
+@pytest.mark.parametrize("b,tc,hop,h", _X_BF16_SHAPES)
+def test_bf16_x_backward_kernel_matches_plain(cuda, params, mixer_dtype, film_dtype, suffix, kind, b, tc,
+                                              hop, h):
+    """Kernel 8's bf16 instances vs autograd through the plain version:
+    d_film in the FiLM's dtype, the mixer's d_w and d_b (and xfull's d_w_out)
+    in bf16, each within one bf16 ulp beyond the float32 gradient bar (rtol
+    1e-3 + 2^-7, atol 1e-3 * max|plain|), d_planes float32 at the float32
+    bar; two calls bit-identical; two launches of the instance and of
+    nothing else; at a training step's (8, 500 x 128) too."""
+    phase, f0, off, film_c, w, bias, w_out = _x_bf16_inputs(b, tc, hop, h, mixer_dtype, film_dtype, cuda,
+                                                            seed=h + 2)
+    packed, tree = _bf16_planes(params, cuda)
+    shape = (b, tc * hop) if kind == "xfull" else (b, tc * hop, 64)
+    dy = torch.randn(shape, generator=torch.Generator().manual_seed(tc)).to(cuda, BF16)
+    wo = w_out if kind == "xfull" else None
+    args = (phase, f0, off, film_c, w, bias, packed, wo, h, 16000.0, hop, dy)
+    before = _x_bf16_counts()
+    out = nf._launch_backward_x(*args)
+    again = nf._launch_backward_x(*args)
+    _x_moved(before, **{f"{kind}_bwd_launches{suffix}": 2})
+    mixer = {"w": w, "b": bias}
+    if kind == "xcr":
+        ref = nf.bank_film_shaper_xcr_grad_plain(phase, f0, off, film_c, mixer, tree, h, 16000.0, hop, dy)
+    else:
+        ref = nf.bank_newt_xfull_grad_plain(phase, f0, off, film_c, mixer, w_out, tree, h, 16000.0, hop, dy)
+    torch.cuda.synchronize()
+    dtypes = [film_dtype, BF16, BF16, torch.float32] + [BF16] * (kind == "xfull")
+    assert [t.dtype for t in out] == [t.dtype for t in ref] == dtypes
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+    for i, (o, r) in enumerate(zip(out, ref)):
+        if i == 3:
+            _grad_close(o, r)
+        else:
+            np.testing.assert_allclose(o.float().cpu().numpy(), r.float().cpu().numpy(),
+                                       rtol=1e-3 + 2.0**-7, atol=1e-3 * float(r.float().abs().max()))
+
+
+def test_bf16_x_kernels_take_odd_offset_views_and_refuse_mixed_pairs(cuda, params):
+    """bf16 tensors are read 2 bytes at a time (the backward stages dy by
+    plain loads): contiguous views at an odd bf16 offset give the aligned
+    tensors' bits, forward and backward. A float32 mixer with a bf16 FiLM,
+    a mixer whose b or w_out is not of w's dtype, and a cotangent not of the
+    mixer's dtype are refused before a launch."""
+    phase, f0, off, film_c, w, bias, w_out = _x_bf16_inputs(2, 6, 33, 101, BF16, BF16, cuda, seed=4)
+    packed, tree = _bf16_planes(params, cuda)
+    dy = torch.randn(2, 6 * 33, 64, generator=torch.Generator().manual_seed(2)).to(cuda, BF16)
+
+    def odd(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 4 == 2
+        return view
+
+    for wo, g in ((None, dy), (w_out, dy[..., 0].contiguous())):
+        args = (phase, f0, off, film_c, w, bias, packed, wo, 101, 16000.0, 33)
+        moved = (phase, f0, off, odd(film_c), odd(w), odd(bias), packed, None if wo is None else odd(wo),
+                 101, 16000.0, 33)
+        with torch.inference_mode():
+            assert torch.equal(nf._launch_forward_x(*args), nf._launch_forward_x(*moved))
+        assert all(torch.equal(a, c) for a, c in zip(nf._launch_backward_x(*args, g),
+                                                     nf._launch_backward_x(*moved, odd(g))))
+    before = _x_bf16_counts()
+    with torch.inference_mode():
+        for mixer, wo, film in (({"w": w.float(), "b": bias.float()}, None, film_c),
+                                ({"w": w, "b": bias.float()}, None, film_c),
+                                ({"w": w, "b": bias}, w_out.float(), film_c)):
+            with pytest.raises(TypeError, match="mixer"):
+                _x_call("xcr" if wo is None else "xfull", nf.bank_film_shaper_xcr, nf.bank_newt_xfull,
+                        phase, f0, off, film, mixer["w"], mixer["b"], wo, tree, 33, packed)
+    with pytest.raises(ValueError, match="dy must be"):
+        nf._launch_backward_x(phase, f0, off, film_c, w, bias, packed, None, 101, 16000.0, 33, dy.float())
+    _x_moved(before)
+
+
+@pytest.mark.parametrize("fields,kind", [({"fuse_exciter": True}, "xcr"),
+                                         ({"fuse_exciter": True, "fuse_out_mixer": True}, "xfull")])
+@pytest.mark.parametrize("film_f32", [False, True])
+def test_bf16_fused_model_on_the_card(cuda, params, fields, kind, film_f32):
+    """A bf16 render with the fields set launches its kernel's (bf16 mixer,
+    bf16 FiLM) instance once, or with NEWT.cr_film_f32 its (bf16, f32)
+    instance, and nothing else of kernels 7-8; float32 out, 1e-3 to 0.05
+    nRMS from the float32 render on the card (it computes in bf16) and less
+    than half that from the CPU's bf16 render (its plain versions: 2.5e-3
+    against ≈ 8.7e-3 on this input when written; the bf16 FiLM MLP's
+    roundings, placed apart by cuBLAS and the CPU, move the shaper's input by
+    bf16 ulps). A training step launches the matching backward instance
+    once; every gradient float32, finite and nonzero."""
+    rng = np.random.default_rng(15)
+    tc = 64
+    f0 = torch.from_numpy(np.geomspace(150, 1500, tc)[None].repeat(2, 0).astype(np.float32))
+    control = torch.from_numpy(rng.standard_normal((2, tc, 2)).astype(np.float32))
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, tc * 128 - 1).astype(np.float32))
+    suffix = "_bf16_f32" if film_f32 else "_bf16"
+    outs = {}
+    for name, dev, cd in (("bf16", cuda, "bfloat16"), ("cpu", torch.device("cpu"), "bfloat16"),
+                          ("f32", cuda, "float32")):
+        model = NeuralWaveshaping(compute_dtype=cd, **fields)
+        model.load_params(params)
+        model.newt.cr_film_f32 = film_f32
+        model.to(dev)
+        before = _x_bf16_counts()
+        with torch.inference_mode():
+            y = model(f0.to(dev), control.to(dev), phase_offset=offset.to(dev), noise=noise.to(dev))
+        if name == "bf16":
+            _x_moved(before, **{f"{kind}_launches{suffix}": 1})
+            before = _x_bf16_counts()
+            loss = model(f0.to(dev), control.to(dev), phase_offset=offset.to(dev),
+                         noise=noise.to(dev)).square().mean()
+            loss.backward()
+            _x_moved(before, **{f"{kind}_launches{suffix}": 1, f"{kind}_bwd_launches{suffix}": 1})
+            for n, t in model.named_parameters():
+                assert t.grad.dtype == torch.float32 and torch.isfinite(t.grad).all(), n
+                assert torch.count_nonzero(t.grad) > 0, n
+        assert y.dtype == torch.float32
+        outs[name] = y.cpu().numpy()
+
+    def nrms(a, b):
+        return np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b**2))
+
+    vs_f32 = nrms(outs["bf16"], outs["f32"])
+    assert 1e-3 < vs_f32 < 0.05, vs_f32
+    assert nrms(outs["bf16"], outs["cpu"]) < 0.5 * vs_f32, (nrms(outs["bf16"], outs["cpu"]), vs_f32)
+
+
+@pytest.mark.parametrize("s,shape,offset,path", [
+    (4096, (2, 1000, 64), 0, "vec4"), (4096, (2, 1000, 64), 1, "scalar"), (4096, (2, 1000, 64), 2, "scalar"),
+    (4096, (3, 333, 64), 4, "vec4"), (256, (3, 333, 64), 0, "vec4"), (2, (1, 7, 5), 0, "scalar")])
+def test_bf16_lookup_kernel_matches_plain_bit_for_bit(cuda, s, shape, offset, path):
+    """Kernel 4's bf16-x instance against the plain version on the same CUDA
+    tensors, bit for bit: the index in bf16 (each operation rounded), the
+    interpolation float32, the output float32; x over [-4, 4] with both edges
+    crossed. A view at a bf16 offset of 1 or 2 (not 8-B aligned) takes the
+    scalar path, 4 (8 B) the vec4 path. One launch of the bf16 instance per
+    call and none of the float32 one."""
+    rng = np.random.default_rng(s + offset)
+    table = torch.from_numpy(rng.standard_normal((s, shape[-1])).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.uniform(-4, 4, shape).astype(np.float32)).to(cuda, BF16)
+    x = torch.empty(x.numel() + offset, dtype=BF16, device=cuda)[offset:].view(shape).copy_(x)
+    assert fast_newt._lookup_path(x, torch.empty(shape, device=cuda)) == path
+    before = (fast_newt.fast_newt_lookup.launches, fast_newt.fast_newt_lookup.launches_bf16)
+    with torch.inference_mode():
+        out = fast_newt.fast_newt_lookup(table, x)
+        ref = fast_newt.fast_newt_lookup_plain(table, x)
+    torch.cuda.synchronize()
+    assert (fast_newt.fast_newt_lookup.launches, fast_newt.fast_newt_lookup.launches_bf16) == (
+        before[0], before[1] + 1)
+    assert out.dtype == torch.float32 and torch.equal(out, ref)
+    assert not torch.equal(out, fast_newt.fast_newt_lookup_plain(table, x.float()))  # the bf16 index
+
+
+def test_bf16_fast_newt_model_on_the_card_matches_the_cpu(cuda, params):
+    """A bf16 model with the baked table on the card launches the lookup's
+    bf16 instance once (and not the float32 one, nor kernel 1), renders
+    float32 within 5e-3 nRMS of the CPU's bf16 render (its plain version;
+    the bf16 index moves in steps of up to 16 bins, so the bf16 FiLM MLP's
+    roundings, placed apart by cuBLAS and the CPU, reach the output as whole
+    bins: chip_smoke.py's bar) and 1e-3 to 0.05 from the float32 FastNEWT
+    render on the card."""
+    rng = np.random.default_rng(16)
+    tc = 64
+    f0 = torch.from_numpy(np.geomspace(150, 600, tc)[None].astype(np.float32))
+    control = torch.from_numpy(rng.standard_normal((1, tc, 2)).astype(np.float32))
+    offset = torch.from_numpy(rng.uniform(-np.pi, np.pi, 101).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(0, 1, tc * 128 - 1).astype(np.float32))
+    outs = {}
+    for name, dev, cd in (("bf16", cuda, "bfloat16"), ("cpu", torch.device("cpu"), "bfloat16"),
+                          ("f32", cuda, "float32")):
+        model = NeuralWaveshaping(compute_dtype=cd)
+        model.load_params(params)
+        model.to(dev)
+        before = (fast_newt.fast_newt_lookup.launches, fast_newt.fast_newt_lookup.launches_bf16,
+                  nf.film_shaper_cr.launches_bf16)
+        with torch.inference_mode():
+            table = model.newt.bake_lookup_table()
+            y = model(f0.to(dev), control.to(dev), phase_offset=offset.to(dev), noise=noise.to(dev),
+                      lookup_table=table)
+        if name == "bf16":
+            assert (fast_newt.fast_newt_lookup.launches, fast_newt.fast_newt_lookup.launches_bf16,
+                    nf.film_shaper_cr.launches_bf16) == (before[0], before[1] + 1, before[2])
+        assert y.dtype == torch.float32
+        outs[name] = y.cpu().numpy()
+
+    def nrms(a, b):
+        return np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b**2))
+
+    assert nrms(outs["bf16"], outs["cpu"]) < 5e-3, nrms(outs["bf16"], outs["cpu"])
+    assert 1e-3 < nrms(outs["bf16"], outs["f32"]) < 0.05, nrms(outs["bf16"], outs["f32"])

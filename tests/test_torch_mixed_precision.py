@@ -8,8 +8,10 @@ and 6 (the audio-rate pair) against ``film_shaper_fused_fl`` /
 ``film_shaper_fused`` and the full-lane VJP, NEWT's audio-rate dispatch under
 bf16, ``NEWT.cr_film_f32``, the whole model against its float32 render and
 the JAX bfloat16 apply, one training step against JAX's, the bf16
-checkpoint's render, and the paths whose bf16 I/O is not ported. The card's
-cases (the bf16 kernel instances against their plain versions) are in
+checkpoint's render, the exciter-fused path's bf16 render and the stream
+(float32 under any compute_dtype, as JAX's). The exciter-fused and FastNEWT
+kernels' bf16 cases are in tests/test_torch_exciter_fused_bf16.py; the card's
+cases (the bf16 kernel instances against their plain versions) in
 tests/test_torch_cuda.py.
 """
 from pathlib import Path
@@ -708,19 +710,40 @@ def test_bf16_checkpoint_renders_in_float32_as_jax():
 
 
 # ---------------------------------------------------------------------------
-# paths whose bf16 I/O is not ported
+# the exciter-fused path and the stream under bf16
 # ---------------------------------------------------------------------------
-def test_the_exciter_fused_path_raises_under_bf16(jax_ckpt):
-    """Where fuse_exciter would engage, bf16 raises the named
-    NotImplementedError on every device (the CPU shows what the card does);
-    off, or where the path does not apply, the bf16 model renders."""
-    f0, control, offset, noise = _model_inputs(8, 11)
-    model = NeuralWaveshaping(compute_dtype="bfloat16", fuse_exciter=True)
+# measured when written (Tc=16, run120k_cr weights), nRMS: xcr 4.0e-3 and
+# xfull 4.4e-3 from the JAX bf16 apply, 5.1e-3 and 4.8e-3 from the float32
+# render (the unfused "cr" path reads 0.0046 and 0.0052).
+@pytest.mark.parametrize("fuse_out_mixer", [False, True])
+def test_the_exciter_fused_path_renders_under_bf16(jax_ckpt, monkeypatch, fuse_out_mixer):
+    """Where fuse_exciter engages, the bf16 model renders through the
+    exciter-fused wrapper (one call, its plain version on the CPU) in
+    float32, within "cr"'s bar (0.02 nRMS) of the JAX bf16 apply (which runs
+    its unfused chain on the CPU) and at least BF16_FLOOR from the float32
+    render; with NEWT.fused = False the path does not apply and the model
+    renders its chain. Its kernels' bf16 cases are in
+    tests/test_torch_exciter_fused_bf16.py."""
+    f0, control, offset, noise = _model_inputs(16, 11)
+    ref16 = np.asarray(jax.jit(
+        lambda p, f, c, o, n: JNeuralWaveshaping(compute_dtype="bfloat16").apply(
+            p, f, c, phase_offset=o, noise=n)
+    )(jax_ckpt, f0, control, offset, noise))
+    fields = dict(fuse_exciter=True, fuse_out_mixer=fuse_out_mixer)
+    model = NeuralWaveshaping(compute_dtype="bfloat16", **fields)
     model.load_params(params_from_jax(jax_ckpt))
-    with pytest.raises(NotImplementedError, match="queue 1, Mixed precision"):
-        _render(model, f0, control, offset, noise)
+    m32 = NeuralWaveshaping(**fields)
+    m32.load_params(params_from_jax(jax_ckpt))
+    out32 = _render(m32, f0, control, offset, noise)
+    name = "bank_newt_xfull" if fuse_out_mixer else "bank_film_shaper_xcr"
+    real, calls = getattr(nf, name), []
+    monkeypatch.setattr(nf, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+    out = _render(model, f0, control, offset, noise)
+    assert len(calls) == 1 and out.dtype == np.float32 and np.all(np.isfinite(out))
+    assert _nrms(out, ref16) < JAX_BF16_BAR["cr"], _nrms(out, ref16)
+    assert BF16_FLOOR < _nrms(out, out32) < 0.05, _nrms(out, out32)
     model.newt.fused = False  # not a cr spelling: the path does not apply
-    assert np.all(np.isfinite(_render(model, f0, control, offset, noise)))
+    assert np.all(np.isfinite(_render(model, f0, control, offset, noise))) and len(calls) == 1
 
 
 def test_the_stream_of_a_bf16_model_is_the_float32_stream(jax_ckpt):
