@@ -313,6 +313,7 @@ import dataclasses
 import importlib.util
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -322,6 +323,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scipy.io import wavfile
 
@@ -349,7 +351,17 @@ from neural_waveshaping_synthesis_tpu_torch.models import crepe
 from neural_waveshaping_synthesis_tpu_torch.ops import linear_upsample, segment_interp
 from neural_waveshaping_synthesis_tpu_torch.streaming import PipelinedStreamer, StreamingSynth
 from neural_waveshaping_synthesis_tpu_torch.convert import load_lightning_checkpoint
-from neural_waveshaping_synthesis_tpu_torch.training import TrainConfig, Trainer, compute_loss
+from neural_waveshaping_synthesis_tpu_torch.parallel import (
+    all_reduce_sum_,
+    create_mesh,
+    make_time_sharded_renderer,
+)
+from neural_waveshaping_synthesis_tpu_torch.training import (
+    TrainConfig,
+    Trainer,
+    compute_loss,
+    step_generator,
+)
 
 REPO = Path(__file__).resolve().parent
 CKPT = str(REPO / "docs" / "results" / "run120k_cr" / "checkpoint" / "best.ckpt")
@@ -455,6 +467,9 @@ PRE_BARS = {"audio_atol": 1e-5, "loudness_atol": 1e-4, "f0_rtol": 1e-4, "confide
             "periodicity_atol": 1e-4, "crepe_periodicity_atol": 1e-3}
 PRE_TIMED_S = (4, 60)
 PRE_TIMED_RUNS = 5
+DDP_WORLD, DDP_STEPS, DDP_TIMED = 2, 5, 10
+CHILD_TIMEOUT_S = 400
+TIME_SHARD_S, TIME_SHARD_CHUNKS, TIME_SHARD_TIMED = 60, (1, 2, 8), 3
 CREPE_FULL_FLOP_PER_FRAME = 2 * sum(  # multiply-adds of the six convolutions and the classifier
     out_len * c_out * c_in * w for out_len, c_in, c_out, w in (
         (256, 1, 1024, 512), (128, 1024, 128, 64), (64, 128, 128, 64), (32, 128, 128, 64),
@@ -489,6 +504,26 @@ def host_median_ms(fn, n=N_TIMED, warmup=2):
         fn()  # ends in a device-to-host copy, which waits for the card
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def run_ranks(fn, world_size, args=(), timeout=300.0):
+    """fn(rank, world_size, *args) in ``world_size`` spawned processes. A
+    rank that raises fails the call with its traceback (the others are
+    killed); ranks still running after ``timeout`` seconds (a rank blocked
+    in a collective its peer never joined) are killed and the call fails.
+    No process outlives the call."""
+    ctx = torch.multiprocessing.spawn(fn, args=(world_size, *args), nprocs=world_size,
+                                      join=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world_size} ranks of {fn.__name__} ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
 
 
 def bound(flop, nbytes):
@@ -3312,6 +3347,281 @@ def exciter_fused_bf16_phases(dev, root, tmp):
                        "bound_ms": lookup_bound[0], "bound_by": lookup_bound[1]}}
 
 
+# ---------------------------------------------------------------------------
+# phases 47-50: data parallelism over a process group, time-sharded rendering
+# ---------------------------------------------------------------------------
+def ddp_cfg(folder) -> TrainConfig:
+    return TrainConfig(max_steps=DDP_STEPS, val_every_n_steps=DDP_STEPS, log_every_n_steps=1,
+                       checkpoint_dir=str(folder))
+
+
+def ddp_run(trainer, dm):
+    """Step 0's loss and summed gradient (no update) on the first global
+    batch of epoch 0, then ``fit`` for DDP_STEPS steps, then DDP_TIMED timed
+    steps -> the results, the kernels counted over step 0 and the fit."""
+    mesh, model = trainer.mesh, trainer.model
+    reset_counts()
+    batch = trainer.to_device(next(dm.train_batches((trainer.cfg.seed, 2, 0), mesh=mesh)))
+    loss0 = compute_loss(model, batch, step_generator(trainer.cfg.seed, 0, 0), mesh=mesh)
+    loss0.backward()
+    all_reduce_sum_([p.grad for p in model.parameters()], mesh)
+    grads0 = leaf_grads(model)
+    trainer.optimizer.zero_grad()
+    history = trainer.fit(dm)
+    torch.cuda.synchronize()
+    got = counts()
+    params = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+    local = next(dm.train_batches((trainer.cfg.seed, 2, 0), mesh=mesh))
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = [1e3 * synced_s(lambda: trainer.train_step(local))[1] for _ in range(DDP_TIMED)]
+    return {"loss0": float(loss0.detach()), "grads0": grads0, "loss": history["loss"],
+            "val": history["val"], "counts": got, "params": params, "step_ms": step_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def ddp_rank(rank, world_size, init_file, root, out):
+    """One rank of phase 47: gloo on cuda:0, the recipe's model from seed 0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world_size)
+    try:
+        mesh = create_mesh(devices=["cuda:0"])
+        trainer = Trainer(recipe_model(0), ddp_cfg(Path(out) / "ck"), device="cuda", mesh=mesh)
+        result = ddp_run(trainer, GeneralDataModule(root, batch_size=8))
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def step0_f64_grads(root):
+    """Step 0's gradient on the CPU in float64 (the witness of the card rule):
+    the same global batch and draws as :func:`ddp_run`."""
+    dm = GeneralDataModule(root, batch_size=8)
+    trainer = Trainer(recipe_model(0).double(), ddp_cfg("unused"), device="cpu")
+    batch = trainer.to_device(next(dm.train_batches((trainer.cfg.seed, 2, 0))))
+    compute_loss(trainer.model, batch, step_generator(trainer.cfg.seed, 0, 0)).backward()
+    return leaf_grads(trainer.model)
+
+
+def ddp_train_phase(root, tmp):
+    """Phase 47 -> the launches of kernels 1 and 2 (both ranks and the one
+    process)."""
+    dm = GeneralDataModule(root, batch_size=8)
+    one = ddp_run(Trainer(recipe_model(0), ddp_cfg(tmp / "ddp_one"), device="cuda"), dm)
+    work = tmp / "ddp_two"
+    work.mkdir()
+    t0 = time.perf_counter()
+    run_ranks(ddp_rank, DDP_WORLD, (str(work / "rdzv"), root, str(work)), CHILD_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(DDP_WORLD)]
+    two = ranks[0]
+    # the card rule (ROADMAP.md section 3) with the one-process card step as
+    # the float32 reference: a leaf beyond 1e-3 passes only if the 2-rank
+    # gradient is no farther from the float64 one than the one process's + 1e-3
+    rel = {n: relnorm(two["grads0"][n], one["grads0"][n]) for n in one["grads0"]}
+    witness, failed = {}, []
+    if max(rel.values()) > 1e-3:
+        exact = step0_f64_grads(root)
+        for n in (n for n, r in rel.items() if r > 1e-3):
+            witness[n] = {"two_vs_one": rel[n], "two_vs_f64": relnorm(two["grads0"][n], exact[n]),
+                          "one_vs_f64": relnorm(one["grads0"][n], exact[n])}
+            if witness[n]["two_vs_f64"] > witness[n]["one_vs_f64"] + 1e-3:
+                failed.append(n)
+    loss0_rel = abs(two["loss0"] - one["loss0"]) / abs(one["loss0"])
+    step_rel = [abs(a - b) / abs(b) for a, b in zip(two["loss"], one["loss"])]
+    expect = {"cr": 1 + DDP_STEPS + dm.n_batches("val"), "bwd": 1 + DDP_STEPS}
+    launches = [{k: r["counts"][k] for k in expect} for r in ranks + [one]]
+    wrong = [r["counts"] for r in ranks + [one]
+             if {k: v for k, v in r["counts"].items() if v} != expect]
+    same_params = all(torch.equal(r["params"], two["params"]) for r in ranks)
+    worst = max(rel, key=rel.get)
+    emit({"phase": "ddp_train", "ranks": DDP_WORLD, "backend": "gloo", "device": "cuda:0",
+          "global_batch": 8, "clip_s": 4, "steps": DDP_STEPS,
+          "loss0": [r["loss0"] for r in ranks], "loss0_one": one["loss0"], "loss0_rel": loss0_rel,
+          "worst_leaf": worst, "worst_rel": rel[worst], "leaves_over_1e-3": witness,
+          "leaves_failed": failed, "loss": two["loss"], "loss_one": one["loss"],
+          "step_rel": step_rel, "val": two["val"], "val_one": one["val"],
+          "params_bit_identical": same_params, "launches_per_process": launches,
+          "step_ms_two": [r["step_ms"] for r in ranks], "step_ms_one": one["step_ms"],
+          "step_ms_two_median": statistics.median(two["step_ms"]),
+          "step_ms_one_median": statistics.median(one["step_ms"]),
+          "peak_bytes_two": [r["peak_bytes"] for r in ranks], "peak_bytes_one": one["peak_bytes"],
+          "ranks_wall_s": ranks_s})
+    if loss0_rel > 1e-4 or any(r["loss0"] != two["loss0"] for r in ranks) or failed:
+        raise RuntimeError("ddp_train: step 0 on 2 ranks differs from one process")
+    if max(step_rel) > 2e-3 or not same_params:
+        raise RuntimeError("ddp_train: the 2-rank run left the one-process run or its ranks parted")
+    if wrong:
+        raise RuntimeError(f"ddp_train: launches {wrong}, expected {expect}")
+    return {k: sum(r["counts"][k] for r in ranks + [one]) for k in ("cr", "bwd")}
+
+
+def train_cli_child(out, argv):
+    """``chip_smoke.py --train-cli <out> <CLI args>``: run
+    ``scripts/torch_train.py`` in this process (under torchrun or not) with
+    the counts zeroed just before and read just after, into ``<out>.<rank>``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts()
+    rc = load_train_cli().main(argv)
+    torch.cuda.synchronize()
+    with open(f"{out}.{os.environ.get('RANK', '0')}", "w") as f:
+        json.dump({"rc": rc, "counts": counts()}, f)
+    return rc
+
+
+def ddp_nccl_phase(root, tmp):
+    """Phase 48 -> the launches of kernels 1 and 2 in the two CLI runs."""
+    runs = {}
+    for name, launcher in (("plain", []), ("torchrun", ["-m", "torch.distributed.run",
+                                                        "--standalone", "--nproc_per_node", "1"])):
+        folder = tmp / f"nccl_{name}"
+        args = ["--gin-file", "gin/train/train_newt.gin", "--dataset-path", root,
+                "--checkpoint-dir", str(folder / "ck"), "--log-dir", str(folder / "logs"),
+                "-b", f"TrainConfig.max_steps = {DDP_STEPS}",
+                "-b", f"TrainConfig.val_every_n_steps = {DDP_STEPS}",
+                "-b", "TrainConfig.log_every_n_steps = 1"]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *launcher, str(REPO / "chip_smoke.py"), "--train-cli",
+                               str(folder / "counts"), *args], cwd=REPO, capture_output=True,
+                              text=True, timeout=CHILD_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            raise RuntimeError(f"ddp_nccl {name}: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+        with open(folder / "counts.0") as f:
+            child = json.load(f)
+        with open(folder / "logs" / "metrics.csv") as f:
+            table = list(csv.DictReader(f))
+        line = next(l for l in proc.stdout.splitlines() if l.startswith("[train] data-parallel"))
+        state = load_lightning_checkpoint(str(folder / "ck" / "last.ckpt"))["state_dict"]
+        runs[name] = {"counts": child["counts"], "seconds": seconds, "line": line,
+                      "loss": [r["train/loss"] for r in table if r["train/loss"]],
+                      "val": [r["val/loss"] for r in table if r["val/loss"]],
+                      "params": np.concatenate([np.ravel(v) for _, v in sorted(state.items())])}
+    plain, nccl = runs["plain"], runs["torchrun"]
+    expect = {"cr": DDP_STEPS + GeneralDataModule(root, 8).n_batches("val"), "bwd": DDP_STEPS}
+    wrong = [r["counts"] for r in runs.values() if {k: v for k, v in r["counts"].items() if v} != expect]
+    same = nccl["loss"] == plain["loss"] and nccl["val"] == plain["val"]
+    same_params = np.array_equal(nccl["params"], plain["params"])
+    emit({"phase": "ddp_nccl", "backend": "nccl", "world_size": 1, "steps": DDP_STEPS,
+          "lines": [plain["line"], nccl["line"]], "loss": nccl["loss"], "loss_plain": plain["loss"],
+          "val": nccl["val"], "losses_bit_identical": same, "checkpoint_bit_identical": same_params,
+          "launches": [r["counts"][k] for r in runs.values() for k in expect],
+          "seconds": {k: r["seconds"] for k, r in runs.items()}})
+    if "over 1 device(s); cuda:0" not in nccl["line"] or not same or not same_params:
+        raise RuntimeError("ddp_nccl: the CLI under torchrun differs from the plain CLI")
+    if wrong or len(nccl["loss"]) != DDP_STEPS:
+        raise RuntimeError(f"ddp_nccl: launches {wrong} or losses {nccl['loss']}, expected {expect}")
+    return {k: sum(r["counts"][k] for r in runs.values()) for k in ("cr", "bwd")}
+
+
+def plain_calls(fn):
+    """Run ``fn`` counting the calls of the NEWT kernels' plain versions ->
+    (its result, the count)."""
+    names = ("film_shaper_fl_plain", "film_shaper_cr_plain", "film_shaper_chain")
+    real = {n: getattr(nf, n) for n in names}
+    calls = []
+    for n in names:
+        setattr(nf, n, lambda *a, _f=real[n], **k: calls.append(1) or _f(*a, **k))
+    try:
+        return fn(), len(calls)
+    finally:
+        for n in names:
+            setattr(nf, n, real[n])
+
+
+def time_shard_phase(dev, synth, cpu_synth):
+    """Phase 49 -> the launches of kernels 1 and 5 in the renders, kernel 5's
+    largest error on the chunks' inputs."""
+    model = synth.model
+    f0_b, ctrl_b, _ = synth.prepare(make_requests([TIME_SHARD_S], seed=21))
+    f0_t, ctrl_t = torch.from_numpy(f0_b).to(dev), torch.from_numpy(ctrl_b).to(dev)
+    arms = {"unsharded": lambda g: model(f0_t, ctrl_t, generator=g)}
+    for k in TIME_SHARD_CHUNKS:
+        render = make_time_sharded_renderer(model, create_mesh(devices=[dev] * k))
+        arms[f"chunks_{k}"] = lambda g, r=render: r(f0_t, ctrl_t, generator=g)
+    expects = {"unsharded": {"cr": 1}, **{f"chunks_{k}": {"fl": k} for k in TIME_SHARD_CHUNKS}}
+    launches = {"cr": 0, "fl": 0}
+
+    def run(name):
+        with torch.inference_mode():
+            (y, n_plain), got, _ = counted(
+                lambda: plain_calls(lambda: arms[name](torch.Generator().manual_seed(0))),
+                expects[name])
+        if n_plain:
+            raise RuntimeError(f"time_shard {name}: {n_plain} plain-version calls on the card")
+        for k in launches:
+            launches[k] += got[k]
+        return y
+
+    outs = {name: run(name).cpu().numpy() for name in arms}
+    ref = outs["unsharded"]
+    dist_nrms = {name: nrms(y, ref) for name, y in outs.items() if name != "unsharded"}
+    finite = all(np.all(np.isfinite(y)) and y.shape == ref.shape for y in outs.values())
+    # kernel 5 against its plain version on the first and last chunk of 8
+    caught = caught_launches("_launch_forward_fl", lambda: run("chunks_8"))
+    packed = model.newt._packed_shaper()
+    fl_err = max(check_fl(f"time_shard_chunk{i}", *caught[i][:2], packed) for i in (0, -1))
+    del caught
+    # render ms and peak memory per arm, in turns
+    order = list(arms) + list(reversed(arms))
+    ms, peak = {n: [] for n in arms}, {n: [] for n in arms}
+    for name in order:
+        torch.cuda.reset_peak_memory_stats()
+        times = [1e3 * synced_s(lambda: run(name))[1] for _ in range(TIME_SHARD_TIMED)]
+        ms[name].append(statistics.median(times))
+        peak[name].append(torch.cuda.max_memory_allocated())
+    # a short clip, card against CPU, 2 chunks each
+    f0_s, ctrl_s, _ = synth.prepare(make_requests([4], seed=22))
+    short = []
+    for s, device in ((synth, dev), (cpu_synth, torch.device("cpu"))):
+        render = make_time_sharded_renderer(s.model, create_mesh(devices=[device] * 2))
+        with torch.inference_mode():
+            y = render(torch.from_numpy(f0_s).to(device), torch.from_numpy(ctrl_s).to(device),
+                       generator=torch.Generator().manual_seed(1))
+        short.append(y.cpu().numpy())
+    card_vs_cpu = nrms(short[0], short[1])
+    emit({"phase": "time_shard", "clip_s": TIME_SHARD_S, "frames": int(f0_b.shape[1]),
+          "chunks": list(TIME_SHARD_CHUNKS), "nrms_vs_unsharded": dist_nrms, "bar": 1e-3,
+          "kernel_fl_max_abs_err": fl_err, "render_ms": ms, "peak_bytes": peak,
+          "order": order, "short_clip_card_vs_cpu_nrms": card_vs_cpu, "launches": launches})
+    if not finite or max(dist_nrms.values()) > 1e-3 or card_vs_cpu > 1e-3:
+        raise RuntimeError("time_shard: a sharded render left the unsharded one or the CPU's")
+    return {**launches, "fl_err": fl_err}
+
+
+def timbre_time_shard_phase(tmp):
+    """Phase 50 -> kernel 5's launches in the CLI's two renders."""
+    cli = load_script("torch_timbre_transfer")
+    out_wav = tmp / "time_shard.wav"
+    args = ["--input", WAV, "--output", str(out_wav), "--checkpoint", CKPT,
+            "--time-shard-devices", "1"]
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            rc, got, seconds = counted(lambda: cli.main(args), {"fl": 2})
+    finally:
+        gin.clear_config()
+    _, audio = wavfile.read(out_wav)
+    line = text.getvalue().strip().splitlines()[-1]
+    emit({"phase": "timbre_time_shard", "rc": rc, "line": line, "samples": int(audio.shape[0]),
+          "peak": int(np.abs(audio).max()), "launches": {"fl": got["fl"]}, "seconds": seconds})
+    if rc != 0 or "in 1 time chunk(s)" not in line or not np.abs(audio).max():
+        raise RuntimeError("timbre_time_shard: the CLI did not render in one time chunk")
+    return got["fl"]
+
+
+def parallel_phases(dev, synth, cpu_synth, root, tmp):
+    """Phases 47-50 -> the launches of kernels 1, 2 and 5 in them."""
+    ddp = ddp_train_phase(root, tmp)
+    nccl = ddp_nccl_phase(root, tmp)
+    ts = time_shard_phase(dev, synth, cpu_synth)
+    timbre_fl = timbre_time_shard_phase(tmp)
+    return {"cr": ddp["cr"] + nccl["cr"] + ts["cr"], "bwd": ddp["bwd"] + nccl["bwd"],
+            "fl": ts["fl"] + timbre_fl, "fl_err": ts["fl_err"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -3467,19 +3777,22 @@ def main() -> int:
         pre = preprocess_phases(dev, tmp)
         fl16 = audio_rate_bf16_phases(dev, root, tmp)
         xb = exciter_fused_bf16_phases(dev, root, tmp)
+        par = parallel_phases(dev, synth, cpu_synth, root, tmp)
 
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:779",
-        "launches": launches + train["fwd_launches"] + rt["cr"] + pre["cr"], "max_abs_err": max_err,
+        "launches": launches + train["fwd_launches"] + rt["cr"] + pre["cr"] + par["cr"],
+        "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }, {
         "name": "_fused_bwd_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr_bwd.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:822",
-        "launches": train["bwd_launches"] + rt["bwd"] + pre["bwd"], "max_abs_err": train["max_abs_err"],
+        "launches": train["bwd_launches"] + rt["bwd"] + pre["bwd"] + par["bwd"],
+        "max_abs_err": train["max_abs_err"],
         "ms": train["ms"], "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
         "bound_by": train["bound_by"], "library_ms": None,
     }, {
@@ -3500,7 +3813,8 @@ def main() -> int:
         "name": "film_shaper_fused_fl", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_fl.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:488 and :417",
-        "launches": fl["fwd_launches"], "max_abs_err": fl["fwd_max_abs_err"],
+        "launches": fl["fwd_launches"] + par["fl"],
+        "max_abs_err": max(fl["fwd_max_abs_err"], par["fl_err"]),
         "ms": fl["fwd"][0], "plain_ms": fl["fwd"][1], "bound_ms": fl["fwd"][2],
         "bound_by": fl["fwd"][3], "library_ms": None,
     }, {
@@ -3567,4 +3881,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-cli"]:
+        sys.exit(train_cli_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -18,7 +18,8 @@ split is a few hundred MB at most). With ``load_to_memory=False`` the
 shards stay on disk and each batch or item loads its own, for corpora
 larger than host memory; the arrays are the same bit for bit. Batches
 are numpy arrays of static shape (remainder dropped), which the trainer
-copies to its device. Train batches are shuffled per pass by a seeded
+copies to its device; over a data-parallel mesh each rank reads only its
+rows of every global batch. Train batches are shuffled per pass by a seeded
 ``np.random.default_rng``; val and test iterate in order.
 """
 import os
@@ -27,6 +28,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from .. import minigin as gin
+from ..parallel.mesh import Mesh, batch_sharding
 
 
 class GeneralDataset:
@@ -122,20 +124,27 @@ class GeneralDataModule:
         bs = self._batch_size(split)
         return len(self.dataset(split)) // bs if bs else 0
 
-    def _batches(self, split: str, order: np.ndarray, start: int = 0) -> Iterator[Dict]:
+    def _batches(self, split: str, order: np.ndarray, start: int = 0,
+                 mesh: Optional[Mesh] = None) -> Iterator[Dict]:
         ds, bs = self.dataset(split), self._batch_size(split)
         for i in range(start, self.n_batches(split)):
-            yield ds.batch(order[i * bs : (i + 1) * bs])
+            rows = order[i * bs : (i + 1) * bs]
+            if mesh is not None:
+                rows = batch_sharding(mesh)(rows)
+            yield ds.batch(rows)
 
-    def train_batches(self, seed, start: int = 0) -> Iterator[Dict]:
+    def train_batches(self, seed, start: int = 0, mesh: Optional[Mesh] = None) -> Iterator[Dict]:
         """One shuffled pass from its ``start``-th batch on (the earlier ones
         are not loaded); ``seed`` is anything ``np.random.default_rng`` takes
-        (the trainer passes (run seed, 2, epoch))."""
+        (the trainer passes (run seed, 2, epoch)). With a data-parallel
+        ``mesh`` every rank draws the same order and loads only its
+        contiguous rows of each global batch (``parallel.batch_sharding``;
+        ValueError when the batch does not divide by the world size)."""
         n = len(self.dataset("train"))
-        return self._batches("train", np.random.default_rng(seed).permutation(n), start)
+        return self._batches("train", np.random.default_rng(seed).permutation(n), start, mesh)
 
-    def val_batches(self) -> Iterator[Dict]:
-        return self._batches("val", np.arange(len(self.dataset("val"))))
+    def val_batches(self, mesh: Optional[Mesh] = None) -> Iterator[Dict]:
+        return self._batches("val", np.arange(len(self.dataset("val"))), mesh=mesh)
 
-    def test_batches(self) -> Iterator[Dict]:
-        return self._batches("test", np.arange(len(self.dataset("test"))))
+    def test_batches(self, mesh: Optional[Mesh] = None) -> Iterator[Dict]:
+        return self._batches("test", np.arange(len(self.dataset("test"))), mesh=mesh)

@@ -13,14 +13,14 @@ colab's workflow as a library).
    statistics;
 3. :func:`timbre_transfer` renders offline, with the shaper bank or, with
    ``use_fast_newt``, the baked FastNEWT table (the CUDA lookup kernel on
-   the card); :func:`stream_timbre_transfer` renders buffer by buffer
-   through ``PipelinedStreamer``.
+   the card), or, given a ``mesh``, in time chunks over its devices
+   (``parallel/time_shard.py``); :func:`stream_timbre_transfer` renders
+   buffer by buffer through ``PipelinedStreamer``.
 
 Colab quirks kept (cell 15): the model gets the SHIFTED, SMOOTHED f0 in Hz
 while the control stack gets the z-scored values; f0 is smoothed before it
 is z-scored, loudness after; the floor subtracts, x*(x>floor) - floor,
-going negative where it gates. Time-sharded rendering (``mesh``) is not
-ported.
+going negative where it gates.
 """
 import time
 from dataclasses import dataclass
@@ -38,6 +38,7 @@ from ..data.preprocess import (
     resample_audio,
 )
 from ..device import resolve_device
+from ..parallel.time_shard import make_time_sharded_renderer
 from ..streaming import PipelinedStreamer, StreamingSynth
 
 FRAME_BUCKET = 256  # controls are zero-padded to a multiple of this many frames
@@ -132,6 +133,7 @@ def timbre_transfer(
     f0_extractor: str = "yin",
     use_fast_newt: bool = False,
     seed: int = 0,
+    mesh=None,
 ) -> Tuple[np.ndarray, float]:
     """The whole pipeline with an ``inference.Synthesizer`` -> (audio
     (Tc * hop,) float32, x real time).
@@ -142,8 +144,15 @@ def timbre_transfer(
     ``seed`` (the same draws on every device). With ``use_fast_newt`` the
     shaper bank is baked into a 4096 x C table first. The speed is audio
     seconds over the wall time of one forward after a warm-up, the copy
-    of the audio to the host included."""
+    of the audio to the host included.
+
+    ``mesh`` (``parallel.create_mesh``) renders the clip in time chunks, one
+    per device of the mesh (``parallel.make_time_sharded_renderer``: kernel 5
+    per chunk on the card), the parallelism for one long clip; it excludes
+    ``use_fast_newt`` (ValueError), as in JAX."""
     model = synth.model
+    if mesh is not None and use_fast_newt:
+        raise ValueError("use_fast_newt is not supported with mesh (time-sharded) rendering")
     f0_hz, control = _controls(synth, audio, sample_rate, adjustments, f0_extractor)
     tc = f0_hz.shape[0]
     pad = (-tc) % FRAME_BUCKET
@@ -151,12 +160,17 @@ def timbre_transfer(
     ctrl_in = torch.from_numpy(np.pad(control, ((0, pad), (0, 0)))[None]).to(synth.device)
 
     with torch.inference_mode():
-        table = model.newt.bake_lookup_table() if use_fast_newt else None
+        if mesh is not None:
+            forward = make_time_sharded_renderer(model, mesh)
+        else:
+            table = model.newt.bake_lookup_table() if use_fast_newt else None
+
+            def forward(f0, control, generator):
+                return model(f0, control, generator=generator, lookup_table=table)
 
         def render():
             generator = torch.Generator(device="cpu").manual_seed(seed)
-            y = model(f0_in, ctrl_in, generator=generator, lookup_table=table)
-            return y.cpu().numpy()
+            return forward(f0_in, ctrl_in, generator=generator).cpu().numpy()
 
         render()  # warm-up: kernel build and load, allocator, cuDNN plans
         t0 = time.perf_counter()

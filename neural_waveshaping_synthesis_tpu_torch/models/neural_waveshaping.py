@@ -130,6 +130,13 @@ class NeuralWaveshaping(nn.Module):
         self.h_generator.load_params(p["h_generator"])
         self.reverb.load_params(p["reverb"])
 
+    def block_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        """The dtype of the bank, the harmonic mixer and NEWT for inputs of
+        ``dtype``: bfloat16 under ``compute_dtype = "bfloat16"``, otherwise
+        the inputs' own (float32; float64 in the parity tests), as JAX casts
+        only for a compute dtype other than float32."""
+        return COMPUTE_DTYPES[self.compute_dtype] if self.compute_dtype != "float32" else dtype
+
     def get_embedding(
         self, control: torch.Tensor, h0: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -229,11 +236,11 @@ class NeuralWaveshaping(nn.Module):
             shaped = self._fused_exciter_newt(f0_up, embedding, phase_offset)
         if shaped is None:
             bank = self.osc(f0_up, phase_offset=phase_offset)
-            cd = COMPUTE_DTYPES[self.compute_dtype]
+            cd = self.block_dtype(f0.dtype)
             # The mixer's w and the bank in compute_dtype, its b in float32.
             mixer = {"w": self.harmonic_mixer.w.to(cd), "b": self.harmonic_mixer.b}
             exciter = dense_apply(mixer, bank.to(cd))
-            shaped = self.newt(exciter, embedding, lookup_table=lookup_table).float()  # (B, Ta, 1)
+            shaped = self.newt(exciter, embedding, lookup_table=lookup_table).to(f0.dtype)  # (B, Ta, 1)
         h = self.h_generator(embedding)  # (B, Tc, 129)
         noise_audio = self.noise_synth(h, generator=generator, noise=noise)
         return self.reverb(shaped[..., 0] + noise_audio)

@@ -14,7 +14,10 @@ checked; they reach the model and the feature extractors, so a data gin
 file or ``-b "extract_f0_with_yin.threshold = 0.2"`` sets the extraction
 too (the explicit f0 ceiling and loudness frame win). ``--f0-extractor
 crepe`` needs a torchcrepe ``.pth`` (``--crepe-weights`` or
-``$CREPE_WEIGHTS``). Not ported: time-sharded rendering.
+``$CREPE_WEIGHTS``). ``--time-shard-devices N`` renders the clip in time
+chunks over the first N visible cards (``parallel.create_mesh``, JAX's
+``devices[:N]``; with ``--device cpu`` N chunks in turn on the CPU), 0 (the
+default) in one program; ``--streaming`` refuses it, and ``--use-fast-newt``.
 """
 import argparse
 import sys
@@ -32,6 +35,7 @@ from neural_waveshaping_synthesis_tpu_torch.inference import (  # noqa: E402
     stream_timbre_transfer,
     timbre_transfer,
 )
+from neural_waveshaping_synthesis_tpu_torch.parallel import create_mesh  # noqa: E402
 
 
 def write_wav(path: str, audio: np.ndarray, sample_rate: int) -> None:
@@ -64,6 +68,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--use-fast-newt", action="store_true",
                     help="render through the baked 4096-point FastNEWT table")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--time-shard-devices", type=int, default=0,
+                    help="render in time chunks over N devices (0: one program)")
     ap.add_argument("--streaming", action="store_true",
                     help="render buffer by buffer through the pipelined streamer")
     ap.add_argument("--buffer-size", type=int, default=1024,
@@ -78,8 +84,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.streaming and args.use_fast_newt:
-        raise SystemExit("--streaming and --use-fast-newt are mutually exclusive")
+    if args.streaming and (args.use_fast_newt or args.time_shard_devices > 0):
+        raise SystemExit("--streaming is mutually exclusive with --use-fast-newt "
+                         "and --time-shard-devices")
     for path in args.gin_file:
         gin.parse_config_file(path)
     for binding in args.gin_binding:
@@ -114,11 +121,17 @@ def main(argv=None) -> int:
             f"{stats['first_buffer_latency_ms']:.1f} ms, {stats['x_realtime']:.0f}x real time"
         )
         return 0
+    mesh = None
+    if args.time_shard_devices > 0:
+        # the first N cards; on the CPU, N chunks in turn (JAX's virtual CPU devices)
+        devices = [synth.device] * args.time_shard_devices if synth.device.type == "cpu" else None
+        mesh = create_mesh(n_devices=args.time_shard_devices, devices=devices)
     out, speed = timbre_transfer(
-        synth, audio, sr, adjustments, args.f0_extractor, args.use_fast_newt, args.seed
+        synth, audio, sr, adjustments, args.f0_extractor, args.use_fast_newt, args.seed, mesh
     )
     write_wav(args.output_path, out, rate)
-    print(f"Synthesized {len(out) / rate:.2f}s to {args.output_path} on {synth.device} "
+    shards = f" in {len(mesh.devices)} time chunk(s)" if mesh is not None else ""
+    print(f"Synthesized {len(out) / rate:.2f}s to {args.output_path} on {synth.device}{shards} "
           f"({speed:.0f}x faster than real time)")
     return 0
 

@@ -30,12 +30,26 @@ shards from disk as it is needed (corpora larger than host memory).
 ``--with-wandb`` also logs to Weights & Biases (it needs
 ``wandb`` installed). Evaluate a run with
 ``scripts/torch_resynthesise_dataset.py --checkpoint <checkpoint_dir>``.
+
+Data-parallel over several cards, one process per card:
+
+    torchrun --nproc_per_node 8 scripts/torch_train.py --dataset-path ...
+
+Under ``torchrun`` (``WORLD_SIZE`` in the environment, at any world size)
+each process joins the process group, NCCL on ``cuda:$LOCAL_RANK`` (gloo
+with ``--device cpu``), and trains its rows of each global batch
+(``GeneralDataModule.batch_size`` stays the global batch); rank 0 alone
+prints the config and the metrics and writes logs and checkpoints. Without
+``torchrun`` one process trains on one card, and raises when it sees more
+(``TrainConfig.data_parallel``).
 """
 import argparse
+import os
 import sys
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -43,6 +57,7 @@ from neural_waveshaping_synthesis_tpu_torch import minigin as gin  # noqa: E402
 from neural_waveshaping_synthesis_tpu_torch.convert import load_checkpoint  # noqa: E402
 from neural_waveshaping_synthesis_tpu_torch.data import GeneralDataModule, URMPDataModule  # noqa: E402
 from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping  # noqa: E402
+from neural_waveshaping_synthesis_tpu_torch.parallel import create_mesh  # noqa: E402
 from neural_waveshaping_synthesis_tpu_torch.training import (  # noqa: E402
     ConsoleLogger,
     CSVLogger,
@@ -84,14 +99,39 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def join_process_group(device: str) -> str:
+    """Under torchrun: join its process group (NCCL for the card, gloo for
+    the CPU) -> this rank's device."""
+    if device == "cuda":
+        local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local_rank)
+        dist.init_process_group("nccl", init_method="env://")
+        return f"cuda:{local_rank}"
+    dist.init_process_group("gloo", init_method="env://")
+    return device
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    under_torchrun = "WORLD_SIZE" in os.environ
+    device = join_process_group(args.device) if under_torchrun else args.device
+    try:
+        return train(args, device)
+    finally:
+        if under_torchrun:
+            dist.destroy_process_group()
+
+
+def train(args: argparse.Namespace, device: str) -> int:
     for path in args.gin_file:
         gin.parse_config_file(path)
     for binding in args.gin_binding:
         gin.parse_config(binding)
     gin.validate_config()
-    print(gin.operative_config_str(), flush=True)
+    mesh = create_mesh()
+    rank0 = mesh.rank == 0
+    if rank0:
+        print(gin.operative_config_str(), flush=True)
 
     cfg = TrainConfig(**({"checkpoint_dir": args.checkpoint_dir} if args.checkpoint_dir else {}))
     model = get_model(generator=torch.Generator().manual_seed(cfg.seed))
@@ -101,14 +141,19 @@ def main(argv=None) -> int:
     else:
         data = GeneralDataModule(args.dataset_path, load_to_memory=args.load_data_to_memory)
     initial = load_checkpoint(args.from_torch_checkpoint)[0] if args.from_torch_checkpoint else None
-    loggers = [ConsoleLogger(), CSVLogger(args.log_dir)]
-    if args.with_wandb:
-        loggers.append(WandbLogger())
-    trainer = Trainer(model, cfg, device=args.device, loggers=loggers)
-    print(f"[train] {args.device}: max_steps={cfg.max_steps} batch={data.batch_size} "
-          f"NEWT.fused={model.newt.fused!r} load_to_memory={data.load_to_memory}", flush=True)
+    loggers = []
+    if rank0:
+        loggers = [ConsoleLogger(), CSVLogger(args.log_dir)]
+        if args.with_wandb:
+            loggers.append(WandbLogger())
+    trainer = Trainer(model, cfg, device=device, loggers=loggers, mesh=mesh)
+    if rank0:
+        print(f"[train] data-parallel over {mesh.world_size} device(s); {device}: "
+              f"max_steps={cfg.max_steps} batch={data.batch_size} "
+              f"NEWT.fused={model.newt.fused!r} load_to_memory={data.load_to_memory}", flush=True)
     trainer.fit(data, restore=args.restore_checkpoint, initial_params=initial)
-    print(f"[train] finished at step {trainer.step}", flush=True)
+    if rank0:
+        print(f"[train] finished at step {trainer.step}", flush=True)
     return 0
 
 

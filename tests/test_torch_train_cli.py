@@ -282,10 +282,15 @@ def test_cli_trains_without_loading_the_data_to_memory(cli, tmp_path, monkeypatc
 
 def test_data_parallel_over_several_cards_raises(monkeypatch):
     """TrainConfig.data_parallel (default True, as JAX) over one card is a
-    mesh of one; with more than one card visible the Trainer refuses,
-    naming the roadmap item (checked before anything touches a card)."""
+    mesh of one; a process that sees more than one card and belongs to no
+    process group is refused, naming the launcher that runs one process per
+    card (checked before anything touches a card). With data_parallel off it
+    trains on its one card."""
     monkeypatch.setattr(trainer_module, "resolve_device", torch.device)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1, Multi-GPU"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         Trainer(NeuralWaveshaping(), TrainConfig(), device="cuda")
     assert Trainer(NeuralWaveshaping(), TrainConfig(), device="cpu").cfg.data_parallel
+    monkeypatch.setattr(torch.nn.Module, "to", lambda self, *a, **k: self)  # no card here
+    one_card = Trainer(NeuralWaveshaping(), TrainConfig(data_parallel=False), device="cuda")
+    assert one_card.mesh.world_size == 1 and not one_card.mesh.distributed
