@@ -298,9 +298,27 @@ exits non-zero:
    lookup's bf16-x instance beside its float32 one;
 46. timing_bf16_fused: the forward and the training step at batch 8 x 4 s
    with xcr and xfull, in float32 and bf16, in turns, with each arm's peak
-   memory.
+   memory;
+47-50. the multi-GPU phases (``parallel_phases``: data-parallel training on
+   gloo ranks sharing the card and under torchrun, the time-sharded render);
+51-56. the measurement CLIs (``measure_cli_phases``), each ``main(argv)`` run
+   in this process with every launch counter zeroed just before and read
+   just after: the kernel it times must have launched, no other kernel and
+   no plain version (``plain_calls``); each prints its figures on a line:
+   51. cli_time_forward_pass: ``scripts/torch_time_forward_pass.py`` at batch
+   1 and 8 x 4 s, with kernel 1 and with ``--use-fast-newt`` (kernel 4);
+   52. cli_time_buffer_sizes: ``--streaming`` at 1024 and 4096 samples (kernel
+   3: serial latency, queued-loop step, the profiler's busy time, cadence at
+   depth 4); 53. cli_serving_capacity: 1, 64 and 256 streams of 1024 samples,
+   float32 and ``--fetch-int16`` (kernel 3); 54. cli_time_train_step: the
+   recipe at 8 x 500 frames (kernels 1 and 2); 55. cli_profile_train_step
+   (2 x 100 frames: kernels 1, 2, 5 and 6 through the probes' ``NEWT.fused``
+   spellings) and cli_profile_streaming_step (16 streams: kernel 3); 56.
+   train_cli_host_profile: ``scripts/torch_train.py`` for 10 steps under
+   ``NWS_TPU_HOST_PROFILE`` (kernels 1 and 2; the host profile's stages and
+   each validation's printed).
 
-Then the kernels line (the numbers of phases 3-46 per kernel, with its
+Then the kernels line (the numbers of phases 3-56 per kernel, with its
 least possible time on an H100 from its bytes and operations; kernels 1, 2,
 4, 5, 6, 7 and 8's bf16 instances as entries of their own) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -3517,18 +3535,20 @@ def ddp_nccl_phase(root, tmp):
 
 
 def plain_calls(fn):
-    """Run ``fn`` counting the calls of the NEWT kernels' plain versions ->
-    (its result, the count)."""
-    names = ("film_shaper_fl_plain", "film_shaper_cr_plain", "film_shaper_chain")
-    real = {n: getattr(nf, n) for n in names}
+    """Run ``fn`` counting the calls of the kernels' plain versions (NEWT's
+    chain, the cr, audio-rate and stream kernels' and the FastNEWT lookup's)
+    -> (its result, the count)."""
+    names = [(nf, n) for n in ("film_shaper_fl_plain", "film_shaper_cr_plain", "film_shaper_chain",
+                               "film_shaper_stream_plain")] + [(fast_newt, "fast_newt_lookup_plain")]
+    real = {n: getattr(m, n) for m, n in names}
     calls = []
-    for n in names:
-        setattr(nf, n, lambda *a, _f=real[n], **k: calls.append(1) or _f(*a, **k))
+    for m, n in names:
+        setattr(m, n, lambda *a, _f=real[n], **k: calls.append(1) or _f(*a, **k))
     try:
         return fn(), len(calls)
     finally:
-        for n in names:
-            setattr(nf, n, real[n])
+        for m, n in names:
+            setattr(m, n, real[n])
 
 
 def time_shard_phase(dev, synth, cpu_synth):
@@ -3620,6 +3640,131 @@ def parallel_phases(dev, synth, cpu_synth, root, tmp):
     timbre_fl = timbre_time_shard_phase(tmp)
     return {"cr": ddp["cr"] + nccl["cr"] + ts["cr"], "bwd": ddp["bwd"] + nccl["bwd"],
             "fl": ts["fl"] + timbre_fl, "fl_err": ts["fl_err"]}
+
+
+# ---------------------------------------------------------------------------
+# phases 51-56: the measurement CLIs on the card
+# ---------------------------------------------------------------------------
+MEASURE_KEYS = ("cr", "bwd", "stream", "lookup", "fl", "fl_bwd")
+
+
+def run_cli(name, argv, expect, env=None):
+    """``scripts/<name>.py``'s ``main(argv)`` in this process, with ``env``
+    set for the call and every launch counter zeroed just before and read
+    just after -> (its standard output, the counts, seconds). Raises unless
+    it returns 0, each kernel of ``expect`` (keys of ``counts()``) launched,
+    no other kernel did and no plain version ran."""
+    scripts = str(REPO / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)  # the scripts import their siblings
+    module = load_script(name)
+    out = io.StringIO()
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    gin.clear_config()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc, n_plain = plain_calls(lambda: module.main(argv))
+        torch.cuda.synchronize()
+    finally:
+        gin.clear_config()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    got = counts()
+    moved = {k for k, v in got.items() if v}
+    if rc != 0 or n_plain or not set(expect) <= moved or moved - set(expect):
+        raise RuntimeError(f"{name} {argv}: rc {rc}, plain versions {n_plain}, launches "
+                           f"{ {k: got[k] for k in moved} }, expected {list(expect)}\n"
+                           f"{out.getvalue()[-3000:]}")
+    return out.getvalue(), got, seconds
+
+
+def lines_with(text, *needles):
+    return [line.strip() for line in text.splitlines() if any(n in line for n in needles)]
+
+
+def measure_cli_phases(dev, root, tmp):
+    """Phases 51-56 -> the launches of kernels 1-6 in them."""
+    launches = dict.fromkeys(MEASURE_KEYS, 0)
+
+    def cli(phase, name, argv, expect, env=None, **fields):
+        text, got, seconds = run_cli(name, argv, expect, env)
+        for k in MEASURE_KEYS:
+            launches[k] += got[k]
+        record = {"phase": phase, **fields, "seconds": seconds,
+                  "launches": {k: got[k] for k in expect}}
+        return text, record
+
+    # 51. the forward pass at batch 1 and 8 x 4 s, kernel 1 and FastNEWT
+    for batch in (1, 8):
+        for fast in (False, True):
+            text, record = cli("cli_time_forward_pass", "torch_time_forward_pass",
+                               ["--batch-size", str(batch), "--iterations", "20"]
+                               + (["--use-fast-newt"] if fast else []),
+                               ["lookup"] if fast else ["cr"], batch=batch, fast_newt=fast)
+            emit({**record, "lines": lines_with(text, "Queued loop", "DescribeResult",
+                                                   "RTF:", "[launches]")})
+
+    # 52. the streaming step by buffer size
+    out_csv = tmp / "buffer_times.csv"
+    text, record = cli("cli_time_buffer_sizes", "torch_time_buffer_sizes",
+                       ["--streaming", "--buffers", "1024,4096", "--iterations", "50",
+                        "--warmup", "5", "--pipeline-depth", "4", "--output-csv", str(out_csv)],
+                       ["stream"])
+    with open(tmp / "buffer_times_summary.csv") as f:
+        summary = list(csv.DictReader(f))
+    if len(summary) != 2 or not all(float(r["device_step_ms"]) > 0 for r in summary):
+        raise RuntimeError(f"time_buffer_sizes summary: {summary}")
+    emit({**record, "summary": summary})
+
+    # 53. serving capacity at 1, 64 and 256 streams, float32 and int16
+    for wire in ("float32", "int16"):
+        out_csv = tmp / f"capacity_{wire}.csv"
+        text, record = cli("cli_serving_capacity", "torch_serving_capacity",
+                           ["--batches", "1,64,256", "--output-csv", str(out_csv)]
+                           + (["--fetch-int16"] if wire == "int16" else []), ["stream"], wire=wire)
+        with open(out_csv) as f:
+            rows = list(csv.DictReader(f))
+        if [r["wire_dtype"] for r in rows] != [wire] * 3:
+            raise RuntimeError(f"serving_capacity rows: {rows}")
+        emit({**record, "capacity": lines_with(text, "capacity:", "link ("), "rows": rows})
+
+    # 54. the training step at 8 x 500 frames, the recipe (kernels 1-2)
+    text, record = cli("cli_time_train_step", "torch_time_train_step",
+                       ["--steps", "20", "--repeats", "2"], ["cr", "bwd"])
+    emit({**record, "lines": lines_with(text, "[time_train_step]")})
+
+    # 55. the component profiles at small lengths
+    text, record = cli("cli_profile_train_step", "torch_profile_train_step",
+                       ["--batch-size", "2", "--n-frames", "100", "--n-short", "2", "--n-long",
+                        "6", "--repeats", "1"], ["cr", "bwd", "fl", "fl_bwd"])
+    emit({**record, "lines": lines_with(text, " ms")})
+    text, record = cli("cli_profile_streaming_step", "torch_profile_streaming_step",
+                       ["--batch-streams", "16", "--n-short", "5", "--n-long", "20",
+                        "--repeats", "1"], ["stream"])
+    emit({**record, "lines": lines_with(text, " ms")})
+
+    # 56. the CLI trainer under NWS_TPU_HOST_PROFILE
+    text, record = cli("train_cli_host_profile", "torch_train",
+                       ["--gin-file", "gin/train/train_newt.gin", "--dataset-path", root,
+                        "--checkpoint-dir", str(tmp / "host_profile" / "ck"),
+                        "--log-dir", str(tmp / "host_profile" / "logs"),
+                        "-b", "TrainConfig.max_steps = 10", "-b", "TrainConfig.val_every_n_steps = 5",
+                        "-b", "TrainConfig.log_every_n_steps = 5"],
+                       ["cr", "bwd"], env={"NWS_TPU_HOST_PROFILE": "1"})
+    host = lines_with(text, "[trainer] host profile:", "[trainer] val profile")
+    if len(host) != 3 or not all(stage in host[-1] for stage in (
+            "batch:", "to_device:", "step_dispatch:", "loss_fetch+device_wait:", "log:",
+            "val+checkpoint:")):
+        raise RuntimeError(f"host profile lines: {host}")
+    emit({**record, "lines": host})
+    return launches
 
 
 def main() -> int:
@@ -3778,12 +3923,13 @@ def main() -> int:
         fl16 = audio_rate_bf16_phases(dev, root, tmp)
         xb = exciter_fused_bf16_phases(dev, root, tmp)
         par = parallel_phases(dev, synth, cpu_synth, root, tmp)
+        mc = measure_cli_phases(dev, root, tmp)
 
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:779",
-        "launches": launches + train["fwd_launches"] + rt["cr"] + pre["cr"] + par["cr"],
+        "launches": launches + train["fwd_launches"] + rt["cr"] + pre["cr"] + par["cr"] + mc["cr"],
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -3791,7 +3937,7 @@ def main() -> int:
         "name": "_fused_bwd_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr_bwd.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:822",
-        "launches": train["bwd_launches"] + rt["bwd"] + pre["bwd"] + par["bwd"],
+        "launches": train["bwd_launches"] + rt["bwd"] + pre["bwd"] + par["bwd"] + mc["bwd"],
         "max_abs_err": train["max_abs_err"],
         "ms": train["ms"], "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
         "bound_by": train["bound_by"], "library_ms": None,
@@ -3799,21 +3945,22 @@ def main() -> int:
         "name": "film_shaper_fused_stream", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_stream.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:1509",
-        "launches": stream["launches"], "max_abs_err": stream["max_abs_err"],
+        "launches": stream["launches"] + mc["stream"], "max_abs_err": stream["max_abs_err"],
         "ms": stream["ms"], "plain_ms": stream["plain_ms"], "bound_ms": stream["bound_ms"],
         "bound_by": stream["bound_by"], "library_ms": None,
     }, {
         "name": "fast_newt_lookup", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/fast_newt_lookup.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/fast_newt.py:68",
-        "launches": timbre["launches"] + rt["lookup"], "max_abs_err": timbre["max_abs_err"],
+        "launches": timbre["launches"] + rt["lookup"] + mc["lookup"],
+        "max_abs_err": timbre["max_abs_err"],
         "ms": timbre["ms"], "plain_ms": timbre["plain_ms"], "bound_ms": timbre["bound_ms"],
         "bound_by": timbre["bound_by"], "library_ms": None,
     }, {
         "name": "film_shaper_fused_fl", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_fl.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:488 and :417",
-        "launches": fl["fwd_launches"] + par["fl"],
+        "launches": fl["fwd_launches"] + par["fl"] + mc["fl"],
         "max_abs_err": max(fl["fwd_max_abs_err"], par["fl_err"]),
         "ms": fl["fwd"][0], "plain_ms": fl["fwd"][1], "bound_ms": fl["fwd"][2],
         "bound_by": fl["fwd"][3], "library_ms": None,
@@ -3821,7 +3968,7 @@ def main() -> int:
         "name": "_fused_bwd_fl", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_fl_bwd.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:527 and :450",
-        "launches": fl["bwd_launches"], "max_abs_err": fl["bwd_max_abs_err"],
+        "launches": fl["bwd_launches"] + mc["fl_bwd"], "max_abs_err": fl["bwd_max_abs_err"],
         "ms": fl["bwd"][0], "plain_ms": fl["bwd"][1], "bound_ms": fl["bwd"][2],
         "bound_by": fl["bwd"][3], "library_ms": None,
     }] + [{

@@ -14,7 +14,7 @@ The pipeline changes when samples reach the host, never what they are:
 its output is bit-identical to the serial loop over the same controls.
 """
 from collections import deque
-from typing import Deque, Iterator, Optional, Tuple
+from typing import Callable, Deque, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,11 @@ class PipelinedStreamer:
 
     ``device`` is the card unless told otherwise (it raises without one);
     ``generator`` (on that device) is :meth:`StreamingSynth.init_state`'s.
+    ``step`` (JAX's ``jit_step``) replaces :meth:`StreamingSynth.step`: it
+    takes and returns what that does, ``(state, f0, control, ir_spectra) ->
+    (audio, state)``, and its audio may be of another dtype (a cast on the
+    card before the copy, e.g. the int16 wire of ``scripts/
+    torch_serving_capacity.py``); the pinned host buffer takes that dtype.
     """
 
     def __init__(
@@ -45,6 +50,7 @@ class PipelinedStreamer:
         generator: Optional[torch.Generator] = None,
         depth: int = 4,
         device="cuda",
+        step: Optional[Callable] = None,
     ):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
@@ -52,6 +58,7 @@ class PipelinedStreamer:
         self.depth = depth
         self.state = synth.init_state(batch, generator, device=device)
         self.ir_spectra = synth.ir_partition_spectra()
+        self._step = synth.step if step is None else step
         self._inflight: Deque[Tuple[torch.Tensor, Optional[torch.cuda.Event]]] = deque()
 
     def __len__(self) -> int:
@@ -68,8 +75,9 @@ class PipelinedStreamer:
     def push(self, f0, control) -> Optional[np.ndarray]:
         """Enqueue one buffer (f0 (B, K) Hz, control (B, K, >=2), arrays or
         tensors); return the buffer from ``depth`` pushes ago as a (B, K*hop)
-        float32 array, or None while the pipeline is priming."""
-        audio, self.state = self.synth.step(
+        array (float32, or the dtype ``step`` returns), or None while the
+        pipeline is priming."""
+        audio, self.state = self._step(
             self.state, self._to_device(f0), self._to_device(control), self.ir_spectra
         )
         if audio.is_cuda:

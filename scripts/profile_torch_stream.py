@@ -25,24 +25,9 @@ sys.path.insert(0, str(REPO))
 
 from neural_waveshaping_synthesis_tpu_torch.inference import Synthesizer  # noqa: E402
 from neural_waveshaping_synthesis_tpu_torch.streaming import StreamingSynth  # noqa: E402
+from neural_waveshaping_synthesis_tpu_torch.utils.profiling import busy_ms  # noqa: E402
 
 CKPT = str(REPO / "docs" / "results" / "run120k_cr" / "checkpoint" / "best.ckpt")
-
-
-def _busy_ms(events):
-    """Union of [start, end) intervals in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3  # us -> ms
 
 
 def main() -> int:
@@ -81,7 +66,7 @@ def main() -> int:
         e for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
-    busy = _busy_ms(device_events)
+    busy = busy_ms(device_events)
     by_name = {}
     for e in device_events:
         d = by_name.setdefault(e.name, [0.0, 0])

@@ -25,10 +25,11 @@ import time
 import numpy as np
 import torch
 
-from profile_torch_render import _busy_ms, _requests  # noqa: E402  (same folder)
+from profile_torch_render import _requests  # noqa: E402  (same folder)
 
 from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping  # noqa: E402
 from neural_waveshaping_synthesis_tpu_torch.training import TrainConfig, Trainer  # noqa: E402
+from neural_waveshaping_synthesis_tpu_torch.utils.profiling import busy_ms  # noqa: E402
 
 
 def _tone_batch(requests):
@@ -76,7 +77,7 @@ def main() -> int:
         e for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
-    busy = _busy_ms(device_events)
+    busy = busy_ms(device_events)
     by_name = {}
     for e in device_events:
         d = by_name.setdefault(e.name, [0.0, 0])

@@ -23,11 +23,12 @@ from collections import Counter
 
 import torch
 
-from profile_torch_render import _busy_ms, _requests  # noqa: E402  (same folder)
+from profile_torch_render import _requests  # noqa: E402  (same folder)
 from profile_torch_train import _tone_batch  # noqa: E402
 
 from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping  # noqa: E402
 from neural_waveshaping_synthesis_tpu_torch.training import TrainConfig, Trainer  # noqa: E402
+from neural_waveshaping_synthesis_tpu_torch.utils.profiling import busy_ms  # noqa: E402
 
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
 
@@ -44,7 +45,7 @@ def _trace(trainer, batch, runs):
     events = prof.events()
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     launches = sum(1 for e in events if e.name in _LAUNCH_CALLS)
-    busy = _busy_ms(device)
+    busy = busy_ms(device)
     return {
         "wall_ms_per_step": wall_ms / runs,
         "device_busy_ms_per_step": busy / runs,
