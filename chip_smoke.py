@@ -7,13 +7,14 @@ Phases, each printed as one JSON line; any failure raises, so the run
 exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds the eight kernel sources of ``kernels/csrc`` for
+2. build: nvcc builds the nine kernel sources of ``kernels/csrc`` for
    sm_90a, the forward (``newt_fused_cr.cu``), the backward
    (``newt_fused_cr_bwd.cu``), the streaming forward
    (``newt_fused_stream.cu``), the audio-rate forward and backward
    (``newt_fused_fl.cu``, ``newt_fused_fl_bwd.cu``), the FastNEWT lookup
-   (``fast_newt_lookup.cu``) and the exciter-fused forward and backward
-   (``newt_fused_x.cu``, ``newt_fused_x_bwd.cu``), in parallel;
+   (``fast_newt_lookup.cu``), the exciter-fused forward and backward
+   (``newt_fused_x.cu``, ``newt_fused_x_bwd.cu``) and the roofline's chains
+   (``roofline_chain.cu``, kernel 9), in parallel;
 3. kernels: the forward kernel's wrapper on CUDA tensors against its plain
    PyTorch version on the same tensors (rtol=1e-4, atol=1e-5), and the
    kernel's FiLM interpolation bit for bit against ``linear_upsample``.
@@ -316,11 +317,39 @@ exits non-zero:
    spellings) and cli_profile_streaming_step (16 streams: kernel 3); 56.
    train_cli_host_profile: ``scripts/torch_train.py`` for 10 steps under
    ``NWS_TPU_HOST_PROFILE`` (kernels 1 and 2; the host profile's stages and
-   each validation's printed).
+   each validation's printed);
+57. kernel_chain: kernel 9's four instances (fma, fma ilp4, sin, sin ilp4)
+   against their plain versions (rtol 1e-4, atol 1e-5) at the roofline CLI's
+   8,388,608 elements in (n/128, 128) and, for fma, (n/64, 64), on an x0
+   drawn apart from x, with the plain chain of K - 1 steps required to fail
+   the same bars; two calls bit-identical; timing_kernel_chain: each
+   instance on the CLI's inputs (a queued loop by difference, as the
+   roofline CLI times it) and its plain version (CUDA-event median) with
+   its bound;
+58. train_trajectory: 60 float32 steps of ``train_step`` at ``"full_lane_cr"``
+   over ``utils/trajectory.py``'s recipe (the port's seeded init, 2 tones of
+   16 frames, the numpy draws) from each of the four inits of the fixture's
+   float32 family: kernels 1 and 2 once a step and nothing else; against
+   JAX's float64 curve in ``tests/data/jax_loss_trajectory.json``, the
+   seeded init's step-1 loss within 1e-4, and JAX's three-tier gate with
+   each bar raised to JAX's own spread (the fixture's twelve curves): tiers
+   1 and 2 on the seeded init's curve, tier 2 on all four, tier 3 on the
+   median of the four plateau gaps;
+59-61. the queue-1 CLIs through ``run_cli``: cli_roofline,
+   ``scripts/torch_roofline_shaper.py`` at its defaults (kernel 9's four
+   instances and kernels 5-6 must launch; its plain rows run the plain
+   chains on purpose); cli_bench_data_path, ``torch_bench_data_path.py``
+   on the tone dataset for 40 steps an arm (kernels 1-2); cli_profile_loss,
+   ``torch_profile_loss.py`` at its defaults (no kernel; the float32 value
+   within 1e-5 of its float64 oracle);
+62. notebook: every code cell of ``colab/NEWT_Timbre_Transfer_torch.ipynb``
+   on the card on a 4-s tone: kernel 1 and the FastNEWT lookup launch, no
+   plain version runs, the outputs as ``tests/test_torch_notebook.py`` checks.
 
-Then the kernels line (the numbers of phases 3-56 per kernel, with its
+Then the kernels line (the numbers of phases 3-62 per kernel, with its
 least possible time on an H100 from its bytes and operations; kernels 1, 2,
-4, 5, 6, 7 and 8's bf16 instances as entries of their own) and, last,
+4, 5, 6, 7 and 8's bf16 instances and kernel 9's four instances as entries
+of their own) and, last,
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN (the GRU), so the card computes in float32 like the CPU reference.
 """
@@ -362,7 +391,14 @@ from neural_waveshaping_synthesis_tpu_torch.inference import (
     stream_timbre_transfer,
     timbre_transfer,
 )
-from neural_waveshaping_synthesis_tpu_torch.kernels import _build, fast_newt
+from neural_waveshaping_synthesis_tpu_torch.kernels import _build, fast_newt, roofline
+from neural_waveshaping_synthesis_tpu_torch.kernels.roofline import (
+    CR_BWD_FLOP_PER_ELEMENT,
+    CR_FLOP_PER_ELEMENT,
+    FL_BWD_FLOP_PER_ELEMENT,
+    FL_FLOP_PER_ELEMENT,
+    bound,
+)
 from neural_waveshaping_synthesis_tpu_torch.kernels import newt_fused as nf
 from neural_waveshaping_synthesis_tpu_torch.models import NeuralWaveshaping
 from neural_waveshaping_synthesis_tpu_torch.models import crepe
@@ -374,11 +410,15 @@ from neural_waveshaping_synthesis_tpu_torch.parallel import (
     create_mesh,
     make_time_sharded_renderer,
 )
+from neural_waveshaping_synthesis_tpu_torch.utils import trajectory
+from neural_waveshaping_synthesis_tpu_torch.utils.profiling import differential_loop_ms
 from neural_waveshaping_synthesis_tpu_torch.training import (
+    Optimizer,
     TrainConfig,
     Trainer,
     compute_loss,
     step_generator,
+    train_step,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -387,33 +427,11 @@ WAV = str(REPO / "logs" / "audio" / "val_original_step20.wav")  # 4 s, 16 kHz in
 HOP, SR = 128, 16000
 RTOL, ATOL = 1e-4, 1e-5
 N_TIMED = 20
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-# f32 operations per (sample, channel) in newt_fused_cr.cu, an FMA as two:
-# FiLM lerp 4*(2 mul + add) + division + (1-w) = 14; FiLM-in FMA + scale = 3;
-# MLP 1->8->8->8->1 multiply-adds (8 + 64 + 64 + 8) * 2 = 288; 25 sines of
-# (mul, rint, fma, mul, 6 fma, mul) = 18 each = 450; FiLM-out FMA = 2.
-CR_FLOP_PER_ELEMENT = 14 + 3 + 288 + 450 + 2
-# ... and in newt_fused_cr_bwd.cu. Forward recompute: lerp 14, FiLM-in +
-# scale 3, MLP 288, 25 sine-and-cosine pairs sharing one range reduction
-# (mul, rint, fma, mul; sine 6 fma + mul; cosine 7 fma) = 31 each = 775.
-# Chain rule: d gamma_out path 2; layer 4 weight/bias grads 16 + 1, dp3 16;
-# layers 3 and 2 each weight grads 128, input grads 128, bias 8, times the
-# cosine 8; layer 1 bias 8, weight 16, input 16; input scale 2, dx 1,
-# d_exciter 1; FiLM cotangents 2; lerp transpose 4 * (2 mul + 2 add) = 16.
-CR_BWD_FLOP_PER_ELEMENT = (
-    (14 + 3 + 288 + 25 * 31)
-    + (2 + 16 + 1 + 16 + 2 * (128 + 128 + 8 + 8) + 8 + 16 + 16 + 2 + 1 + 1 + 2 + 16)
-)
-# ... and in newt_fused_stream.cu: the cr count with the stream ramp,
+# the H100's data-sheet peaks, bound(), and kernels 1, 2, 5 and 6's
+# operations per (sample, channel) come from kernels/roofline.py; the
+# stream kernel's: newt_fused_stream.cu is the cr count with the stream ramp,
 # 4 * (sub, mul, add) + one division = 13, in place of the lerp's 14.
 STREAM_FLOP_PER_ELEMENT = 13 + 3 + 288 + 450 + 2
-# ... and in newt_fused_fl.cu and newt_fused_fl_bwd.cu: the cr counts without
-# the lerp (14) and, in the backward, without its transpose (16): the FiLM
-# arrives at audio rate and its cotangents leave at audio rate.
-FL_FLOP_PER_ELEMENT = CR_FLOP_PER_ELEMENT - 14
-FL_BWD_FLOP_PER_ELEMENT = CR_BWD_FLOP_PER_ELEMENT - 14 - 16
 BWD_RTOL = 1e-3  # the JAX suite's gradient bar; atol = BWD_RTOL * max|plain| per output
 TRAIN_STEPS = 30
 CLI_STEPS = 20
@@ -542,12 +560,6 @@ def run_ranks(fn, world_size, args=(), timeout=300.0):
             if p.is_alive():
                 p.kill()
             p.join(10)
-
-
-def bound(flop, nbytes):
-    """-> (least ms on an H100 SXM for this work, "operations" or "bytes")."""
-    t_ops, t_bytes = flop / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def nrms(a, b):
@@ -1311,6 +1323,8 @@ def reset_counts():
     nf.film_shaper_fl.launches_bf16 = nf.film_shaper_fl.bwd_launches_bf16 = 0
     nf.film_shaper_stream.launches = fast_newt.fast_newt_lookup.launches = 0
     fast_newt.fast_newt_lookup.launches_bf16 = 0
+    roofline.fma_chain.launches = roofline.fma_chain.launches_ilp4 = 0
+    roofline.psin_chain.launches = roofline.psin_chain.launches_ilp4 = 0
     for wrapper in (nf.bank_film_shaper_xcr, nf.bank_newt_xfull):
         for io in ("", "_bf16", "_bf16_f32"):
             setattr(wrapper, "launches" + io, 0)
@@ -1325,7 +1339,11 @@ def counts():
            "cr_bf16": nf.film_shaper_cr.launches_bf16, "bwd_bf16": nf.film_shaper_cr.bwd_launches_bf16,
            "cr_bf16_f32": nf.film_shaper_cr.launches_bf16_f32,
            "bwd_bf16_f32": nf.film_shaper_cr.bwd_launches_bf16_f32,
-           "fl_bf16": nf.film_shaper_fl.launches_bf16, "fl_bwd_bf16": nf.film_shaper_fl.bwd_launches_bf16}
+           "fl_bf16": nf.film_shaper_fl.launches_bf16, "fl_bwd_bf16": nf.film_shaper_fl.bwd_launches_bf16,
+           "chain_fma": roofline.fma_chain.launches,
+           "chain_fma_ilp4": roofline.fma_chain.launches_ilp4,
+           "chain_sin": roofline.psin_chain.launches,
+           "chain_sin_ilp4": roofline.psin_chain.launches_ilp4}
     for kind, wrapper in (("xcr", nf.bank_film_shaper_xcr), ("xfull", nf.bank_newt_xfull)):
         for io in ("", "_bf16", "_bf16_f32"):  # e.g. xcr, xcr_bwd, xcr_bf16, xcr_bwd_bf16
             got[kind + io] = getattr(wrapper, "launches" + io)
@@ -1955,10 +1973,9 @@ def cr_bytes(exc, film_c, planes, backward=False):
     element sizes: exciter in and out (and dy in), the FiLM in (and d_film
     out), the float32 planes in (and d_planes out). bf16 halves the exciter,
     dy and outputs."""
-    e = exc.numel() * exc.element_size()
-    f = film_c.numel() * film_c.element_size()
-    w = planes.numel() * planes.element_size()
-    return 3 * e + 2 * f + 2 * w if backward else 2 * e + f + w
+    return roofline.shaper_bytes(exc.numel() * exc.element_size(),
+                                 film_c.numel() * film_c.element_size(),
+                                 planes.numel() * planes.element_size(), backward)
 
 
 def instance_of(exc, film_c):
@@ -3648,12 +3665,13 @@ def parallel_phases(dev, synth, cpu_synth, root, tmp):
 MEASURE_KEYS = ("cr", "bwd", "stream", "lookup", "fl", "fl_bwd")
 
 
-def run_cli(name, argv, expect, env=None):
+def run_cli(name, argv, expect, env=None, plain_ok=False):
     """``scripts/<name>.py``'s ``main(argv)`` in this process, with ``env``
     set for the call and every launch counter zeroed just before and read
     just after -> (its standard output, the counts, seconds). Raises unless
     it returns 0, each kernel of ``expect`` (keys of ``counts()``) launched,
-    no other kernel did and no plain version ran."""
+    no other kernel did and, unless ``plain_ok`` (a CLI that times a plain
+    version beside the kernel on purpose), no plain version ran."""
     scripts = str(REPO / "scripts")
     if scripts not in sys.path:
         sys.path.insert(0, scripts)  # the scripts import their siblings
@@ -3678,7 +3696,7 @@ def run_cli(name, argv, expect, env=None):
     seconds = time.perf_counter() - t0
     got = counts()
     moved = {k for k, v in got.items() if v}
-    if rc != 0 or n_plain or not set(expect) <= moved or moved - set(expect):
+    if rc != 0 or (n_plain and not plain_ok) or not set(expect) <= moved or moved - set(expect):
         raise RuntimeError(f"{name} {argv}: rc {rc}, plain versions {n_plain}, launches "
                            f"{ {k: got[k] for k in moved} }, expected {list(expect)}\n"
                            f"{out.getvalue()[-3000:]}")
@@ -3765,6 +3783,248 @@ def measure_cli_phases(dev, root, tmp):
         raise RuntimeError(f"host profile lines: {host}")
     emit({**record, "lines": host})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 57-62: kernel 9 (the roofline's chains) and the roofline CLI, the
+# loss trajectory, the data-path bench, the loss profile and the notebook
+# ---------------------------------------------------------------------------
+CHAIN_N = 8 * 1024 * 1024  # elements of each chain: the roofline CLI's
+CHAIN_K_FMA, CHAIN_K_SIN, CHAIN_A = 256, 32, 0.99
+CHAIN_BYTES = 12  # per element: x and x0 read, out written, float32
+# kernel 9's instances: name -> (kind, ilp, counts() key)
+CHAIN_INSTANCES = {"fma": ("fma", 1, "chain_fma"), "fma_ilp4": ("fma", 4, "chain_fma_ilp4"),
+                   "sin": ("sin", 1, "chain_sin"), "sin_ilp4": ("sin", 4, "chain_sin_ilp4")}
+QUEUE1_KEYS = ("chain_fma", "chain_fma_ilp4", "chain_sin", "chain_sin_ilp4", "fl", "fl_bwd", "cr",
+               "bwd", "lookup")
+TRAJ_STEP1_RTOL = 1e-4  # the card's float32 step-1 loss against JAX's float64 one
+LOSS_VALUE_RTOL = 1e-5  # the loss profile's float32 value against its float64 oracle
+
+
+def chain_calls(kind, ilp, x, x0, k=None):
+    """(kernel, plain version) of kernel 9's ``kind`` instance on (x, x0),
+    ``k`` steps (the CLI's K if None)."""
+    if kind == "fma":
+        k = CHAIN_K_FMA if k is None else k
+        return (lambda: roofline.fma_chain(x, x0, k, CHAIN_A, ilp),
+                lambda: roofline.fma_chain_plain(x, x0, k, CHAIN_A, ilp))
+    k = CHAIN_K_SIN if k is None else k
+    return (lambda: roofline.psin_chain(x, x0, k, ilp),
+            lambda: roofline.psin_chain_plain(x, x0, k, ilp))
+
+
+def chain_agrees(out, ref):
+    return bool(torch.all((out - ref).abs() <= ATOL + RTOL * ref.abs()))
+
+
+def kernel_chain_phase(dev):
+    """Phase 57: kernel 9's four instances against their plain versions at
+    the roofline CLI's sizes, on an x0 drawn apart from x (the CLI's
+    x0 = 0.01 x makes x the fma chain's fixed point, where any step count
+    gives x back), with the plain version of K - 1 steps required to
+    disagree at the same bars; two calls bit-identical; then each timed on
+    the CLI's own inputs -> {instance: {max_abs_err, ms, plain_ms,
+    bound_ms, bound_by}}."""
+    gen = torch.Generator().manual_seed(9)
+    out = {}
+    for lanes, names in ((128, tuple(CHAIN_INSTANCES)), (64, ("fma",))):
+        x = torch.randn(CHAIN_N // lanes, lanes, generator=gen).to(dev)
+        x0 = (0.01 * torch.randn(CHAIN_N // lanes, lanes, generator=gen)).to(dev)
+        for name in names:
+            kind, ilp, _ = CHAIN_INSTANCES[name]
+            k = CHAIN_K_FMA if kind == "fma" else CHAIN_K_SIN
+            kern, plain = chain_calls(kind, ilp, x, x0)
+            first, second, ref = kern(), kern(), plain()
+            short = chain_calls(kind, ilp, x, x0, k - 1)[1]()
+            torch.cuda.synchronize()
+            bit = bool(torch.equal(first, second))
+            err = float((first - ref).abs().max())
+            sensitive = not chain_agrees(first, short)
+            emit({"phase": "kernel_chain", "instance": name, "lanes": lanes, "elements": CHAIN_N,
+                  "max_abs_err": err, "rtol": RTOL, "atol": ATOL, "bit_identical": bit,
+                  "k_minus_1_max_abs_diff": float((first - short).abs().max()),
+                  "k_minus_1_disagrees": sensitive})
+            np.testing.assert_allclose(first.cpu().numpy(), ref.cpu().numpy(), rtol=RTOL, atol=ATOL)
+            if not bit or not sensitive:
+                raise RuntimeError(f"kernel 9 {name}: two calls differ ({not bit}) or K - 1 steps "
+                                   f"pass the bars ({not sensitive})")
+            entry = out.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            del first, second, ref, short
+            if lanes == 128:
+                # timed on the CLI's inputs (x0 = 0.01 x, or 1e-6 x for the
+                # sine). A launch takes 0.1-0.3 ms: one event pair around
+                # each would add the host's ~0.05 ms launch latency, so the
+                # kernel is timed as the CLI times it, a queued loop by
+                # difference
+                kern, plain = chain_calls(kind, ilp, x, x * (0.01 if kind == "fma" else 1e-6))
+                bound_ms, bound_by = bound(CHAIN_N * roofline.chain_flop(kind, k, ilp),
+                                           CHAIN_N * CHAIN_BYTES)
+                entry.update(ms=differential_loop_ms(lambda c: kern(), 5, 25, 3, device=dev),
+                             plain_ms=cuda_median_ms(plain, n=5, warmup=1),
+                             bound_ms=bound_ms, bound_by=bound_by)
+                emit({"phase": "timing_kernel_chain", "instance": name, **entry})
+        del x, x0
+    return out
+
+
+def train_trajectory_phase(dev):
+    """Phase 58: float32 ``train_step`` at ``"full_lane_cr"`` (kernels 1-2,
+    counted) over the recipe of ``utils/trajectory.py`` (the port's seeded
+    init, the numpy batch and draws), 60 steps, held against JAX's float64
+    curve in ``tests/data/jax_loss_trajectory.json``: the step-1 loss within
+    TRAJ_STEP1_RTOL, and JAX's three-tier gate with each bar raised to JAX's
+    own spread (``spread_gate``; the fixture's three families). One curve of
+    a chaotic recipe is one draw: the card runs the four inits of the
+    fixture's float32 family (the seeded init, and three perturbed at
+    float32 rounding) and holds the median of their plateau gaps to tier 3;
+    tiers 1 and 2 hold for the seeded init's curve, tier 2 for all four ->
+    the launches."""
+    fixture = json.loads((REPO / "tests" / "data" / "jax_loss_trajectory.json").read_text())
+    recipe, ref = fixture["recipe"], fixture["losses"]
+    spread = [c["losses"] for family in fixture["spread"].values() for c in family]
+    inits = [(c["perturb"], c["seed"]) for c in fixture["spread"]["float32"]]
+    assert inits[0] == (0.0, 0)
+    batch = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+             for k, v in trajectory.trajectory_batch(recipe).items()}
+    draws = [(torch.from_numpy(o.astype(np.float32)).to(dev),
+              torch.from_numpy(n.astype(np.float32)).to(dev))
+             for o, n in trajectory.trajectory_draws(recipe)]
+    reset_counts()
+    t0 = time.perf_counter()
+    curves = []
+    for perturb, seed in inits:
+        gin.clear_config()
+        gin.parse_config("NEWT.fused = 'full_lane_cr'")
+        try:
+            model = NeuralWaveshaping(generator=torch.Generator().manual_seed(recipe["init_seed"]))
+        finally:
+            gin.clear_config()
+        if perturb:
+            model.load_params(trajectory.init_params(recipe, perturb, seed))
+        model.to(dev)
+        optimizer = Optimizer(model.parameters(), TrainConfig())
+        losses = [train_step(model, optimizer, batch, phase_offset=o, noise=n)["loss"]
+                  for o, n in draws]
+        curves.append([float(v) for v in losses])
+    seconds = time.perf_counter() - t0
+    got = counts()
+    moved = {k: v for k, v in got.items() if v}
+    gates = [trajectory.spread_gate(c, ref, spread) for c in curves]
+    gate, step1 = gates[0], abs(curves[0][0] - ref[0]) / abs(ref[0])
+    plateaus = [g["plateau"] for g in gates]
+    plateau_median = float(np.median(plateaus))
+    tier3 = plateau_median <= gate["plateau_bar"]
+    emit({"phase": "train_trajectory", "curves": len(curves), "steps": len(curves[0]),
+          "seconds": seconds, "launches": moved, "step1_rel": step1,
+          "step1_rtol": TRAJ_STEP1_RTOL, **{k: gate[k] for k in ("exact", "exact_bars", "row_max",
+                                                                "tier1", "tier2")},
+          "row_max_all": max(g["row_max"] for g in gates), "plateaus": plateaus,
+          "plateau_median": plateau_median, "plateau_bar": gate["plateau_bar"], "tier3": tier3,
+          "jax_bars": {"tier1": trajectory.BARS["exact_tol"], "tier2": trajectory.BARS["row_tol"],
+                       "tier3": trajectory.BARS["plateau_tol"]},
+          "first_loss": curves[0][0], "plateau_loss_median": float(np.median(curves[0][40:60])),
+          "ref_plateau_loss_median": float(np.median(ref[40:60]))})
+    if moved != {"cr": len(draws) * len(curves), "bwd": len(draws) * len(curves)}:
+        raise RuntimeError(f"train_trajectory launches {moved}: expected kernels 1-2 once a step")
+    if (not np.all(np.isfinite(curves)) or not step1 <= TRAJ_STEP1_RTOL or not gate["tier1"]
+            or not all(g["tier2"] for g in gates) or not tier3):
+        raise RuntimeError(f"train_trajectory: step 1 {step1}, gates {gates}")
+    return moved
+
+
+def notebook_phase(tmp):
+    """Phase 62: every code cell of ``colab/NEWT_Timbre_Transfer_torch.ipynb``
+    on the card (its default device) on a 4-s tone, counted -> the launches."""
+    t = np.arange(4 * SR) / SR
+    f = 330 * (1 + 0.02 * np.sin(2 * np.pi * 5 * t))
+    wav = (0.4 * np.sin(2 * np.pi * np.cumsum(f) / SR)).astype(np.float32)
+    in_path, out_path = tmp / "notebook_in.wav", tmp / "notebook_out.wav"
+    wavfile.write(in_path, SR, (wav * 32767).astype(np.int16))
+    env = {"NWS_INPUT_WAV": str(in_path), "NWS_OUTPUT_WAV": str(out_path), "MPLBACKEND": "Agg"}
+    saved = {k: os.environ.get(k) for k in (*env, "NWS_DEVICE", "NWS_CHECKPOINT")}
+    os.environ.update(env)
+    for k in ("NWS_DEVICE", "NWS_CHECKPOINT"):
+        os.environ.pop(k, None)
+    cwd = os.getcwd()
+    nb = json.loads((REPO / "colab" / "NEWT_Timbre_Transfer_torch.ipynb").read_text())
+    ns = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(REPO / "colab")
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            _, n_plain = plain_calls(lambda: [
+                exec(compile("".join(c["source"]), f"<cell {i}>", "exec"), ns)
+                for i, c in enumerate(nb["cells"]) if c["cell_type"] == "code"])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        gin.clear_config()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    got = counts()
+    moved = {k: v for k, v in got.items() if v}
+    out_sr, out = wavfile.read(out_path)
+    emit({"phase": "notebook", "seconds": time.perf_counter() - t0, "launches": moved,
+          "device": str(ns["synth"].device), "x_realtime": ns["x_realtime"],
+          "x_realtime_fast_newt": ns["x_rt_fast"], "out_samples": len(out),
+          "lines": text.getvalue().splitlines()[-4:]})
+    if (set(moved) != {"cr", "lookup"} or n_plain or ns["synth"].device.type != "cuda"
+            or out_sr != SR or len(out) != len(ns["out"]) or ns["out_fast"].shape != ns["out"].shape
+            or not np.all(np.isfinite(ns["out"])) or not np.all(np.isfinite(ns["out_fast"]))):
+        raise RuntimeError(f"notebook: launches {moved}, plain versions {n_plain}")
+    return moved
+
+
+def queue1_phases(dev, root, tmp):
+    """Phases 57-62 -> kernel 9's numbers and the launches of every kernel
+    in phases 58-62."""
+    chain = kernel_chain_phase(dev)
+    launches = dict.fromkeys(QUEUE1_KEYS, 0)
+
+    def add(got):
+        for k in QUEUE1_KEYS:
+            launches[k] += got.get(k, 0)
+
+    # 58. the loss trajectory against the JAX fixture
+    add(train_trajectory_phase(dev))
+
+    # 59. the roofline CLI at its defaults: kernel 9's rows and kernels 5-6
+    roofline_keys = ["chain_fma", "chain_fma_ilp4", "chain_sin", "chain_sin_ilp4", "fl", "fl_bwd"]
+    text, got, seconds = run_cli("torch_roofline_shaper", [], roofline_keys, plain_ok=True)
+    add(got)
+    emit({"phase": "cli_roofline", "seconds": seconds,
+          "launches": {k: got[k] for k in roofline_keys},
+          "lines": lines_with(text, " ms", "ceilings", "[launches]")})
+
+    # 60. the data-path bench on the tone dataset, the recipe (kernels 1-2)
+    text, got, seconds = run_cli("torch_bench_data_path",
+                                 ["--dataset-path", root, "--steps", "40", "--log-every", "10",
+                                  "--warmup-windows", "1"], ["cr", "bwd"])
+    add(got)
+    result = json.loads(text.strip().splitlines()[-1])
+    emit({"phase": "cli_bench_data_path", "seconds": seconds, **result,
+          "launches": {k: got[k] for k in ("cr", "bwd")},
+          "lines": lines_with(text, "steady-state", "lazy_i16")})
+    if not (result["eager_steps_per_s"] > 0 and result["lazy_steps_per_s"] > 0):
+        raise RuntimeError(f"bench_data_path: {result}")
+
+    # 61. the loss profile at its defaults (no kernel of the port's own)
+    text, got, seconds = run_cli("torch_profile_loss", [], [])
+    value = lines_with(text, "rel_err")
+    rel = float(value[0].split("rel_err")[1])
+    emit({"phase": "cli_profile_loss", "seconds": seconds, "rel_err": rel,
+          "rtol": LOSS_VALUE_RTOL, "lines": lines_with(text, " ms", "oracle", "rel_err")})
+    if not rel <= LOSS_VALUE_RTOL:
+        raise RuntimeError(f"profile_loss: float32 value {rel} from the float64 oracle")
+
+    # 62. the notebook on the card
+    add(notebook_phase(tmp))
+    return {"chain": chain, "launches": launches}
 
 
 def main() -> int:
@@ -3924,12 +4184,14 @@ def main() -> int:
         xb = exciter_fused_bf16_phases(dev, root, tmp)
         par = parallel_phases(dev, synth, cpu_synth, root, tmp)
         mc = measure_cli_phases(dev, root, tmp)
+        q1 = queue1_phases(dev, root, tmp)
 
     emit({"kernels": [{
         "name": "film_shaper_fused_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:779",
-        "launches": launches + train["fwd_launches"] + rt["cr"] + pre["cr"] + par["cr"] + mc["cr"],
+        "launches": (launches + train["fwd_launches"] + rt["cr"] + pre["cr"] + par["cr"] + mc["cr"]
+                     + q1["launches"]["cr"]),
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -3937,7 +4199,8 @@ def main() -> int:
         "name": "_fused_bwd_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr_bwd.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:822",
-        "launches": train["bwd_launches"] + rt["bwd"] + pre["bwd"] + par["bwd"] + mc["bwd"],
+        "launches": (train["bwd_launches"] + rt["bwd"] + pre["bwd"] + par["bwd"] + mc["bwd"]
+                     + q1["launches"]["bwd"]),
         "max_abs_err": train["max_abs_err"],
         "ms": train["ms"], "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
         "bound_by": train["bound_by"], "library_ms": None,
@@ -3952,7 +4215,7 @@ def main() -> int:
         "name": "fast_newt_lookup", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/fast_newt_lookup.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/fast_newt.py:68",
-        "launches": timbre["launches"] + rt["lookup"] + mc["lookup"],
+        "launches": timbre["launches"] + rt["lookup"] + mc["lookup"] + q1["launches"]["lookup"],
         "max_abs_err": timbre["max_abs_err"],
         "ms": timbre["ms"], "plain_ms": timbre["plain_ms"], "bound_ms": timbre["bound_ms"],
         "bound_by": timbre["bound_by"], "library_ms": None,
@@ -3960,7 +4223,7 @@ def main() -> int:
         "name": "film_shaper_fused_fl", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_fl.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:488 and :417",
-        "launches": fl["fwd_launches"] + par["fl"] + mc["fl"],
+        "launches": fl["fwd_launches"] + par["fl"] + mc["fl"] + q1["launches"]["fl"],
         "max_abs_err": max(fl["fwd_max_abs_err"], par["fl_err"]),
         "ms": fl["fwd"][0], "plain_ms": fl["fwd"][1], "bound_ms": fl["fwd"][2],
         "bound_by": fl["fwd"][3], "library_ms": None,
@@ -3968,7 +4231,8 @@ def main() -> int:
         "name": "_fused_bwd_fl", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_fl_bwd.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:527 and :450",
-        "launches": fl["bwd_launches"] + mc["fl_bwd"], "max_abs_err": fl["bwd_max_abs_err"],
+        "launches": fl["bwd_launches"] + mc["fl_bwd"] + q1["launches"]["fl_bwd"],
+        "max_abs_err": fl["bwd_max_abs_err"],
         "ms": fl["bwd"][0], "plain_ms": fl["bwd"][1], "bound_ms": fl["bwd"][2],
         "bound_by": fl["bwd"][3], "library_ms": None,
     }] + [{
@@ -4021,7 +4285,13 @@ def main() -> int:
         "name": "fast_newt_lookup[bf16 x]", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/fast_newt_lookup.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/fast_newt.py:68", **xb["lookup"],
-        "library_ms": None}]})
+        "library_ms": None}] + [{
+        "name": f"roofline_chain[{label}]", "route": "cuda",
+        "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/roofline_chain.cu",
+        "replaces": "scripts/roofline_shaper.py:171",
+        "launches": q1["launches"][counter], **q1["chain"][instance], "library_ms": None,
+    } for instance, (_, _, counter) in CHAIN_INSTANCES.items()
+        for label in [instance.replace("_", ", ")]]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -9,10 +9,11 @@ def launch_counts() -> Dict[str, int]:
     count (e.g. ``"film_shaper_cr.launches"``, ``"film_shaper_cr
     .bwd_launches_bf16"``). Each counter moves only where its kernel
     launches on the card, never for a plain version."""
-    from . import fast_newt, newt_fused
+    from . import fast_newt, newt_fused, roofline
 
     wrappers = (newt_fused.film_shaper_cr, newt_fused.film_shaper_fl,
                 newt_fused.film_shaper_stream, newt_fused.bank_film_shaper_xcr,
-                newt_fused.bank_newt_xfull, fast_newt.fast_newt_lookup)
+                newt_fused.bank_newt_xfull, fast_newt.fast_newt_lookup, roofline.fma_chain,
+                roofline.psin_chain)
     return {f"{w.__name__}.{k}": v for w in wrappers for k, v in sorted(vars(w).items())
             if "launches" in k}

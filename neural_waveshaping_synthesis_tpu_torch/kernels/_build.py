@@ -33,6 +33,7 @@ KERNELS = (
     "fast_newt_lookup",
     "newt_fused_x",
     "newt_fused_x_bwd",
+    "roofline_chain",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
