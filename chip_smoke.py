@@ -344,9 +344,24 @@ exits non-zero:
    within 1e-5 of its float64 oracle);
 62. notebook: every code cell of ``colab/NEWT_Timbre_Transfer_torch.ipynb``
    on the card on a 4-s tone: kernel 1 and the FastNEWT lookup launch, no
-   plain version runs, the outputs as ``tests/test_torch_notebook.py`` checks.
+   plain version runs, the outputs as ``tests/test_torch_notebook.py`` checks;
+63. train_chunked: the chunked ``Trainer.fit`` (the train split on the card,
+   chunks of 10 steps, the step one CUDA graph replayed after a warm-up) at
+   the recipe, 8 x 4 s at ``"full_lane_cr"``, 40 steps with log 10 and
+   validation 20: (a) its per-step losses and grad norms against an eager
+   loop of ``Trainer.train_step`` over the same batches and draws from the
+   same init, bit-identical where two eager twins are, else within twice
+   their difference + 1e-6 (the resume rule); (b) the lazy fit against the
+   in-memory one, the same rule; (c) kernels 1 and 2's counters over one
+   more chunk against the kernels of that chunk in a ``torch.profiler``
+   trace; (d) ``fit(restore=True)`` on the same Trainer recaptures once and
+   equals a fresh Trainer's resumed run; (e) steps/s of the graphed chunk
+   and of the eager steps in turns, each form's device busy time and idle
+   share, the fits' host ms a step by stage, the capture's seconds and its
+   pool's bytes. Since this phase the earlier fits and CLI runs go through
+   the chunked fit too.
 
-Then the kernels line (the numbers of phases 3-62 per kernel, with its
+Then the kernels line (the numbers of phases 3-63 per kernel, with its
 least possible time on an H100 from its bytes and operations; kernels 1, 2,
 4, 5, 6, 7 and 8's bf16 instances and kernel 9's four instances as entries
 of their own) and, last,
@@ -357,10 +372,12 @@ import contextlib
 import copy
 import csv
 import dataclasses
+import gc
 import importlib.util
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -411,7 +428,7 @@ from neural_waveshaping_synthesis_tpu_torch.parallel import (
     make_time_sharded_renderer,
 )
 from neural_waveshaping_synthesis_tpu_torch.utils import trajectory
-from neural_waveshaping_synthesis_tpu_torch.utils.profiling import differential_loop_ms
+from neural_waveshaping_synthesis_tpu_torch.utils.profiling import device_busy, differential_loop_ms
 from neural_waveshaping_synthesis_tpu_torch.training import (
     Optimizer,
     TrainConfig,
@@ -3397,8 +3414,13 @@ def ddp_run(trainer, dm):
     mesh, model = trainer.mesh, trainer.model
     reset_counts()
     batch = trainer.to_device(next(dm.train_batches((trainer.cfg.seed, 2, 0), mesh=mesh)))
-    loss0 = compute_loss(model, batch, step_generator(trainer.cfg.seed, 0, 0), mesh=mesh)
-    loss0.backward()
+    loss = compute_loss(model, batch, step_generator(trainer.cfg.seed, 0, 0), mesh=mesh)
+    loss.backward()
+    loss0 = float(loss.detach())
+    # the step's autograd graph goes with its loss: alive, it would keep the
+    # gradient accumulators on this stream, where fit's graph capture cannot
+    # reach them
+    del loss
     all_reduce_sum_([p.grad for p in model.parameters()], mesh)
     grads0 = leaf_grads(model)
     trainer.optimizer.zero_grad()
@@ -3409,7 +3431,7 @@ def ddp_run(trainer, dm):
     local = next(dm.train_batches((trainer.cfg.seed, 2, 0), mesh=mesh))
     torch.cuda.reset_peak_memory_stats()
     step_ms = [1e3 * synced_s(lambda: trainer.train_step(local))[1] for _ in range(DDP_TIMED)]
-    return {"loss0": float(loss0.detach()), "grads0": grads0, "loss": history["loss"],
+    return {"loss0": loss0, "grads0": grads0, "loss": history["loss"],
             "val": history["val"], "counts": got, "params": params, "step_ms": step_ms,
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
@@ -3777,8 +3799,8 @@ def measure_cli_phases(dev, root, tmp):
                         "-b", "TrainConfig.log_every_n_steps = 5"],
                        ["cr", "bwd"], env={"NWS_TPU_HOST_PROFILE": "1"})
     host = lines_with(text, "[trainer] host profile:", "[trainer] val profile")
-    if len(host) != 3 or not all(stage in host[-1] for stage in (
-            "batch:", "to_device:", "step_dispatch:", "loss_fetch+device_wait:", "log:",
+    if len(host) != 3 or not all(stage in host[-1] for stage in (  # in memory: JAX's fast path
+            "indices:", "gather_dispatch:", "step_dispatch:", "loss_fetch+device_wait:", "log:",
             "val+checkpoint:")):
         raise RuntimeError(f"host profile lines: {host}")
     emit({**record, "lines": host})
@@ -4027,6 +4049,167 @@ def queue1_phases(dev, root, tmp):
     return {"chain": chain, "launches": launches}
 
 
+CHUNK_STEPS, CHUNK_LOG, CHUNK_VAL = 40, 10, 20  # chunks of gcd(10, 20) = 10 steps
+CHUNK_TIMED = 3  # chunks timed for each form
+
+
+def eager_steps(trainer, dm, steps):
+    """An eager loop of ``Trainer.train_step`` over ``train_batches``, pass
+    after pass, from the trainer's step -> (losses, grad norms)."""
+    stream = trainer._stream(dm, "train_batches")
+    metrics = [trainer.train_step(next(stream)) for _ in range(steps)]
+    return ([float(m["loss"]) for m in metrics], [float(m["grad_norm"]) for m in metrics])
+
+
+def host_profile(text, steps):
+    """``[trainer] host profile:`` of a fit's output -> ms per step by stage."""
+    line = next(l for l in text.splitlines() if l.startswith("[trainer] host profile: "))
+    stages = (part.split(": ") for part in line[len("[trainer] host profile: "):].split(" | "))
+    return {name: 1e3 * float(value.rstrip("s")) / steps for name, value in stages}
+
+
+def train_chunked_phase(dev, root, tmp):
+    """Phase 63 (the chunked fit: the training split on the card, N steps a
+    chunk, the step a CUDA graph) -> the launches of kernels 1 and 2."""
+    dm = GeneralDataModule(root, batch_size=8)
+    lazy_dm = GeneralDataModule(root, batch_size=8, load_to_memory=False)
+    val_batches = dm.n_batches("val")
+    launches = {"cr": 0, "bwd": 0}
+
+    def cfg(steps, folder):
+        return TrainConfig(max_steps=steps, val_every_n_steps=CHUNK_VAL,
+                           log_every_n_steps=CHUNK_LOG, checkpoint_dir=str(tmp / folder))
+
+    def fit(trainer, data, steps, restore=False):
+        """A counted fit under NWS_TPU_HOST_PROFILE -> (history, its host
+        stages in ms a step, seconds)."""
+        vals = steps // CHUNK_VAL + (steps % CHUNK_VAL != 0)
+        out = io.StringIO()
+        os.environ["NWS_TPU_HOST_PROFILE"] = "1"
+        try:
+            with contextlib.redirect_stdout(out):
+                history, got, seconds = counted(lambda: trainer.fit(data, restore=restore),
+                                                {"cr": steps + val_batches * vals, "bwd": steps})
+        finally:
+            del os.environ["NWS_TPU_HOST_PROFILE"]
+        launches["cr"] += got["cr"]
+        launches["bwd"] += got["bwd"]
+        return history, host_profile(out.getvalue(), steps), seconds
+
+    # (a) the graphed fit in memory against two eager twins from the same init
+    twins = []
+    for _ in range(2):
+        eager = Trainer(recipe_model(0), cfg(CHUNK_STEPS, "unused"), device="cuda")
+        twins.append(counted(lambda: eager_steps(eager, dm, CHUNK_STEPS),
+                             {"cr": CHUNK_STEPS, "bwd": CHUNK_STEPS})[0])
+        launches["cr"] += CHUNK_STEPS
+        launches["bwd"] += CHUNK_STEPS
+    graphed = Trainer(recipe_model(0), cfg(CHUNK_STEPS, "graphed"), device="cuda")
+    history, first_stages, fit_s = fit(graphed, dm, CHUNK_STEPS)
+    program = graphed._program
+    shutil.copytree(tmp / "graphed", tmp / "graphed_copy")
+    # the same Trainer on to twice the steps, its graph replayed from the
+    # first step: the host's stages without the warm-up and the capture
+    graphed.cfg = cfg(2 * CHUNK_STEPS, "graphed_more")
+    _, stages, more_s = fit(graphed, dm, CHUNK_STEPS)
+    # its steps/s, the validations' host time taken out
+    fit_rate = CHUNK_STEPS / (more_s - stages["val+checkpoint"] * CHUNK_STEPS / 1e3)
+    twins_bitwise = twins[0] == twins[1]
+    twins_rel = max(max_rel(twins[1][0], twins[0][0]), max_rel(twins[1][1], twins[0][1]))
+    bar = 0.0 if twins_bitwise else 2 * twins_rel + 1e-6
+    graph_rel = max(max_rel(history["loss"], twins[0][0]),
+                    max_rel(history["grad_norm"], twins[0][1]))
+    # (b) lazy against in memory
+    lazy = Trainer(recipe_model(0), cfg(CHUNK_STEPS, "lazy"), device="cuda")
+    lazy_history, lazy_stages, lazy_s = fit(lazy, lazy_dm, CHUNK_STEPS)
+    lazy_bitwise = lazy_history == history
+    lazy_rel = max(max_rel(lazy_history["loss"], history["loss"]),
+                   max_rel(lazy_history["grad_norm"], history["grad_norm"]))
+    del lazy
+
+    # (c) one more chunk of the graph: the counters against the profiler's
+    split = graphed.device_split(dm.dataset("train"))
+    rows = graphed._stream(dm, "train_rows")
+
+    def chunk():
+        program.set_rows(np.stack([next(rows) for _ in range(CHUNK_LOG)]))
+        program.gather(split, CHUNK_LOG)
+        return program.run(CHUNK_LOG)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    got = counts()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced = {"cr": sum("film_shaper_cr_kernel" in n for n in names),
+              "bwd": sum("film_shaper_cr_bwd_kernel" in n for n in names)}
+    counted_chunk = {k: got[k] for k in traced}
+    launches["cr"] += got["cr"]
+    launches["bwd"] += got["bwd"]
+    del prof, names  # the trace's events, lest collecting them pause the timings below
+    gc.collect()
+
+    # (e) the two forms after the warm-up, in turns: steps/s, device busy and
+    # idle share. A timed chunk draws its steps' randomness on the host first,
+    # as the eager steps do in theirs; fit draws the next chunk's while the
+    # card runs this one (fit_steps_per_s above)
+    batches = [b for epoch in range(2) for b in dm.train_batches((0, 2, epoch))]
+    step_i = iter(range(10**9))
+
+    def eager_chunk():
+        for _ in range(CHUNK_LOG):
+            graphed.train_step(batches[next(step_i) % len(batches)])
+
+    reset_counts()
+    rates = {"graphed": [], "eager": []}
+    for _ in range(CHUNK_TIMED):  # in turns
+        for name, fn in (("graphed", chunk), ("eager", eager_chunk)):
+            rates[name].append(CHUNK_LOG / synced_s(fn)[1])
+    busy = {"graphed": device_busy(chunk, runs=2), "eager": device_busy(eager_chunk, runs=2)}
+    got = counts()
+    launches["cr"] += got["cr"]
+    launches["bwd"] += got["bwd"]
+
+    # (d) fit(restore=True) on the same Trainer drops the graph and captures
+    # anew; a fresh Trainer's resumed run is the reference
+    captures = graphed.graph_captures
+    graphed.cfg = cfg(CHUNK_STEPS + 2 * CHUNK_LOG, "graphed")
+    again, _, _ = fit(graphed, dm, 2 * CHUNK_LOG, restore=True)
+    recaptured = graphed.graph_captures - captures
+    fresh = Trainer(recipe_model(7), cfg(CHUNK_STEPS + 2 * CHUNK_LOG, "graphed_copy"), device="cuda")
+    fresh_history, _, _ = fit(fresh, dm, 2 * CHUNK_LOG, restore=True)
+    resume_rel = max(max_rel(again["loss"], fresh_history["loss"]),
+                     max_rel(again["grad_norm"], fresh_history["grad_norm"]))
+    emit({"phase": "train_chunked", "B": 8, "clip_s": 4.0, "fused": "full_lane_cr",
+          "steps": CHUNK_STEPS, "chunk": program.length, "log_every": CHUNK_LOG,
+          "val_every": CHUNK_VAL, "graph_launches": program.graph_launches,
+          "capture_s": program.capture_s, "graph_pool_bytes": program.pool_bytes,
+          "twins_bit_identical": twins_bitwise, "twins_max_rel": twins_rel, "bar": bar,
+          "graphed_vs_eager_bit_identical": (history["loss"], history["grad_norm"]) == twins[0],
+          "graphed_vs_eager_max_rel": graph_rel,
+          "lazy_vs_in_memory_bit_identical": lazy_bitwise, "lazy_vs_in_memory_max_rel": lazy_rel,
+          "chunk_launches_counted": counted_chunk, "chunk_launches_traced": traced,
+          "recaptures": recaptured, "resumed_vs_fresh_bit_identical": again == fresh_history,
+          "resumed_vs_fresh_max_rel": resume_rel,
+          "steps_per_s": rates, "fit_steps_per_s": fit_rate, "device_busy_per_chunk": busy,
+          "host_ms_per_step": {"in_memory_first_fit": first_stages, "in_memory": stages,
+                               "lazy": lazy_stages},
+          "fit_s": {"in_memory": fit_s, "lazy": lazy_s},
+          "loss": history["loss"][::CHUNK_LOG], "val": history["val"]})
+    if not np.all(np.isfinite(history["loss"])) or graph_rel > bar:
+        raise RuntimeError(f"train_chunked: graphed losses {graph_rel} from the eager loop, bar {bar}")
+    if lazy_rel > bar or (twins_bitwise and not lazy_bitwise):
+        raise RuntimeError(f"train_chunked: lazy {lazy_rel} from in memory, bar {bar}")
+    if counted_chunk != traced or traced != {"cr": CHUNK_LOG, "bwd": CHUNK_LOG}:
+        raise RuntimeError(f"train_chunked: counted {counted_chunk}, traced {traced}")
+    if recaptured != 1 or resume_rel > bar or (twins_bitwise and again != fresh_history):
+        raise RuntimeError(f"train_chunked: recaptures {recaptured}, resumed {resume_rel} from fresh")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -4179,6 +4362,7 @@ def main() -> int:
         x = exciter_fused_phases(dev, synth, root, tmp, batch, single)
         mp = mixed_precision_phases(dev, root, tmp)
         rt = runtime_phases(dev, root, tmp)
+        tc = train_chunked_phase(dev, root, tmp)
         pre = preprocess_phases(dev, tmp)
         fl16 = audio_rate_bf16_phases(dev, root, tmp)
         xb = exciter_fused_bf16_phases(dev, root, tmp)
@@ -4190,8 +4374,8 @@ def main() -> int:
         "name": "film_shaper_fused_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:779",
-        "launches": (launches + train["fwd_launches"] + rt["cr"] + pre["cr"] + par["cr"] + mc["cr"]
-                     + q1["launches"]["cr"]),
+        "launches": (launches + train["fwd_launches"] + rt["cr"] + tc["cr"] + pre["cr"] + par["cr"]
+                     + mc["cr"] + q1["launches"]["cr"]),
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -4199,8 +4383,8 @@ def main() -> int:
         "name": "_fused_bwd_cr", "route": "cuda",
         "source": "neural_waveshaping_synthesis_tpu_torch/kernels/csrc/newt_fused_cr_bwd.cu",
         "replaces": "neural_waveshaping_synthesis_tpu/kernels/newt_fused.py:822",
-        "launches": (train["bwd_launches"] + rt["bwd"] + pre["bwd"] + par["bwd"] + mc["bwd"]
-                     + q1["launches"]["bwd"]),
+        "launches": (train["bwd_launches"] + rt["bwd"] + tc["bwd"] + pre["bwd"] + par["bwd"]
+                     + mc["bwd"] + q1["launches"]["bwd"]),
         "max_abs_err": train["max_abs_err"],
         "ms": train["ms"], "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
         "bound_by": train["bound_by"], "library_ms": None,

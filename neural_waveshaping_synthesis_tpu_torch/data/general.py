@@ -124,14 +124,25 @@ class GeneralDataModule:
         bs = self._batch_size(split)
         return len(self.dataset(split)) // bs if bs else 0
 
-    def _batches(self, split: str, order: np.ndarray, start: int = 0,
-                 mesh: Optional[Mesh] = None) -> Iterator[Dict]:
-        ds, bs = self.dataset(split), self._batch_size(split)
+    def _rows(self, split: str, order: np.ndarray, start: int = 0,
+              mesh: Optional[Mesh] = None) -> Iterator[np.ndarray]:
+        bs = self._batch_size(split)
         for i in range(start, self.n_batches(split)):
             rows = order[i * bs : (i + 1) * bs]
-            if mesh is not None:
-                rows = batch_sharding(mesh)(rows)
+            yield rows if mesh is None else batch_sharding(mesh)(rows)
+
+    def _batches(self, split: str, order: np.ndarray, start: int = 0,
+                 mesh: Optional[Mesh] = None) -> Iterator[Dict]:
+        ds = self.dataset(split)
+        for rows in self._rows(split, order, start, mesh):
             yield ds.batch(rows)
+
+    def train_rows(self, seed, start: int = 0, mesh: Optional[Mesh] = None) -> Iterator[np.ndarray]:
+        """The row indices of :meth:`train_batches`' batches, in its order,
+        nothing loaded: what the trainer gathers from a split it holds on
+        its device."""
+        n = len(self.dataset("train"))
+        return self._rows("train", np.random.default_rng(seed).permutation(n), start, mesh)
 
     def train_batches(self, seed, start: int = 0, mesh: Optional[Mesh] = None) -> Iterator[Dict]:
         """One shuffled pass from its ``start``-th batch on (the earlier ones
@@ -140,8 +151,8 @@ class GeneralDataModule:
         ``mesh`` every rank draws the same order and loads only its
         contiguous rows of each global batch (``parallel.batch_sharding``;
         ValueError when the batch does not divide by the world size)."""
-        n = len(self.dataset("train"))
-        return self._batches("train", np.random.default_rng(seed).permutation(n), start, mesh)
+        ds = self.dataset("train")
+        return (ds.batch(rows) for rows in self.train_rows(seed, start, mesh))
 
     def val_batches(self, mesh: Optional[Mesh] = None) -> Iterator[Dict]:
         return self._batches("val", np.arange(len(self.dataset("val"))), mesh=mesh)

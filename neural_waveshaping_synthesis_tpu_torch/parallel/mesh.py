@@ -44,9 +44,9 @@ class Mesh:
 
     @property
     def distributed(self) -> bool:
-        """True when a process group is initialised, at any world size:
-        the gradient is then summed through it (at world size 1 a no-op
-        that keeps the group's backend on the path)."""
+        """True when a process group is initialised, at any world size
+        (at world size 1 :func:`all_reduce_sum_` has nothing to sum and
+        calls no collective, so a CUDA graph can hold the step)."""
         return self.group is not None
 
 
@@ -121,8 +121,8 @@ def shard_batch(batch: Dict, mesh: Mesh) -> Dict:
 def all_reduce_sum_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
     """Sum each tensor over the mesh's ranks, in place, through one flat
     bucket: one collective for all of them. Every rank gets the same bits.
-    Nothing to do without a process group."""
-    if not mesh.distributed or not tensors:
+    Nothing to do without a process group or over one rank."""
+    if not mesh.distributed or mesh.world_size == 1 or not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, group=mesh.group)

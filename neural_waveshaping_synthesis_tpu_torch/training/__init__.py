@@ -3,10 +3,12 @@ the Trainer, its checkpoints and its loggers."""
 from .logging import ConsoleLogger, CSVLogger, WandbLogger
 from .loss import multi_resolution_stft_loss, stft_loss
 from .trainer import (
+    MultiTrainStep,
     Optimizer,
     TrainConfig,
     Trainer,
     checkpoint_index,
+    chunk_length,
     clip_by_global_norm_,
     compute_loss,
     make_lr_schedule,
@@ -21,10 +23,12 @@ __all__ = [
     "WandbLogger",
     "multi_resolution_stft_loss",
     "stft_loss",
+    "MultiTrainStep",
     "Optimizer",
     "TrainConfig",
     "Trainer",
     "checkpoint_index",
+    "chunk_length",
     "clip_by_global_norm_",
     "compute_loss",
     "make_lr_schedule",

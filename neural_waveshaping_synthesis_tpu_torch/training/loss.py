@@ -56,7 +56,8 @@ def stft_loss_sums(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int, win: 
     window = hann_window(win, periodic=True, device=x.device)
     x_mag = spectrogram_magnitude(x, n_fft, hop, win, window)
     y_mag = spectrogram_magnitude(y, n_fft, hop, win, window)
-    count = torch.tensor(float(y_mag.numel()), dtype=y_mag.dtype, device=y_mag.device)
+    # made on the device (a fill, no host-to-device copy), so a CUDA graph can hold it
+    count = torch.full((), float(y_mag.numel()), dtype=y_mag.dtype, device=y_mag.device)
     return torch.stack([
         torch.sum(torch.square(y_mag - x_mag)),
         torch.sum(torch.square(y_mag)),

@@ -207,10 +207,14 @@ def _write_shards(root: Path, tc=16, hop=128, splits=(("train", 2), ("val", 1)))
     return str(root)
 
 
-def test_fit_host_profile_prints_the_stages_and_keeps_the_losses(tmp_path, monkeypatch, capsys):
+@pytest.mark.parametrize("load_to_memory", [True, False], ids=["in_memory", "lazy"])
+def test_fit_host_profile_prints_the_stages_and_keeps_the_losses(tmp_path, monkeypatch, capsys,
+                                                                 load_to_memory):
     """With NWS_TPU_HOST_PROFILE set fit prints each validation's split and
-    the run's stages under JAX's names; the losses and validation losses are
-    bit-identical to a run without it."""
+    the run's stages under JAX's names: in memory those of JAX's fast path
+    (``indices``, ``gather_dispatch``), lazy ``batch`` and ``to_device`` in
+    their place; the losses and validation losses are bit-identical to a run
+    without it."""
     root = _write_shards(tmp_path / "data")
     runs = []
     for profile in ("", "1"):
@@ -219,16 +223,21 @@ def test_fit_host_profile_prints_the_stages_and_keeps_the_losses(tmp_path, monke
                           checkpoint_dir=str(tmp_path / f"ck{profile}"))
         trainer = Trainer(NeuralWaveshaping(generator=torch.Generator().manual_seed(0)), cfg,
                           device="cpu")
-        runs.append(trainer.fit(GeneralDataModule(root, batch_size=1)))
+        runs.append(trainer.fit(GeneralDataModule(root, batch_size=1,
+                                                  load_to_memory=load_to_memory)))
         out = capsys.readouterr().out
         assert ("host profile" in out) == bool(profile)
     assert runs[0] == runs[1] and len(runs[0]["loss"]) == 2
     host = [line for line in out.splitlines() if line.startswith("[trainer] host profile: ")]
     val = [line for line in out.splitlines() if line.startswith("[trainer] val profile @step 2: ")]
     assert len(host) == 1 and len(val) == 1
-    for name in ("batch", "to_device", "step_dispatch", "loss_fetch+device_wait", "log",
-                 "val+checkpoint"):
+    data_stages = ("indices", "gather_dispatch") if load_to_memory else ("batch", "to_device")
+    other = ("batch", "to_device") if load_to_memory else ("indices", "gather_dispatch")
+    for name in data_stages + ("step_dispatch", "loss_fetch+device_wait", "log",
+                               "val+checkpoint"):
         assert f"{name}: " in host[0], name
+    for name in other:
+        assert f"{name}: " not in host[0], name
     for name in ("eval", "log+params", "checkpoint"):
         assert f"{name}: " in val[0], name
 
