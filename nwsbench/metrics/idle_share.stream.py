@@ -1,0 +1,6 @@
+"""The device's idle share over the traced slice, in the ``stream`` cells."""
+from nwsbench.readers import idle_share
+
+
+def read(rec):
+    return idle_share(rec, "stream")
